@@ -1,0 +1,111 @@
+"""Parameter specification trees, materialised as torch tensors.
+
+Models declare parameters as nested dicts of :class:`ParamSpec` (shape +
+dtype + logical axes + initializer), the same trees as the JAX package, so
+``tree_paths`` names agree between the two and parameters carry across with
+:func:`params_from_jax`.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "int32": torch.int32}
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+    init: str = "normal"        # normal | zeros | ones | scaled
+    scale: float = 0.02
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in rank")
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_paths(tree, prefix: str = "") -> dict[str, ParamSpec]:
+    out: dict[str, ParamSpec] = {}
+    if is_spec(tree):
+        out[prefix.rstrip("/")] = tree
+        return out
+    for k, v in tree.items():
+        out.update(tree_paths(v, f"{prefix}{k}/"))
+    return out
+
+
+def _rebuild(tree, values: dict, prefix: str = ""):
+    if is_spec(tree):
+        return values[prefix.rstrip("/")]
+    return {k: _rebuild(v, values, f"{prefix}{k}/") for k, v in tree.items()}
+
+
+def init_params(tree, generator: torch.Generator, device=None) -> dict:
+    """Materialise a spec tree on ``device`` with draws from ``generator``
+    (which must live on that device).  The initializers are the JAX
+    package's; the random numbers are torch's, so they differ from
+    ``jax.random`` for the same seed."""
+    device = resolve_device(device)
+    values: dict[str, torch.Tensor] = {}
+    for name, s in sorted(tree_paths(tree).items()):
+        dtype = DTYPES[s.dtype]
+        if s.init == "zeros":
+            v = torch.zeros(s.shape, dtype=dtype, device=device)
+        elif s.init == "ones":
+            v = torch.ones(s.shape, dtype=dtype, device=device)
+        else:
+            v = torch.randn(s.shape, generator=generator, device=device,
+                            dtype=torch.float32)
+            if s.init == "scaled":  # fan-in scaled normal
+                fan_in = s.shape[0] if s.shape else 1
+                v = v / math.sqrt(max(fan_in, 1))
+            else:
+                v = v * s.scale
+            v = v.to(dtype)
+        values[name] = v
+    return _rebuild(tree, values)
+
+
+def _to_torch(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        # torch.from_numpy refuses ml_dtypes' bfloat16: carry the bits
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def params_from_jax(tree, device=None) -> dict:
+    """Nested dict of numpy arrays (e.g. ``jax.tree.map(np.asarray, p)``)
+    -> the same tree of torch tensors, bf16 bit for bit."""
+    device = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _to_torch(x, device)
+
+    return conv(tree)
+
+
+def param_bytes(tree) -> int:
+    return sum(int(np.prod(s.shape)) * DTYPES[s.dtype].itemsize
+               for s in tree_paths(tree).values())
+
+
+def param_count(tree) -> int:
+    return sum(int(np.prod(s.shape)) for s in tree_paths(tree).values())

@@ -1,0 +1,285 @@
+"""Dense-family LM assembly: the serving path of the dense Llama family.
+
+Public entry points are plain functions of (cfg, params, batch), with the
+JAX package's names, signatures and layouts (layer-stacked weights [L, ...],
+cache [L, B, S_max, kv, hd]):
+
+  model_specs(cfg)                       -> ParamSpec tree
+  forward(cfg, params, batch)            -> (loss, logits)      [eval]
+  prefill(cfg, params, batch)            -> last-token logits   [inference]
+  decode_step(cfg, params, cache, batch) -> (logits, cache)
+  init_cache_specs(cfg, batch, max_len)  -> cache ParamSpec tree
+
+:class:`TransformerLM` is the ``nn.Module`` that owns the parameters and
+calls these functions.  The MoE, MLA, SSM and hybrid branches raise
+``NotImplementedError`` until their families are ported.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from .attention import attention_specs, gqa_decode, gqa_forward
+from .common import (embed_lookup, embedding_spec, norm_spec, rms_norm,
+                     softcap)
+from .mlp import mlp_forward, mlp_specs
+from .params import DTYPES, ParamSpec, init_params
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if (cfg.family in ("ssm", "hybrid") or cfg.moe is not None
+            or cfg.mla is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family (MoE/MLA/SSM/hybrid "
+            "branches) is not ported yet (ROADMAP, Queue 1 item 6)")
+
+
+# --------------------------------------------------------------------------
+# parameter specs
+# --------------------------------------------------------------------------
+
+def _layer_specs(cfg: ModelConfig, stacked: int) -> dict:
+    """One transformer block's specs (attention + mlp + norms)."""
+    _check_family(cfg)
+    dt = cfg.dtype
+
+    def n(shape, axes):
+        if stacked:
+            return ParamSpec((stacked, *shape), ("layers", *axes),
+                             init="ones", dtype=dt)
+        return ParamSpec(shape, axes, init="ones", dtype=dt)
+
+    return {"ln1": n((cfg.d_model,), ("norm",)),
+            "ln2": n((cfg.d_model,), ("norm",)),
+            "attn": attention_specs(cfg, stacked),
+            "mlp": mlp_specs(cfg, stacked)}
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    dt = cfg.dtype
+    specs: dict = {
+        "embed": embedding_spec(cfg.vocab_size, cfg.d_model, dt),
+        "final_norm": norm_spec(cfg.d_model, dt),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                     ("embed", "vocab"), init="scaled",
+                                     dtype=dt)
+    specs["layers"] = _layer_specs(cfg, stacked=cfg.num_layers)
+    return specs
+
+
+# --------------------------------------------------------------------------
+# blocks
+# --------------------------------------------------------------------------
+
+def _layer_window(cfg: ModelConfig, layer_idx: int) -> int:
+    """Per-layer sliding window (0 = full attention)."""
+    if cfg.local_global_pattern > 0:
+        # gemma2: even layers local (window), odd layers global
+        is_local = layer_idx % cfg.local_global_pattern == 0
+        return cfg.sliding_window if is_local else 0
+    return cfg.sliding_window
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a layer-stacked parameter tree (views, no copy)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def attn_block(cfg: ModelConfig, lp: dict, h: torch.Tensor,
+               positions: torch.Tensor, layer_idx: int) -> torch.Tensor:
+    x = rms_norm(h, lp["ln1"], cfg.rms_eps)
+    h = h + gqa_forward(cfg, lp["attn"], x, positions,
+                        layer_window=_layer_window(cfg, layer_idx))
+    x = rms_norm(h, lp["ln2"], cfg.rms_eps)
+    return h + mlp_forward(cfg, lp["mlp"], x)
+
+
+# --------------------------------------------------------------------------
+# embedding / head
+# --------------------------------------------------------------------------
+
+def _embed(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    if cfg.frontend == "stub":
+        return batch["embeds"].to(DTYPES[cfg.dtype])
+    h = embed_lookup(batch["tokens"], params["embed"])
+    if cfg.tie_embeddings:
+        h = h * math.sqrt(cfg.d_model)
+    return h
+
+
+def _logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Final norm and head; logits in f32 (the reference's
+    ``preferred_element_type=float32``: bf16 products are exact in f32)."""
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    table = (params["embed"].T if cfg.tie_embeddings
+             else params["lm_head"])
+    logits = torch.matmul(h.float(), table.float())
+    return softcap(logits, cfg.final_logit_softcap)
+
+
+def _positions(batch: dict) -> torch.Tensor:
+    if "positions" in batch:
+        return batch["positions"]
+    lead = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    b, s = lead.shape[0], lead.shape[1]
+    return torch.arange(s, dtype=torch.int32,
+                        device=lead.device).expand(b, s)
+
+
+# --------------------------------------------------------------------------
+# forward (eval)
+# --------------------------------------------------------------------------
+
+def _scan_layers(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """The reference's layer scan as a Python loop over the stacked
+    weights."""
+    _check_family(cfg)
+    for i in range(cfg.num_layers):
+        h = attn_block(cfg, _layer(params["layers"], i), h, positions, i)
+    return h
+
+
+def forward(cfg: ModelConfig, params: dict, batch: dict):
+    """Returns (loss, logits). batch: tokens/embeds, targets, [positions]."""
+    if cfg.loss_vocab_chunk > 0:
+        raise NotImplementedError("vocab-chunked cross entropy comes with "
+                                  "the training slice (ROADMAP, Queue 1 "
+                                  "item 2)")
+    h = _embed(cfg, params, batch)
+    h = _scan_layers(cfg, params, h, _positions(batch))
+    logits = _logits(cfg, params, h)
+    return cross_entropy(logits, batch["targets"]), logits
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Stable softmax CE, mean over tokens. logits: [B,S,V] f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
+# --------------------------------------------------------------------------
+# inference: prefill + decode
+# --------------------------------------------------------------------------
+
+def cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int) -> dict:
+    """KV cache description (shape, dtype, logical axes) for one batch."""
+    _check_family(cfg)
+    hd = cfg.resolved_head_dim
+    eff_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+               else max_len)
+    kv_shape = (cfg.num_layers, batch_size, eff_len, cfg.num_kv_heads, hd)
+    return {
+        "index": ((), "int32", ()),
+        "k": (kv_shape, cfg.dtype,
+              ("layers", "batch", "cache_seq", "kv_heads", "qk_dim")),
+        "v": (kv_shape, cfg.dtype,
+              ("layers", "batch", "cache_seq", "kv_heads", "v_dim")),
+    }
+
+
+def init_cache_specs(cfg: ModelConfig, batch_size: int, max_len: int) -> dict:
+    return {name: ParamSpec(shape, axes, init="zeros", dtype=dtype)
+            for name, (shape, dtype, axes)
+            in cache_shapes(cfg, batch_size, max_len).items()}
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
+    """One autoregressive step. batch: tokens [B,1] (or embeds [B,1,d]).
+
+    The cache index is carried in ``cache["index"]`` (a 0-d tensor).  The
+    K/V tensors of ``cache`` are updated in place; the returned cache holds
+    them and the advanced index.
+    """
+    _check_family(cfg)
+    h = _embed(cfg, params, batch)
+    index = cache["index"]
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        x = rms_norm(h, lp["ln1"], cfg.rms_eps)
+        y, _, _ = gqa_decode(cfg, lp["attn"], x, cache["k"][i],
+                             cache["v"][i], index,
+                             layer_window=_layer_window(cfg, i))
+        h = h + y
+        x = rms_norm(h, lp["ln2"], cfg.rms_eps)
+        h = h + mlp_forward(cfg, lp["mlp"], x)
+    logits = _logits(cfg, params, h)
+    return logits[:, -1], dict(cache, index=index + 1)
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Process a full prompt; returns last-token logits [B, V] (f32).  The
+    head runs on the last position only: the same numbers, without the
+    [B, S, V] logits."""
+    h = _embed(cfg, params, batch)
+    h = _scan_layers(cfg, params, h, _positions(batch))
+    return _logits(cfg, params, h[:, -1:].contiguous())[:, -1]
+
+
+# --------------------------------------------------------------------------
+# module
+# --------------------------------------------------------------------------
+
+class _ParamTree(nn.Module):
+    """A nested parameter dict as registered (frozen) parameters."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def as_dict(self) -> dict:
+        out = {k: p for k, p in self.named_parameters(recurse=False)}
+        out.update({k: m.as_dict() for k, m in self.named_children()})
+        return out
+
+
+class TransformerLM(nn.Module):
+    """Owns a dense LM's parameters and serves it.
+
+    ``params`` (e.g. from :func:`~repro_torch.models.params.params_from_jax`)
+    is taken as is; without it the parameters are drawn from ``generator``
+    on ``device`` (``None``: the card, which must exist)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        if params is None:
+            device = resolve_device(device)
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            params = init_params(model_specs(cfg), generator, device)
+        self.tree = _ParamTree(params)
+
+    @property
+    def params(self) -> dict:
+        return self.tree.as_dict()
+
+    def forward(self, batch: dict):
+        return forward(self.cfg, self.params, batch)
+
+    def prefill(self, batch: dict) -> torch.Tensor:
+        return prefill(self.cfg, self.params, batch)
+
+    def decode_step(self, cache: dict, batch: dict):
+        return decode_step(self.cfg, self.params, cache, batch)
+
+    def generate(self, prompt: torch.Tensor, max_new_tokens: int = 8,
+                 max_len: int = 128):
+        from ..serve.decode import greedy_decode
+        return greedy_decode(self.cfg, self.params, prompt,
+                             max_new_tokens=max_new_tokens, max_len=max_len)
