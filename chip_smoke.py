@@ -10,15 +10,16 @@ prints no result line):
 2. the build of every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
    with one ``nvcc`` call for sm_90a, timed;
 3. each kernel against its plain PyTorch version at the serving path's
-   shapes, in bf16 and f32, with its time, its bound, the plain version's
-   time and one PyTorch library call's time as a yardstick (the port never
-   calls that library function);
+   shapes and in the layout the path hands it, in bf16 and f32, with its
+   time, its bound, the plain version's time and one PyTorch library call's
+   time as a yardstick (the port never calls that library function);
 4. llama3-1b at full width in bf16 with seeded random weights: ``prefill``
    on 4 prompts of 2048 tokens and ``greedy_decode`` on 8 prompts of 64
    tokens (32 new tokens, max_len 128), with the kernels' launch counts
-   read around that run; then the logits of prefill and of
-   prefill-by-decode are held against ``attn_impl="chunked"`` and against
-   an f32 run of the same weights;
+   read around that run; then the first layer's attention output is held
+   against ``attn_impl="chunked"`` row by row, and the logits of prefill
+   and of prefill-by-decode against ``attn_impl="chunked"`` and an f32 run
+   of the same weights;
 5. where the time goes: ``torch.profiler`` over one prefill and over 8
    decode steps (device time by kernel, the device's busy share).
 
@@ -42,9 +43,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref, kernel_error)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
+    kernel_error as rmsnorm_error, rmsnorm_ref)
+from repro_torch.models.attention import gqa_forward  # noqa: E402
+from repro_torch.models.common import embed_lookup, rms_norm  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
 from repro_torch.models.transformer import (TransformerLM, decode_step,  # noqa: E402
                                             init_cache_specs, prefill)
@@ -55,8 +60,13 @@ from repro_torch.models.params import init_params  # noqa: E402
 # and HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}  # K1 vs its plain version
-RMS_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}  # K2 vs its plain version
+# K1 and K2 against their plain versions: the tolerances are in each
+# kernel's ref.py
+# one layer's bf16 attention output, K1 path against the plain path on the
+# same inputs: largest row error norm over the row's norm.  K1 rounds P to
+# bf16 where the plain path does not, and W_o's bf16 product carries that
+# difference on: about 2^-9 of a row.
+LAYER_ROW_TOL = 2.0 ** -6
 # bf16 logits of the serving path against the plain path and f32: see hold()
 LOGIT_FACTOR = 2.0
 
@@ -105,12 +115,24 @@ def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
 
 K1_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, q_offset
     ("prefill", 4, 32, 8, 2048, 2048, 64, True, 0, 0.0, 0),
+    # the layout gqa_forward passes: [B, S, H, D] projections seen as
+    # [B, H, S, D] through .transpose(1, 2)
+    ("prefill_bshd", 4, 32, 8, 2048, 2048, 64, True, 0, 0.0, 0),
     ("ragged", 2, 32, 8, 1000, 1000, 64, True, 0, 0.0, 0),
     ("window", 1, 32, 8, 2048, 2048, 64, True, 256, 0.0, 0),
     ("cap_offset", 2, 8, 2, 100, 612, 64, True, 0, 30.0, 512),
     ("bidir_d32", 2, 4, 4, 300, 333, 32, False, 0, 0.0, 0),
     ("d128", 1, 8, 2, 256, 256, 128, True, 0, 0.0, 0),
 ]
+
+
+def k1_inputs(gen, name, b, hq, hkv, sq, skv, d, dtype):
+    def randn(h, s):
+        if name.endswith("_bshd"):
+            return torch.randn(b, s, h, d, generator=gen, device="cuda"
+                               ).to(dtype).transpose(1, 2)
+        return torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
+    return randn(hq, sq), randn(hkv, skv), randn(hkv, skv)
 
 
 def k1_visible_pairs(sq, skv, causal, window, q_offset) -> int:
@@ -128,20 +150,20 @@ def check_k1(gen) -> dict:
     entry = None
     for dtype in (torch.bfloat16, torch.float32):
         for name, b, hq, hkv, sq, skv, d, causal, window, cap, off in K1_CASES:
-            q = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(dtype)
-            k = torch.randn(b, hkv, skv, d, generator=gen, device="cuda").to(dtype)
-            v = torch.randn(b, hkv, skv, d, generator=gen, device="cuda").to(dtype)
+            q, k, v = k1_inputs(gen, name, b, hq, hkv, sq, skv, d, dtype)
             kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=off)
             out = flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            ref = flash_attention_ref(q, k, v, **kw)
-            err = (out.float() - ref.float()).abs().max().item()
-            ok = math.isfinite(err) and err <= TOL[dtype]
-            log(f"  K1 {name:<11} {str(dtype)[6:]:<8} B={b} Hq={hq} Hkv={hkv} "
-                f"Sq={sq} Skv={skv} d={d} max_abs_err={err:.3e} "
-                f"(tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+            err, elem, row = kernel_error(out, q, k, v, **kw)
+            ok = all(math.isfinite(x) for x in (err, elem, row)) and max(
+                elem, row) <= 1.0
+            log(f"  K1 {name:<12} {str(dtype)[6:]:<8} B={b} Hq={hq} Hkv={hkv} "
+                f"Sq={sq} Skv={skv} d={d} max_abs_err={err:.3e}; in units of "
+                f"the tolerance: element {elem:.3f}, row {row:.3f} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"K1 {name} {dtype}: max abs err {err}")
+                raise AssertionError(f"K1 {name} {dtype}: max abs err {err}, "
+                                     f"element {elem}, row {row} of tol")
             if name != "prefill":
                 continue
             ms = device_ms(lambda: flash_attention(q, k, v, **kw))
@@ -165,31 +187,30 @@ def check_k1(gen) -> dict:
     return entry
 
 
-K2_CASES = [  # name, rows, d, w dtype (None: x's), offset
-    ("prefill", 8192, 2048, None, 0.0),
-    ("decode", 8, 2048, None, 0.0),
-    ("scalar_path", 37, 1001, None, 1.0),
-    ("f32_weight", 64, 2048, torch.float32, 0.0),
+K2_CASES = [  # name, rows, d, offset
+    ("prefill", 8192, 2048, 0.0),
+    ("decode", 8, 2048, 0.0),
+    ("scalar_path", 37, 1001, 1.0),
 ]
 
 
 def check_k2(gen) -> dict:
     entry = None
     for dtype in (torch.bfloat16, torch.float32):
-        for name, rows, d, wdt, offset in K2_CASES:
+        for name, rows, d, offset in K2_CASES:
             x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
             w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
-                 ).to(wdt or dtype)
+                 ).to(dtype)
             out = rmsnorm(x, w, 1e-5, offset)
             torch.cuda.synchronize()
-            ref = rmsnorm_ref(x, w, 1e-5, offset)
-            err = (out.float() - ref.float()).abs().max().item()
-            ok = math.isfinite(err) and err <= RMS_TOL[dtype]
+            err, elem = rmsnorm_error(out, x, w, 1e-5, offset)
+            ok = math.isfinite(elem) and elem <= 1.0
             log(f"  K2 {name:<11} {str(dtype)[6:]:<8} {rows}x{d} "
-                f"max_abs_err={err:.3e} (tol {RMS_TOL[dtype]:g}) "
-                f"{'ok' if ok else 'FAIL'}")
+                f"max_abs_err={err:.3e}; in units of the tolerance: element "
+                f"{elem:.3f} {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"K2 {name} {dtype}: max abs err {err}")
+                raise AssertionError(f"K2 {name} {dtype}: max abs err {err}, "
+                                     f"element {elem} of tol")
             if name not in ("prefill", "decode"):
                 continue
             ms = device_ms(lambda: rmsnorm(x, w, 1e-5))
@@ -290,6 +311,7 @@ def check_logits(cfg, params, logits, prompts, dprompts) -> None:
     chunked = cfg.scaled(attn_impl="chunked")
     cfg32 = cfg.scaled(attn_impl="chunked", dtype="float32")
     params32 = tree_map(params, lambda t: t.float())
+    check_layer(cfg, chunked, params, prompts)
     hold("prefill 4x2048 (K1 path)", logits,
          prefill(chunked, params, {"tokens": prompts}),
          prefill(cfg32, params32, {"tokens": prompts}))
@@ -301,6 +323,25 @@ def check_logits(cfg, params, logits, prompts, dprompts) -> None:
     hold("prefill-by-decode 8x64", dl,
          prefill(chunked, params, {"tokens": dprompts}),
          prefill(cfg32, params32, {"tokens": dprompts}))
+
+
+def check_layer(cfg, chunked, params, prompts) -> None:
+    """The first layer's attention output (``gqa_forward``, which hands K1
+    transposed views of its projections) from the K1 path against the plain
+    chunked path on the same bf16 inputs, held row by row."""
+    attn = {k: t[0] for k, t in params["layers"]["attn"].items()}
+    x = rms_norm(embed_lookup(prompts, params["embed"]),
+                 params["layers"]["ln1"][0], cfg.rms_eps)
+    pos = torch.arange(prompts.shape[1], dtype=torch.int32,
+                       device=prompts.device).expand(prompts.shape)
+    out = gqa_forward(cfg, attn, x, pos).float()
+    plain = gqa_forward(chunked, attn, x, pos).float()
+    row = ((out - plain).norm(dim=-1) / plain.norm(dim=-1)).max().item()
+    log(f"  layer 0 attention output 4x2048, K1 path against the plain "
+        f"path: largest row error {row:.3e} of the row's norm "
+        f"(tol {LAYER_ROW_TOL:g})")
+    if not row <= LAYER_ROW_TOL:
+        raise AssertionError(f"layer 0 attention: row error {row}")
 
 
 def hold(name: str, x, plain, ref32) -> None:

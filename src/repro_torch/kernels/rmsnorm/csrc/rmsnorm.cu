@@ -43,10 +43,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// T: type of x and y; W: type of the weight; VEC: 16-byte loads and stores.
-template <typename T, typename W, bool VEC>
+// T: type of x, w and y; VEC: 16-byte loads and stores.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w,
+rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                T* __restrict__ y, int d, float eps, float offset) {
   extern __shared__ float row[];  // d floats: the row, staged as f32
   __shared__ float warp_sums[kWarps];
@@ -103,10 +103,10 @@ rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w,
   }
 }
 
-template <typename T, typename W, bool VEC>
+template <typename T, bool VEC>
 cudaError_t launch(const void* x, const void* w, void* y, long long rows, int d,
                    float eps, float offset, cudaStream_t stream) {
-  auto kernel = rmsnorm_kernel<T, W, VEC>;
+  auto kernel = rmsnorm_kernel<T, VEC>;
   const size_t smem = static_cast<size_t>(d) * sizeof(float);
   if (smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -115,39 +115,33 @@ cudaError_t launch(const void* x, const void* w, void* y, long long rows, int d,
     if (e != cudaSuccess) return e;
   }
   kernel<<<static_cast<unsigned int>(rows), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<T*>(y),
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
       d, eps, offset);
   return cudaGetLastError();
 }
 
-template <typename T, typename W>
+template <typename T>
 cudaError_t dispatch_vec(const void* x, const void* w, void* y, long long rows,
                          int d, float eps, float offset, int vec,
                          cudaStream_t stream) {
-  return vec ? launch<T, W, true>(x, w, y, rows, d, eps, offset, stream)
-             : launch<T, W, false>(x, w, y, rows, d, eps, offset, stream);
+  return vec ? launch<T, true>(x, w, y, rows, d, eps, offset, stream)
+             : launch<T, false>(x, w, y, rows, d, eps, offset, stream);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  x and y are [rows, d] contiguous,
-// w is [d].  vec != 0 promises 16-byte aligned rows (d * sizeof(T) % 16 == 0
-// and a 16-byte aligned x and y).  Returns cudaGetLastError() after launch.
+// dtype codes: 0 = float32, 1 = bfloat16, for x, w and y alike.  x and y are
+// [rows, d] contiguous, w is [d].  vec != 0 promises 16-byte aligned rows
+// (d * sizeof(T) % 16 == 0 and a 16-byte aligned x and y).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int repro_rmsnorm(const void* x, const void* w, void* y,
                              long long rows, int d, float eps, float offset,
-                             int x_dtype, int w_dtype, int vec, void* stream) {
+                             int dtype, int vec, void* stream) {
   if (rows <= 0 || rows > 0x7fffffffLL || d <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && w_dtype == 0)
-    return dispatch_vec<float, float>(x, w, y, rows, d, eps, offset, vec, s);
-  if (x_dtype == 0 && w_dtype == 1)
-    return dispatch_vec<float, __nv_bfloat16>(x, w, y, rows, d, eps, offset,
-                                              vec, s);
-  if (x_dtype == 1 && w_dtype == 0)
-    return dispatch_vec<__nv_bfloat16, float>(x, w, y, rows, d, eps, offset,
-                                              vec, s);
-  if (x_dtype == 1 && w_dtype == 1)
-    return dispatch_vec<__nv_bfloat16, __nv_bfloat16>(x, w, y, rows, d, eps,
-                                                      offset, vec, s);
+  if (dtype == 0)
+    return dispatch_vec<float>(x, w, y, rows, d, eps, offset, vec, s);
+  if (dtype == 1)
+    return dispatch_vec<__nv_bfloat16>(x, w, y, rows, d, eps, offset, vec, s);
   return cudaErrorInvalidValue;
 }

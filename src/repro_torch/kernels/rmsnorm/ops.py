@@ -16,19 +16,22 @@ from .ref import rmsnorm_ref
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
             offset: float = 0.0) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * (offset + w)`` over the last dim, in
-    f32 inside; x: [..., D] (f32 or bf16), w: [D]."""
+    f32 inside; x: [..., D] and w: [D], both f32 or both bf16 (the models
+    keep their norm weights in the activations' dtype)."""
+    if w.dtype != x.dtype:
+        raise TypeError(f"rmsnorm: x is {x.dtype} but w is {w.dtype}")
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps, offset)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"rmsnorm: x on {x.device}, w on {w.device}")
-    if x.dtype not in _DTYPE_CODES or w.dtype not in _DTYPE_CODES:
-        raise TypeError(f"rmsnorm: unsupported dtypes {x.dtype}, {w.dtype}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"rmsnorm: unsupported dtype {x.dtype}")
     d = x.shape[-1]
     if w.shape != (d,):
         raise ValueError(f"rmsnorm: w {tuple(w.shape)} for x {tuple(x.shape)}")
@@ -39,7 +42,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
     vec = int(d * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0)
     fn = _build.function("repro_rmsnorm", _ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, float(eps),
-             float(offset), _DTYPE_CODES[x.dtype], _DTYPE_CODES[w.dtype], vec,
+             float(offset), _DTYPE_CODES[x.dtype], vec,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "repro_rmsnorm")
     rmsnorm.launches += 1
