@@ -8,20 +8,24 @@ prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
-   with one ``nvcc`` call for sm_90a, timed;
-3. each kernel against its plain PyTorch version at the serving path's
-   shapes and in the layout the path hands it, in bf16 and f32, with its
-   time, its bound, the plain version's time and one PyTorch library call's
-   time as a yardstick (the port never calls that library function);
-4. llama3-1b at full width in bf16 with seeded random weights: ``prefill``
-   on 4 prompts of 2048 tokens and ``greedy_decode`` on 8 prompts of 64
-   tokens (32 new tokens, max_len 128), with the kernels' launch counts
-   read around that run; then the first layer's attention output is held
-   against ``attn_impl="chunked"`` row by row, and the logits of prefill
-   and of prefill-by-decode against ``attn_impl="chunked"`` and an f32 run
-   of the same weights;
-5. where the time goes: ``torch.profiler`` over one prefill and over 8
-   decode steps (device time by kernel, the device's busy share).
+   for sm_90a, one ``nvcc`` per source, all started together, timed, with
+   each kernel's ptxas register and spill line;
+3. each kernel (K1 flash attention, K2 RMSNorm, K3 the SSD scan) against
+   its plain PyTorch version at the serving paths' shapes and in the layout
+   the path hands it, in bf16 and f32, with its time, its bound, the plain
+   version's time and, where one exists, one PyTorch library call's time as
+   a yardstick (the port never calls that library function);
+4. two serving paths at full width in bf16 with seeded random weights,
+   llama3-1b (K1, K2) and mamba2-370m (K3, K2): ``prefill`` on 4 prompts of
+   2048 tokens and ``greedy_decode`` on 8 prompts of 64 tokens (32 new
+   tokens, max_len 128), with the kernels' launch counts set to 0 just
+   before each path and read just after; then the first layer's attention
+   or Mamba2 output is held against ``attn_impl="chunked"`` row by row, and
+   the logits of prefill and of prefill-by-decode against
+   ``attn_impl="chunked"`` and an f32 run of the same weights;
+5. where the time goes, for each path: ``torch.profiler`` over one prefill
+   and over 8 decode steps (device time by kernel, the device's busy
+   share).
 
 The last lines are one JSON object ``{"kernels": [...]}``, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -48,11 +52,17 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
     kernel_error as rmsnorm_error, rmsnorm_ref)
+from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
+    chunk_states, ssd_chunk, ssd_scan)
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    kernel_error as ssd_error, ssd_chunk_ref)
 from repro_torch.models.attention import gqa_forward  # noqa: E402
 from repro_torch.models.common import embed_lookup, rms_norm  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
-from repro_torch.models.transformer import (TransformerLM, decode_step,  # noqa: E402
-                                            init_cache_specs, prefill)
+from repro_torch.models.ssm import mamba2_forward  # noqa: E402
+from repro_torch.models.transformer import (TransformerLM, _embed,  # noqa: E402
+                                            decode_step, init_cache_specs,
+                                            prefill)
 from repro_torch.models.params import init_params  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
@@ -60,12 +70,14 @@ from repro_torch.models.params import init_params  # noqa: E402
 # and HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-# K1 and K2 against their plain versions: the tolerances are in each
+# K1, K2 and K3 against their plain versions: the tolerances are in each
 # kernel's ref.py
-# one layer's bf16 attention output, K1 path against the plain path on the
-# same inputs: largest row error norm over the row's norm.  K1 rounds P to
-# bf16 where the plain path does not, and W_o's bf16 product carries that
-# difference on: about 2^-9 of a row.
+# one layer's bf16 attention (or Mamba2) output, K1 (K3) path against the
+# plain path on the same inputs: largest row error norm over the row's norm.
+# K1 rounds P to bf16 where the plain path does not (K3 its decayed scores),
+# and the bf16 ops after it round differently in the two paths once their
+# inputs differ: about 2^-9 of a row for K1, 2^-7 for K3 (skip term, gate,
+# norm and out_proj).
 LAYER_ROW_TOL = 2.0 ** -6
 # bf16 logits of the serving path against the plain path and f32: see hold()
 LOGIT_FACTOR = 2.0
@@ -232,8 +244,96 @@ def check_k2(gen) -> dict:
     return entry
 
 
+K3_CASES = [  # name, B, S, H, P, G, N, chunk, strided, initial state, decay
+    ("prefill", 4, 2048, 32, 64, 1, 128, 256, False, False, "mamba"),
+    # the layout mamba2_forward passes: x, B and C as column slices of the
+    # conv output [B, S, H*P + 2*G*N] (row stride 2304)
+    ("prefill_strided", 4, 2048, 32, 64, 1, 128, 256, True, False, "mamba"),
+    ("groups2", 1, 256, 8, 64, 2, 32, 64, True, False, "mamba"),
+    ("init_state", 2, 1024, 32, 64, 1, 128, 256, True, True, "mamba"),
+    # dt ~ 5 and a = -16: dacs reaches about -20 000 in a chunk
+    ("strong_decay", 2, 1024, 32, 64, 1, 128, 256, True, False, "strong"),
+]
+
+
+def k3_inputs(gen, b, s, h, p, g, n, chunk, strided, init, decay, dtype):
+    """x, dt, a, B, C and the initial state of one case.  Strided cases
+    slice one buffer with a spare batch row, so a kernel that reads past
+    its group stays inside the allocation (as the mutants in PERF.md do)."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    if strided:
+        xbc = randn(b + 1, s, h * p + 2 * g * n).to(dtype)[:b]
+        x, bm, cm = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+        x = x.reshape(b, s, h, p)
+        bm, cm = bm.reshape(b, s, g, n), cm.reshape(b, s, g, n)
+    else:
+        x = randn(b, s, h, p).to(dtype)
+        bm, cm = randn(b, s, g, n).to(dtype), randn(b, s, g, n).to(dtype)
+    if decay == "strong":
+        dt = 5.0 + 0.1 * randn(b, s, h)
+        a = torch.full((h,), -16.0, device="cuda")
+    else:
+        dt = F.softplus(randn(b, s, h))
+        a = -torch.exp(0.5 * randn(h))
+    st0 = randn(b, h, p, n) if init else None
+    return x, dt, a, bm, cm, st0
+
+
+def check_k3(gen, names=None) -> dict:
+    """K3 against its plain version on the cases named (all by default)."""
+    entry = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, b, s, h, p, g, n, chunk, strided, init, decay in K3_CASES:
+            if names is not None and name not in names:
+                continue
+            x, dt, a, bm, cm, st0 = k3_inputs(gen, b, s, h, p, g, n, chunk,
+                                              strided, init, decay, dtype)
+            dacs, inbound, _ = chunk_states(x, dt, a, bm, chunk, st0)
+            args = (x, dt, bm, cm, dacs, inbound)
+            y = ssd_chunk(*args)
+            torch.cuda.synchronize()
+            err, elem, row = ssd_error(y, *args)
+            ok = all(math.isfinite(v) for v in (err, elem, row)) and max(
+                elem, row) <= 1.0
+            log(f"  K3 {name:<15} {str(dtype)[6:]:<8} B={b} S={s} H={h} "
+                f"P={p} G={g} N={n} L={chunk} min dacs "
+                f"{dacs.min().item():.0f} max_abs_err={err:.3e}; in units "
+                f"of the tolerance: element {elem:.3f}, row {row:.3f} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K3 {name} {dtype}: max abs err {err}, "
+                                     f"element {elem}, row {row} of tol")
+            if name != "prefill":
+                continue
+            ms = device_ms(lambda: ssd_chunk(*args))
+            plain_ms = device_ms(lambda: ssd_chunk_ref(*args), batches=3,
+                                 per_batch=2)
+            scan_ms = device_ms(lambda: ssd_scan(x, dt, a, bm, cm,
+                                                 chunk=chunk))
+            pairs = chunk * (chunk + 1) // 2
+            flops = b * h * (s // chunk) * (2 * pairs * (n + p)
+                                            + 2 * chunk * n * p)
+            nbytes = (sum(t.numel() * t.element_size() for t in args)
+                      + y.numel() * y.element_size())
+            bound_ms, bound_by = bound(flops, nbytes, dtype)
+            log(f"  K3 prefill {str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, whole ssd_scan (K3 and the plain "
+                f"decays, chunk states and recurrence) {scan_ms:.4f} ms, "
+                f"no library call; bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            if dtype == torch.bfloat16:
+                entry = {"name": "ssd_scan", "route": "cuda",
+                         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                         "replaces": "src/repro/kernels/ssd_scan/kernel.py:60",
+                         "launches": None, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None}
+    return entry
+
+
 # --------------------------------------------------------------------------
-# phase 4: the serving path at full width
+# phase 4: the serving paths at full width
 # --------------------------------------------------------------------------
 
 def max_rel_diff(a: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -241,54 +341,63 @@ def max_rel_diff(a: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / ref.float().abs().max().item()
 
 
-def serve_llama(gen) -> dict:
-    cfg = get_config("llama3-1b")
+COUNTERS = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
+            "ssd_scan": ssd_scan}
+
+
+def serve(arch: str, gen) -> dict:
+    """One serving path at full width: prefill and greedy decode with the
+    launch counts read around them, then the checks and the profile.  The
+    attention family runs K1 once a layer in prefill, the SSM family K3;
+    both run K2 twice a layer and once at the end, in prefill and in each
+    decode step."""
+    cfg = get_config(arch)
     assert cfg.attn_impl == "kernel" and cfg.dtype == "bfloat16"
     model = TransformerLM(cfg, generator=gen)   # device None: the card
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"  llama3-1b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}")
+    log(f"  {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e6:.1f} M parameters in {cfg.dtype}")
     v = cfg.vocab_size
     prompts = torch.randint(0, v, (4, 2048), generator=gen, device="cuda",
                             dtype=torch.int32)
     dprompts = torch.randint(0, v, (8, 64), generator=gen, device="cuda",
                              dtype=torch.int32)
     with torch.inference_mode():
-        model.prefill({"tokens": prompts})   # warm-up: cuBLAS handles, caches
+        model.prefill({"tokens": prompts})   # warm-up: cuBLAS, caches
         torch.cuda.synchronize()
 
         # ---- the main path: counts at 0 just before, read just after ----
-        flash_attention.launches = 0
-        rmsnorm.launches = 0
+        for fn in COUNTERS.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         logits = model.prefill({"tokens": prompts})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
-        k1_prefill, k2_prefill = flash_attention.launches, rmsnorm.launches
+        in_prefill = {k: fn.launches for k, fn in COUNTERS.items()}
         t0 = time.perf_counter()
         res = model.generate(dprompts, max_new_tokens=32, max_len=128)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
-        launches = {"flash_attention": flash_attention.launches,
-                    "rmsnorm": rmsnorm.launches}
+        launches = {k: fn.launches for k, fn in COUNTERS.items()}
         # ---- end of the main path ----
 
     steps = dprompts.shape[1] + 32
     per_norms = 2 * cfg.num_layers + 1
+    mixer = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    expected = {k: 0 for k in COUNTERS}
+    expected.update({mixer: cfg.num_layers, "rmsnorm": per_norms})
     log(f"  prefill 4x2048: {prefill_s * 1e3:.2f} ms, "
         f"{4 * 2048 / prefill_s:.0f} tokens/s; greedy_decode 8x(64+32): "
         f"{decode_s * 1e3:.2f} ms, {decode_s / steps * 1e3:.3f} ms/step")
-    log(f"  launches: prefill K1={k1_prefill} K2={k2_prefill}; "
-        f"whole run {launches}")
-    if (k1_prefill, k2_prefill) != (cfg.num_layers, per_norms):
-        raise AssertionError(f"prefill launches K1={k1_prefill} "
-                             f"K2={k2_prefill}, expected {cfg.num_layers} "
-                             f"and {per_norms}")
-    expected = {"flash_attention": cfg.num_layers,
-                "rmsnorm": per_norms * (1 + steps)}
+    log(f"  launches: prefill {in_prefill}; whole run {launches}")
+    if in_prefill != expected:
+        raise AssertionError(f"prefill launches {in_prefill}, expected "
+                             f"{expected}")
+    expected["rmsnorm"] *= 1 + steps
     if launches != expected:
         raise AssertionError(f"main-path launches {launches}, expected "
-                             f"{expected} ({per_norms} K2 per decode step)")
+                             f"{expected} ({per_norms} K2 and nothing else "
+                             "per decode step)")
     if logits.shape != (4, v) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
                              "finite or of the wrong shape")
@@ -311,18 +420,43 @@ def check_logits(cfg, params, logits, prompts, dprompts) -> None:
     chunked = cfg.scaled(attn_impl="chunked")
     cfg32 = cfg.scaled(attn_impl="chunked", dtype="float32")
     params32 = tree_map(params, lambda t: t.float())
-    check_layer(cfg, chunked, params, prompts)
-    hold("prefill 4x2048 (K1 path)", logits,
-         prefill(chunked, params, {"tokens": prompts}),
-         prefill(cfg32, params32, {"tokens": prompts}))
-    cache = init_params(init_cache_specs(cfg, 8, 64),
-                        torch.Generator(device="cuda"), "cuda")
-    for i in range(dprompts.shape[1]):
-        dl, cache = decode_step(cfg, params, cache,
-                                {"tokens": dprompts[:, i:i + 1]})
+    if cfg.family == "ssm":
+        check_ssm_layer(cfg, chunked, params, prompts)
+    else:
+        check_layer(cfg, chunked, params, prompts)
+    kernel = "K3" if cfg.family == "ssm" else "K1"
+    ref32 = prefill(cfg32, params32, {"tokens": prompts})
+    hold(f"prefill 4x2048 ({kernel} path)", logits,
+         prefill(chunked, params, {"tokens": prompts}), ref32)
+    dl = decode_logits(cfg, params, dprompts)
+    dref32 = prefill(cfg32, params32, {"tokens": dprompts})
     hold("prefill-by-decode 8x64", dl,
-         prefill(chunked, params, {"tokens": dprompts}),
-         prefill(cfg32, params32, {"tokens": dprompts}))
+         prefill(chunked, params, {"tokens": dprompts}), dref32)
+    if cfg.family == "ssm":
+        # in bf16 the SSM paths end far apart (see PERF.md); their f32
+        # distances are measured, not held: the plain path takes its
+        # intra-chunk decays from a cumsum of its own, and the recurrent
+        # decode without cumsums, where an f32 ulp of dacs (~6e4) is 0.4%
+        k32 = cfg.scaled(dtype="float32")
+        for name, x, ref in (
+                ("prefill 4x2048, f32, K3 path against the plain path",
+                 prefill(k32, params32, {"tokens": prompts}), ref32),
+                ("prefill-by-decode 8x64, f32, against prefill",
+                 decode_logits(k32, params32, dprompts), dref32)):
+            log(f"  {name}: max |diff| / max |logit| "
+                f"{max_rel_diff(x, ref)[1]:.3e} (measured, not held)")
+
+
+def decode_logits(cfg, params, prompts):
+    """The last prompt token's logits from feeding the prompt token by
+    token through ``decode_step``."""
+    cache = init_params(init_cache_specs(cfg, prompts.shape[0],
+                                         prompts.shape[1]),
+                        torch.Generator(device="cuda"), "cuda")
+    for i in range(prompts.shape[1]):
+        logits, cache = decode_step(cfg, params, cache,
+                                    {"tokens": prompts[:, i:i + 1]})
+    return logits
 
 
 def check_layer(cfg, chunked, params, prompts) -> None:
@@ -344,12 +478,29 @@ def check_layer(cfg, chunked, params, prompts) -> None:
         raise AssertionError(f"layer 0 attention: row error {row}")
 
 
+def check_ssm_layer(cfg, chunked, params, prompts) -> None:
+    """The first layer's Mamba2 output (``mamba2_forward``, which hands K3
+    column slices of its conv output) from the K3 path against the plain
+    chunked path on the same bf16 inputs, held row by row."""
+    lp = {k: t[0] for k, t in params["layers"]["ssm"].items()}
+    x = rms_norm(_embed(cfg, params, {"tokens": prompts}),
+                 params["layers"]["ln"][0], cfg.rms_eps)
+    out = mamba2_forward(cfg, lp, x)[0].float()
+    plain = mamba2_forward(chunked, lp, x)[0].float()
+    row = ((out - plain).norm(dim=-1) / plain.norm(dim=-1)).max().item()
+    log(f"  layer 0 Mamba2 output 4x2048, K3 path against the plain path: "
+        f"largest row error {row:.3e} of the row's norm "
+        f"(tol {LAYER_ROW_TOL:g})")
+    if not row <= LAYER_ROW_TOL:
+        raise AssertionError(f"layer 0 Mamba2: row error {row}")
+
+
 def hold(name: str, x, plain, ref32) -> None:
     """bf16 logits ``x`` must be within LOGIT_FACTOR times the plain bf16
     path's own distance from f32 (``ref32``) both from f32 and from the
     plain path.  A fixed tolerance would not do: with random weights, bf16
-    rounding compounds over the 16 layers to a distance from f32 of the
-    order of 20% of the largest logit."""
+    rounding compounds over the layers (16 of llama3-1b) to a distance from
+    f32 of the order of 20% of the largest logit."""
     _, base = max_rel_diff(plain, ref32)
     _, to_f32 = max_rel_diff(x, ref32)
     _, to_plain = max_rel_diff(x, plain)
@@ -402,7 +553,7 @@ def where_the_time_goes(model, prompts, dprompts) -> None:
             continue
         log(f"  {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
             f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
             log(f"    {e.self_device_time_total / 1e3:9.3f} ms "
                 f"x{e.count:<5} {e.key[:80]}")
 
@@ -411,6 +562,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
@@ -441,12 +593,19 @@ def main() -> int:
     k1 = check_k1(gen)
     k2 = check_k2(gen)
 
-    log("[4] llama3-1b serving path; [5] where the time goes")
-    launches = serve_llama(gen)
-    k1["launches"] = launches["flash_attention"]
-    k2["launches"] = launches["rmsnorm"]
+    k3 = check_k3(gen)
 
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    runs = []
+    for arch in ("llama3-1b", "mamba2-370m"):
+        log(f"[4] {arch} serving path; [5] where the time goes")
+        runs.append(serve(arch, gen))
+    # launches on the two main paths: K2 runs on both
+    for entry in (k1, k2, k3):
+        key = entry["name"]
+        entry["launches"] = sum(run[key] for run in runs)
+
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ One :class:`ModelConfig` describes any architecture of the zoo; one
 :class:`ShapeConfig` describes a workload shape cell.  The only deliberate
 difference from the reference is ``attn_impl``: it takes
 ``dense | chunked | kernel`` and defaults to ``"kernel"`` (the hand-written
-flash-attention kernel, counterpart of the reference's ``"pallas"``), so the
-main path on the card never runs a plain version by default.
+kernels: flash attention for the attention families, the SSD scan for the
+SSM family; the counterpart of the reference's ``"pallas"``), so the main
+path on the card never runs a plain version by default.
 """
 from __future__ import annotations
 
@@ -42,6 +43,12 @@ class SSMConfig:
     head_dim: int = 64
     n_groups: int = 1
     chunk_size: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 ATTN_IMPLS = ("dense", "chunked", "kernel")
@@ -102,6 +109,10 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
 
     def scaled(self, **kw) -> "ModelConfig":
         return replace(self, **kw)

@@ -1,8 +1,10 @@
 """Build and bind the port's CUDA kernels.
 
-At first use, every ``kernels/*/csrc/*.cu`` is compiled by ONE ``nvcc`` call
-for Hopper (``sm_90a``) into a shared library with a plain C interface under
-``build/repro_torch/`` at the repository root, and loaded with ``ctypes``.
+At first use, every ``kernels/*/csrc/*.cu`` is compiled for Hopper
+(``sm_90a``) by its own ``nvcc`` process, all started together, and one more
+``nvcc`` call links the objects into a shared library with a plain C
+interface under ``build/repro_torch/`` at the repository root, which is
+loaded with ``ctypes``.
 The library's name carries a hash of the sources and flags, so an edited
 source rebuilds.  A failed build raises with nvcc's stderr.  Every C entry
 point returns ``cudaGetLastError()`` after its launch; :func:`check` raises
@@ -24,7 +26,7 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -63,14 +65,36 @@ def build() -> tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(sources(), objs))]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    try:
+        errs = [proc.communicate()[1] for _, proc in procs]   # wait for all
+        diag = [_finish(cmd, err, proc.returncode)
+                for (cmd, proc), err in zip(procs, errs)]
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _finish(link, proc.stderr, proc.returncode)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
-    return out, proc.stderr
+    return out, "".join(diag)
+
+
+def _finish(cmd: list[str], stderr: str, returncode: int) -> str:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {returncode}: "
+                           f"{' '.join(cmd)}\n{stderr}")
+    return stderr
 
 
 def library() -> ctypes.CDLL:

@@ -1,1 +1,2 @@
-"""Dense-family model zoo in PyTorch, with the JAX package's layouts."""
+"""Model zoo in PyTorch (the dense Llama family and the Mamba2 SSM family),
+with the JAX package's layouts."""

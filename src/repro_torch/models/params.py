@@ -23,7 +23,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[str, ...]
-    init: str = "normal"        # normal | zeros | ones | scaled
+    init: str = "normal"        # normal | zeros | ones | scaled | ssm_a
     scale: float = 0.02
     dtype: str = "bfloat16"
 
@@ -66,6 +66,10 @@ def init_params(tree, generator: torch.Generator, device=None) -> dict:
             v = torch.zeros(s.shape, dtype=dtype, device=device)
         elif s.init == "ones":
             v = torch.ones(s.shape, dtype=dtype, device=device)
+        elif s.init == "ssm_a":   # Mamba A_log init: log(uniform[1, 16])
+            v = torch.log(torch.linspace(1.0, 16.0, math.prod(s.shape),
+                                         device=device)
+                          ).reshape(s.shape).to(dtype)
         else:
             v = torch.randn(s.shape, generator=generator, device=device,
                             dtype=torch.float32)
@@ -91,7 +95,8 @@ def _to_torch(a, device: torch.device) -> torch.Tensor:
 
 def params_from_jax(tree, device=None) -> dict:
     """Nested dict of numpy arrays (e.g. ``jax.tree.map(np.asarray, p)``)
-    -> the same tree of torch tensors, bf16 bit for bit."""
+    -> the same tree of torch tensors, each leaf in its own dtype bit for
+    bit (bf16 weights, the SSM's f32 ``a_log``)."""
     device = resolve_device(device)
 
     def conv(x):

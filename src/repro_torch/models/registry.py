@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> config.
 
-This slice of the port serves the dense Llama family only; the other ids of
-the JAX registry raise ``NotImplementedError`` until their family is ported
-(ROADMAP, Queue 1 item 6).
+The port serves the dense Llama family and the attention-free SSM family
+(mamba2-370m); the other ids of the JAX registry raise
+``NotImplementedError`` until their family is ported (ROADMAP, Queue 1
+item 6).
 """
 from __future__ import annotations
 
@@ -11,13 +12,14 @@ import importlib
 from ..configs.base import ModelConfig
 
 ARCH_IDS = [
-    "mamba2-370m", "deepseek-67b", "stablelm-12b", "qwen2.5-32b",
+    "deepseek-67b", "stablelm-12b", "qwen2.5-32b",
     "gemma2-27b", "zamba2-2.7b", "deepseek-v3-671b", "mixtral-8x22b",
     "hubert-xlarge", "qwen2-vl-7b",
 ]
-# the paper's dense Llama workloads: the ids this slice serves
+# the paper's dense Llama workloads and the SSM family: the ids the port
+# serves
 PORTED_IDS = ["llama3-100m", "llama3-500m", "llama3-1b", "llama3-3b",
-              "llama2-7b"]
+              "llama2-7b", "mamba2-370m"]
 
 
 def _module(arch: str):

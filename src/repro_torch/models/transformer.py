@@ -1,8 +1,10 @@
-"""Dense-family LM assembly: the serving path of the dense Llama family.
+"""LM assembly: the serving paths of the dense Llama family and of the
+attention-free SSM family (Mamba2).
 
 Public entry points are plain functions of (cfg, params, batch), with the
 JAX package's names, signatures and layouts (layer-stacked weights [L, ...],
-cache [L, B, S_max, kv, hd]):
+KV cache [L, B, S_max, kv, hd]; SSM cache ``ssm_state`` [L, B, H, P, N] f32
+and ``conv_state`` [L, B, K-1, conv_ch]):
 
   model_specs(cfg)                       -> ParamSpec tree
   forward(cfg, params, batch)            -> (loss, logits)      [eval]
@@ -11,7 +13,7 @@ cache [L, B, S_max, kv, hd]):
   init_cache_specs(cfg, batch, max_len)  -> cache ParamSpec tree
 
 :class:`TransformerLM` is the ``nn.Module`` that owns the parameters and
-calls these functions.  The MoE, MLA, SSM and hybrid branches raise
+calls these functions.  The MoE, MLA and hybrid branches raise
 ``NotImplementedError`` until their families are ported.
 """
 from __future__ import annotations
@@ -28,13 +30,13 @@ from .common import (embed_lookup, embedding_spec, norm_spec, rms_norm,
                      softcap)
 from .mlp import mlp_forward, mlp_specs
 from .params import DTYPES, ParamSpec, init_params
+from .ssm import mamba2_forward, ssm_specs
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family in ("ssm", "hybrid") or cfg.moe is not None
-            or cfg.mla is not None):
+    if cfg.family == "hybrid" or cfg.moe is not None or cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (MoE/MLA/SSM/hybrid "
+            f"{cfg.name}: the {cfg.family} family (MoE/MLA/hybrid "
             "branches) is not ported yet (ROADMAP, Queue 1 item 6)")
 
 
@@ -43,7 +45,7 @@ def _check_family(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 
 def _layer_specs(cfg: ModelConfig, stacked: int) -> dict:
-    """One transformer block's specs (attention + mlp + norms)."""
+    """One block's specs (attention + mlp + norms, or ssm + norm)."""
     _check_family(cfg)
     dt = cfg.dtype
 
@@ -53,6 +55,9 @@ def _layer_specs(cfg: ModelConfig, stacked: int) -> dict:
                              init="ones", dtype=dt)
         return ParamSpec(shape, axes, init="ones", dtype=dt)
 
+    if cfg.family == "ssm":
+        return {"ssm": ssm_specs(cfg, stacked),
+                "ln": n((cfg.d_model,), ("norm",))}
     return {"ln1": n((cfg.d_model,), ("norm",)),
             "ln2": n((cfg.d_model,), ("norm",)),
             "attn": attention_specs(cfg, stacked),
@@ -101,6 +106,12 @@ def attn_block(cfg: ModelConfig, lp: dict, h: torch.Tensor,
     return h + mlp_forward(cfg, lp["mlp"], x)
 
 
+def ssm_block(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(h, lp["ln"], cfg.rms_eps)
+    y, _, _ = mamba2_forward(cfg, lp["ssm"], x)
+    return h + y
+
+
 # --------------------------------------------------------------------------
 # embedding / head
 # --------------------------------------------------------------------------
@@ -143,7 +154,11 @@ def _scan_layers(cfg: ModelConfig, params: dict, h: torch.Tensor,
     weights."""
     _check_family(cfg)
     for i in range(cfg.num_layers):
-        h = attn_block(cfg, _layer(params["layers"], i), h, positions, i)
+        lp = _layer(params["layers"], i)
+        if cfg.family == "ssm":
+            h = ssm_block(cfg, lp, h)
+        else:
+            h = attn_block(cfg, lp, h, positions, i)
     return h
 
 
@@ -172,8 +187,23 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int) -> dict:
-    """KV cache description (shape, dtype, logical axes) for one batch."""
+    """KV or SSM cache description (shape, dtype, logical axes) for one
+    batch."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        nh, di = s.n_heads(cfg.d_model), s.d_inner(cfg.d_model)
+        conv_ch = di + 2 * s.n_groups * s.d_state
+        return {
+            "index": ((), "int32", ()),
+            "ssm_state": ((cfg.num_layers, batch_size, nh, s.head_dim,
+                           s.d_state), "float32",
+                          ("layers", "batch", "ssm_heads", "qk_dim",
+                           "ssm_state")),
+            "conv_state": ((cfg.num_layers, batch_size, s.d_conv - 1,
+                            conv_ch), cfg.dtype,
+                           ("layers", "batch", "conv", "ssm_inner")),
+        }
     hd = cfg.resolved_head_dim
     eff_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
                else max_len)
@@ -197,12 +227,25 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     """One autoregressive step. batch: tokens [B,1] (or embeds [B,1,d]).
 
     The cache index is carried in ``cache["index"]`` (a 0-d tensor).  The
-    K/V tensors of ``cache`` are updated in place; the returned cache holds
-    them and the advanced index.
+    K/V tensors of ``cache`` (SSM family: ``ssm_state`` and ``conv_state``)
+    are updated in place; the returned cache holds them and the advanced
+    index.
     """
     _check_family(cfg)
     h = _embed(cfg, params, batch)
     index = cache["index"]
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            x = rms_norm(h, lp["ln"], cfg.rms_eps)
+            y, new_s, new_c = mamba2_forward(
+                cfg, lp["ssm"], x, ssm_state=cache["ssm_state"][i],
+                conv_state=cache["conv_state"][i], decode=True)
+            cache["ssm_state"][i].copy_(new_s)
+            cache["conv_state"][i].copy_(new_c)
+            h = h + y
+        logits = _logits(cfg, params, h)
+        return logits[:, -1], dict(cache, index=index + 1)
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         x = rms_norm(h, lp["ln1"], cfg.rms_eps)
@@ -248,7 +291,7 @@ class _ParamTree(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Owns a dense LM's parameters and serves it.
+    """Owns a dense or SSM LM's parameters and serves it.
 
     ``params`` (e.g. from :func:`~repro_torch.models.params.params_from_jax`)
     is taken as is; without it the parameters are drawn from ``generator``

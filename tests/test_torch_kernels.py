@@ -1,8 +1,8 @@
 """The port's kernels K1 (flash attention) and K2 (RMSNorm) against the JAX
 package: their plain versions against the Pallas kernels (interpret mode, as
-tests/test_kernels.py runs them) and the JAX oracles on the CPU, and the CUDA
-kernels against their plain versions on the card (marked ``cuda``; they
-skip without one).  Inputs come from numpy's seeded generator and go to both
+tests/test_kernels.py runs them) and the JAX oracles on the CPU.  The CUDA
+kernels are held against their plain versions on the card in
+tests/test_torch_cuda.py.  Inputs come from numpy's seeded generator and go to both
 frameworks."""
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +22,6 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                       kernel_error)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
-from repro_torch.kernels.rmsnorm.ref import kernel_error as rmsnorm_error
 
 F32_ATOL = 2e-5     # tests/test_kernels.py's f32 tolerance for K1
 BF16_ATOL = 3e-2    # ... and its bf16 tolerance (one bf16 ulp near 4)
@@ -44,13 +43,6 @@ def _torch(arrays, dtype=torch.float32):
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.float().numpy()
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
-    return torch.device("cuda")
 
 
 # --------------------------------------------------------------------------
@@ -184,39 +176,6 @@ def test_rmsnorm_refuses_a_weight_of_another_dtype():
         rmsnorm(x, torch.ones(32))
 
 
-# --------------------------------------------------------------------------
-# the CUDA kernels against their plain versions, on the card
-# --------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,cap,q_offset,bshd", [
-    (2, 8, 2, 256, 256, 64, True, 0, 0.0, 0, False),
-    (2, 8, 2, 1024, 1024, 64, True, 0, 0.0, 0, True),
-    (1, 4, 4, 200, 200, 32, True, 48, 0.0, 0, False),
-    (1, 8, 2, 100, 356, 128, True, 0, 30.0, 256, False),
-    (2, 4, 2, 130, 70, 64, False, 0, 0.0, 0, False),
-])
-def test_flash_kernel_on_card(cuda, dtype, b, hq, hkv, sq, skv, d, causal,
-                              window, cap, q_offset, bshd):
-    # bshd: [B, S, H, D] tensors seen as [B, H, S, D], as gqa_forward passes
-    # its projections; the tolerances are ref.RTOL and ref.ROW_RTOL
-    q, k, v = _qkv(8, b, hq, hkv, sq, skv, d)
-    if bshd:
-        q, k, v = (np.ascontiguousarray(a.transpose(0, 2, 1, 3))
-                   for a in (q, k, v))
-    q, k, v = (t.to(cuda) for t in _torch([q, k, v], dtype))
-    if bshd:
-        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=q_offset)
-    before = flash_attention.launches
-    out = flash_attention(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
-    _, elem, row = kernel_error(out, q, k, v, **kw)
-    assert elem <= 1.0 and row <= 1.0, (elem, row)
-
-
 def test_kernel_error_flags_a_dropped_kv_tile():
     # the tolerance K1 is held to on the card, checked here on the CPU: the
     # plain version rounded to bf16 passes, and the same with the first
@@ -229,19 +188,3 @@ def test_kernel_error_flags_a_dropped_kv_tile():
                                           v[:, :, 64:], q_offset=64)
     _, elem, row = kernel_error(bad, q, k, v)
     assert elem > 1.0 and row > 1.0, (elem, row)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d,offset", [(8192, 2048, 0.0), (8, 2048, 0.0),
-                                           (37, 1001, 1.0)])
-def test_rmsnorm_kernel_on_card(cuda, dtype, rows, d, offset):
-    x, w = _normal(9, (rows, d), (d,))
-    x, w = (t.to(cuda) for t in _torch([x, 1.0 + 0.1 * w], dtype))
-    before = rmsnorm.launches
-    out = rmsnorm(x, w, offset=offset)
-    torch.cuda.synchronize()
-    assert rmsnorm.launches == before + 1
-    # the tolerance is the rmsnorm ref.RTOL, relative to each element
-    _, elem = rmsnorm_error(out, x, w, offset=offset)
-    assert elem <= 1.0, elem

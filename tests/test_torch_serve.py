@@ -65,22 +65,32 @@ def test_greedy_decode_cache_boundary(max_new_tokens, raises):
 
 
 def test_bf16_params_from_jax_bit_exact():
-    cfg = jax_get_smoke_config("llama3-1b")
-    assert cfg.dtype == "bfloat16"
-    jp = jax_params.init_params(jax_tf.model_specs(cfg), jax.random.PRNGKey(1))
-    tp = params.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
-    jflat = jax.tree_util.tree_flatten_with_path(jp)[0]
-    assert len(jflat) == len(jax.tree_util.tree_leaves(tp))
-    for path, leaf in jflat:
-        t = tp
-        for key in path:
-            t = t[key.key]
-        assert t.dtype == torch.bfloat16
-        np.testing.assert_array_equal(t.view(torch.int16).numpy(),
-                                      np.asarray(leaf).view(np.int16))
+    # a llama tree (bf16 only) and a mamba2 tree (bf16, and a_log in f32)
+    for arch in ("llama3-1b", "mamba2-370m"):
+        cfg = jax_get_smoke_config(arch)
+        assert cfg.dtype == "bfloat16"
+        jp = jax_params.init_params(jax_tf.model_specs(cfg),
+                                    jax.random.PRNGKey(1))
+        tp = params.params_from_jax(jax.tree.map(np.asarray, jp),
+                                    device="cpu")
+        jflat = jax.tree_util.tree_flatten_with_path(jp)[0]
+        assert len(jflat) == len(jax.tree_util.tree_leaves(tp))
+        for path, leaf in jflat:
+            t = tp
+            for key in path:
+                t = t[key.key]
+            leaf = np.asarray(leaf)
+            if path[-1].key == "a_log":
+                assert t.dtype == torch.float32
+                np.testing.assert_array_equal(t.view(torch.int32).numpy(),
+                                              leaf.view(np.int32))
+                continue
+            assert t.dtype == torch.bfloat16
+            np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                          leaf.view(np.int16))
 
 
-@pytest.mark.parametrize("arch", LLAMAS)
+@pytest.mark.parametrize("arch", LLAMAS + ["mamba2-370m"])
 def test_param_count_and_tree_equal_jax(arch):
     jspecs = jax_tf.model_specs(jax_get_config(arch))
     tspecs = transformer.model_specs(get_config(arch))
@@ -108,7 +118,7 @@ def test_transformer_lm_module_serves_like_the_functions():
                                                    {"tokens": prompt}))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-370m",
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "zamba2-2.7b",
                                   "deepseek-v3-671b"])
 def test_unported_families_raise(arch):
     from repro_torch.models.registry import get_config as tget
