@@ -9,12 +9,14 @@ prints no result line):
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
    for sm_90a, one ``nvcc`` per source, all started together, timed, with
-   each kernel's ptxas register and spill line;
+   each kernel's ptxas register and spill line and any ptxas warning that
+   it serialised an entry's ``wgmma`` instructions;
 3. each kernel (K1 flash attention, K2 RMSNorm, K3 the SSD scan) against
    its plain PyTorch version at the serving paths' shapes and in the layout
    the path hands it, in bf16 and f32, with its time, its bound, the plain
    version's time and, where one exists, one PyTorch library call's time as
-   a yardstick (the port never calls that library function);
+   a yardstick (the port never calls that library function); K2 also
+   beside the time of one copy of its input, which the card's memory sets;
 4. two serving paths at full width in bf16 with seeded random weights,
    llama3-1b (K1, K2) and mamba2-370m (K3, K2): ``prefill`` on 4 prompts of
    2048 tokens and ``greedy_decode`` on 8 prompts of 64 tokens (32 new
@@ -70,6 +72,9 @@ from repro_torch.models.params import init_params  # noqa: E402
 # and HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# exponentials a second of the H100's special-function units (16 a cycle on
+# each of 132 SMs at 1.83 GHz): the floor of a softmax with one exp a score
+EXP_RATE = 3.9e12
 # K1, K2 and K3 against their plain versions: the tolerances are in each
 # kernel's ref.py
 # one layer's bf16 attention (or Mamba2) output, K1 (K3) path against the
@@ -135,6 +140,9 @@ K1_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, q_offset
     ("cap_offset", 2, 8, 2, 100, 612, 64, True, 0, 30.0, 512),
     ("bidir_d32", 2, 4, 4, 300, 333, 32, False, 0, 0.0, 0),
     ("d128", 1, 8, 2, 256, 256, 128, True, 0, 0.0, 0),
+    # d=128 (two swizzled column blocks) in the strided layout, ragged
+    # across 128-row and 128-key tiles, Sq < Skv
+    ("d128_bshd", 1, 8, 2, 1000, 1111, 128, True, 0, 0.0, 111),
 ]
 
 
@@ -183,12 +191,16 @@ def check_k1(gen) -> dict:
                                  batches=3, per_batch=2)
             lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True))
-            flops = 4 * d * k1_visible_pairs(sq, skv, causal, window, off) * b * hq
+            scores = k1_visible_pairs(sq, skv, causal, window, off) * b * hq
+            flops = 4 * d * scores
             nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            log(f"  K1 prefill {str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            log(f"  K1 prefill {str(dtype)[6:]}: kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                f"SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+                f"exponential floor {scores / EXP_RATE * 1e3:.4f} ms "
+                f"({scores / 1e6:.1f} M visible scores)")
             if dtype == torch.bfloat16:
                 entry = {"name": "flash_attention", "route": "cuda",
                          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -202,6 +214,7 @@ def check_k1(gen) -> dict:
 K2_CASES = [  # name, rows, d, offset
     ("prefill", 8192, 2048, 0.0),
     ("decode", 8, 2048, 0.0),
+    ("mamba_ln", 8192, 1024, 0.0),   # mamba2-370m's ln and final_norm
     ("scalar_path", 37, 1001, 1.0),
 ]
 
@@ -223,17 +236,21 @@ def check_k2(gen) -> dict:
             if not ok:
                 raise AssertionError(f"K2 {name} {dtype}: max abs err {err}, "
                                      f"element {elem} of tol")
-            if name not in ("prefill", "decode"):
+            if name == "scalar_path":
                 continue
             ms = device_ms(lambda: rmsnorm(x, w, 1e-5))
             plain_ms = device_ms(lambda: rmsnorm_ref(x, w, 1e-5))
             lib_ms = device_ms(lambda: F.rms_norm(x, (d,), w, 1e-5))
+            # what the card moves in practice: one copy of the same bytes
+            copy = torch.empty_like(x)
+            copy_ms = device_ms(lambda: copy.copy_(x))
             flops = 4 * x.numel()
             nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
             bound_ms, bound_by = bound(flops, nbytes, dtype)
             log(f"  K2 {name} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.2f} MB)")
+                f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.2f} MB), a "
+                f"copy of x {copy_ms:.4f} ms")
             if dtype == torch.bfloat16 and name == "prefill":
                 entry = {"name": "rmsnorm", "route": "cuda",
                          "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
@@ -577,11 +594,14 @@ def main() -> int:
     path, diag = _build.build()
     build_s = time.perf_counter() - t0
     log(f"  {path.name} in {build_s:.1f} s")
-    # ptxas -v: one "entry / registers / spills" line per instantiation
+    # ptxas -v: one "entry / registers / spills" line per instantiation, and
+    # any warning that ptxas serialised an entry's wgmma instructions
     entry = ""
     for line in diag.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
+        elif "wgmma" in line and "serializ" in line:
+            log(f"  ptxas {entry[:90]}: {line.strip()[:300]}")
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line:

@@ -14,21 +14,29 @@
 // Bound on an H100: operations.  At a llama3-1b prefill (B=4, 32 query heads,
 // S=2048, d=64, causal) the causal half of QK^T and PV is 2*S^2*d flops per
 // head, 68.7 GFLOP in all: 69 us at the bf16 tensor-core peak of 989 TFLOP/s,
-// against 84 MB of q, k, v and o, 25 us at 3.35 TB/s.  What the design does
-// about that bound:
-//   * bf16 runs both products on the tensor cores (mma.sync m16n8k16, bf16
-//     in, f32 accumulate) and loads the next K and V tiles with cp.async
-//     while it multiplies the current ones; f32 runs the products as f32
-//     FMAs, bound by the 67 TFLOP/s f32 rate, with loads and products in
-//     turn.  No wgmma, TMA or warp specialisation yet;
-//   * one thread block per (b*h, 64-row query tile); the Q tile is loaded
-//     once (and, for bf16, kept in registers as mma fragments);
-//   * a loop inside the block over 64-key tiles takes the place of the TPU
+// against 84 MB of q, k, v and o, 25 us at 3.35 TB/s.  At d=64 the
+// exponentials cost as much: 268.6 M visible scores at the ~3.9 T/s of the
+// special-function units is another 69 us, so the design overlaps them with
+// the products.  What the design does about those bounds:
+//   * bf16 (flash_fwd_bf16) is warp-specialised and persistent: one block
+//     an SM, in which one producer warpgroup streams Q and K and V tiles
+//     through a ring of shared-memory stages with TMA and mbarriers and
+//     gives most of its registers to two consumer warpgroups (setmaxnreg)
+//     of 64 query rows each.  Both products run on wgmma: S = Q K^T with Q
+//     and K K-major in shared memory, and O += P V with P in registers and
+//     V MN-major in shared memory (the transpose bit, no transposing copy).
+//     A consumer runs a tile's softmax while the previous tile's P V runs,
+//     and the two consumers take turns at the tensor cores (named
+//     barriers), so one's exponentials run under the other's products;
+//   * f32 (flash_fwd_f32) runs the products as f32 FMAs, bound by the
+//     67 TFLOP/s f32 rate, with loads and products in turn;
+//   * a loop inside the block over key tiles takes the place of the TPU
 //     grid's sequential innermost axis (which carried m, l and acc in VMEM
 //     scratch); m, l and acc live in registers across the loop, and the
 //     [Sq, Skv] scores never reach device memory;
 //   * the loop starts at the window's edge and stops at the causal diagonal,
 //     so masked tiles are never loaded or computed (same result, less work);
+//     bf16 takes the query tiles that see the most keys first;
 //   * the KV head is h / group, read in place (the TPU wrapper repeats K and
 //     V in memory for GQA);
 //   * ragged Sq and Skv tails are masked, not asserted; q, k, v and o are
@@ -37,6 +45,7 @@
 // A key masked out contributes exactly 0, and a row with no visible key at
 // all writes 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,7 +58,6 @@ constexpr int kBlockK = 64;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kBlockQ / kWarps;  // 16
-static_assert(kBlockQ == kBlockK, "load_tile stages Q and K/V tiles alike");
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -66,15 +74,17 @@ struct Problem {
   float scale;
 };
 
-// keys [lo, hi) that some query of the tile starting at q0 can see: start at
-// the window's edge, stop at the causal diagonal
+// keys [lo, hi) that some query of the kRows-row tile starting at q0 can
+// see: start at the window's edge (rounded down to a kKeys tile), stop at
+// the causal diagonal
+template <int kRows = kBlockQ, int kKeys = kBlockK>
 __device__ __forceinline__ void key_range(const Problem& p, int q0, int* lo,
                                           int* hi) {
   const int q_first = q0 + p.q_offset;
-  const int q_last = min(q0 + kBlockQ, p.sq) - 1 + p.q_offset;
+  const int q_last = min(q0 + kRows, p.sq) - 1 + p.q_offset;
   *lo = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
   *hi = p.causal ? min(p.skv, q_last + 1) : p.skv;
-  *lo = (*lo / kBlockK) * kBlockK;
+  *lo = (*lo / kKeys) * kKeys;
 }
 
 __device__ __forceinline__ bool visible(const Problem& p, int qa, int kj) {
@@ -240,35 +250,186 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync.m16n8k16 (bf16 in, f32 accumulate).
-// Each of the 4 warps owns 16 query rows.  Fragment layouts (PTX ISA): with
-// g = lane / 4 and t = lane % 4, an A fragment holds rows g and g+8, columns
-// 2t, 2t+1 (and the same +8); a B fragment holds k-rows 2t, 2t+1 (and +8) of
-// column g; the f32 C fragment holds rows g and g+8, columns 2t, 2t+1.
-//   * K and V tiles stream global -> shared with cp.async into two buffers:
-//     the next tile loads while this one is multiplied.
-//   * S = Q K^T: Q's A fragments stay in registers for the whole KV loop;
-//     K is staged row-major, so a B fragment is one 32-bit load.
-//   * softmax in f32 on the C fragments (row max and sum over the 4 lanes of
-//     a row group by shuffles; l is kept per lane and summed at the end);
-//     only tiles that cross a mask edge evaluate the mask.
-//   * O += P V: the C fragments of S are exactly the A fragments of P, so P
-//     goes to bf16 in registers and never touches shared memory; V's B
-//     fragments come from the row-major tile through ldmatrix.trans.
-// Rows of the staged tiles are padded by 8 elements (16 bytes): the
-// fragment loads of a warp then hit 32 distinct banks.
+// bf16: TMA, wgmma and warp specialisation.
+//
+// One persistent block on each SM walks work items of 128 query rows of one
+// (batch, query head), the items whose rows see the most keys first, with
+// three warpgroups:
+//   * warpgroup 0, the producer: one thread loads each item's Q tile and
+//     then its K and V tiles of 128 keys into a ring of stages (three; two
+//     at d=128) with TMA.  Each stage has a "full" mbarrier for K and one
+//     for V (the TMA reports its bytes to them) and an "empty" mbarrier on
+//     which the 256 consumer threads arrive when they are done with the
+//     stage; Q has a full and an empty mbarrier of its own.  The ring runs on
+//     across items, and the next Q loads once the consumers' last Q K^T
+//     is done;
+//   * warpgroups 1 and 2, the consumers: 64 query rows each, in wgmma's
+//     accumulator layout (warp w holds rows 16w .. 16w+15; lane l rows
+//     l/4 and l/4 + 8, columns 2(l%4) + 8j and the one after).  For key
+//     tile i a consumer issues S_i = Q K_i^T and O += P_{i-1} V_{i-1} (P
+//     from registers), runs the softmax of S_i while the second product
+//     runs, then rescales O and turns S_i into the bf16 P_i.  The S
+//     accumulator of a 16-key slice is exactly the register A fragment of P
+//     for that slice, so P never leaves registers.  The two consumers issue
+//     their products in turn (named barriers), so that the tensor cores work
+//     for one while the other exponentiates.
+// Shared tiles are stored as TMA writes them with the 128-byte swizzle
+// (64 columns a row; d=128 as two such column blocks) or, at d=32, the
+// 64-byte swizzle; the wgmma descriptors name the same swizzle.  Every tile
+// starts on a 1024-byte boundary, where the swizzle pattern starts.  The
+// output goes through shared memory and out with one TMA store per
+// consumer, which also clips the rows past Sq.
 // ---------------------------------------------------------------------------
 
-constexpr int kPad = 8;
+constexpr int kWgRows = 64;       // query rows of a consumer warpgroup
+constexpr int kBarTurn = 1;   // named barriers 1, 2: whose turn at wgmma
+constexpr int kBarStore = 3;  // named barriers 3, 4: a consumer's epilogue
 
 template <int D>
-constexpr size_t bf16_smem_bytes() {
-  // Q, then two buffers of K and V
-  return (kBlockQ + 4 * kBlockK) * (D + kPad) * sizeof(__nv_bfloat16);
+struct Bf16Tiles {
+  // consumer warpgroups (three, as 192-row items, measured faster without
+  // a causal mask and slower with one; see PERF.md)
+  static constexpr int kConsumers = 2;
+  static constexpr int kTileQ = kWgRows * kConsumers;  // query rows of an item
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  // 384 threads at 168 registers each fill the SM's 64K registers: the
+  // producer gives back 128 x 128 of them, which the consumers take
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
+  static constexpr int kCols = D < 64 ? D : 64;  // columns of a swizzled block
+  static constexpr int kColBlocks = D / kCols;
+  static constexpr int kRowBytes = kCols * 2;    // one row of a block
+  static constexpr int kSwizzleBits = kCols == 64 ? 3 : 2;  // 128 or 64 bytes
+  static constexpr int kLayout = kCols == 64 ? 1 : 2;  // wgmma layout type
+  static constexpr int kTileK = 128;  // keys of a K or V tile
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kQBytes = kTileQ * D * 2;
+  static constexpr int kKVBytes = kTileK * D * 2;  // one K or V tile
+  static constexpr int kBarBytes = 8 * (2 + 3 * kStages);
+  // Q, O, the K and V ring, the barriers; + 1024 to align the dynamic
+  // shared memory to the swizzle's period
+  static constexpr int kSmem =
+      2 * kQBytes + 2 * kStages * kKVBytes + kBarBytes + 1024;
+  static_assert(kSmem <= 232448, "at most 227 KB of shared memory a block");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spins until the phase of `bar` with this parity has completed.  The loop
+// is one PTX block, so the compiler sees no divergent branch around the
+// wgmma instructions.  A wait of more than 10 s can only be a lost arrival:
+// it traps (the launch fails) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done, late;\n"
+      ".reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra DONE;\n"
+      "mov.u64 t1, %%globaltimer;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 late, t1, 10000000000;\n"
+      "@late trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 4-D (d, s, h, b) tensor map -> shared memory at dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from reading or writing registers of an asynchronous
+// wgmma across its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), layout type (1: 128-byte swizzle, 2: 64-byte)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(layout) << 62;
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -276,234 +437,447 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
+// D[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+      "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// four 8x8 b16 matrices, transposed: register i holds matrix i, whose row
-// addresses come from lanes 8i .. 8i+7
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+// D[64 x 32] += A[64 x 16] B[16 x 32], A from registers, B MN-major in
+// shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers, B MN-major in
+// shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// rows [r0, r0 + 64) of a [S, D] bf16 matrix -> a shared tile of pitch
-// D + kPad; rows at or past `rows` are zero
+// D[64 x 128] += A[64 x 16] B[16 x 128], A from registers, B MN-major in
+// shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+      "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int r0, int rows,
-                                          int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < kBlockK * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool valid = r0 + r < rows;
-    cp_async16(dst + r * (D + kPad) + c,
-               valid ? src + (r0 + r) * stride + c : src, valid);
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 32) {
+    wgmma_rs_n32(o, a, db);
+  } else if constexpr (D == 64) {
+    wgmma_rs_n64(o, a, db);
+  } else {
+    wgmma_rs_n128(o, a, db);
   }
 }
 
+// one work item: kTileQ query rows of one (batch, query head), and the key
+// tiles [lo, lo + n * kTileK) that they can see.  Items are numbered with
+// the query tiles that see the most keys first.
+struct Work {
+  int b, h, hk, q0, lo, n;
+};
+
+template <int kTileQ, int kTileK>
+__device__ __forceinline__ Work work_item(const Problem& p, int w, int n_bh,
+                                          int n_q_tiles) {
+  Work x;
+  const int bh = w % n_bh;
+  x.b = bh / p.hq;
+  x.h = bh % p.hq;
+  x.hk = x.h / p.group;
+  x.q0 = (n_q_tiles - 1 - w / n_bh) * kTileQ;
+  int hi;
+  key_range<kTileQ, kTileK>(p, x.q0, &x.lo, &hi);
+  x.n = hi > x.lo ? (hi - x.lo + kTileK - 1) / kTileK : 0;
+  return x;
+}
+
+// Persistent: block b takes work items b, b + gridDim.x, ...  The K/V ring
+// runs on across items, and the producer loads the next item's Q as soon as
+// the consumers' last Q K^T of the current one is done, so one item's
+// softmax, last products and output overlap the next one's loads.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, Problem p) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int kPitch = D + kPad;     // row pitch of every staged tile
-  constexpr int kTile = kBlockK * kPitch;
-  constexpr int kSteps = D / 16;       // k-steps of Q K^T
-  constexpr int kDTiles = D / 8;       // n-tiles of P V
-  constexpr int kKTiles = kBlockK / 8; // n-tiles of Q K^T
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sKV = sQ + kBlockQ * kPitch;  // K0, V0, K1, V1
+__global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap to, Problem p, int n_bh,
+               int n_q_tiles) {
+  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  using T = Bf16Tiles<D>;
+  constexpr int kS = T::kStages, kC = T::kConsumers, kTileQ = T::kTileQ,
+                kTileK = T::kTileK;
+  constexpr uint32_t kSbo = 8 * T::kRowBytes;  // 8 rows of a swizzled block
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sO = sQ + T::kQBytes;           // the output, on its way out
+  const uint32_t sK = sO + T::kQBytes;           // stage st at + st * kKVBytes
+  const uint32_t sV = sK + kS * T::kKVBytes;
+  const uint32_t bar_qf = sV + kS * T::kKVBytes;  // Q has landed
+  const uint32_t bar_qe = bar_qf + 8;  // the consumers are done with Q
+  const uint32_t bar_k = bar_qe + 8;   // + 8 st: K of stage st has landed
+  const uint32_t bar_v = bar_k + 8 * kS;  // + 8 st: V of stage st has landed
+  const uint32_t bar_e = bar_v + 8 * kS;  // + 8 st: stage st is free
+  const int n_work = n_bh * n_q_tiles;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.y / p.hq, h = blockIdx.y % p.hq;
-  const int q0 = blockIdx.x * kBlockQ;
-  const __nv_bfloat16* qb = q + b * p.qs.b + h * p.qs.h;
-  const __nv_bfloat16* kb = k + b * p.ks.b + (h / p.group) * p.ks.h;
-  const __nv_bfloat16* vb = v + b * p.vs.b + (h / p.group) * p.vs.h;
-  __nv_bfloat16* ob = o + b * p.os.b + h * p.os.h;
-
-  int kv_lo, kv_hi;
-  key_range(p, q0, &kv_lo, &kv_hi);
-  // Q, then the first K and V tiles, in flight together
-  load_tile<D>(sQ, qb, p.qs.s, q0, p.sq, tid);
-  cp_async_commit();
-  if (kv_lo < kv_hi) {
-    load_tile<D>(sKV, kb, p.ks.s, kv_lo, p.skv, tid);
-    load_tile<D>(sKV + kTile, vb, p.vs.s, kv_lo, p.skv, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_qf, 1);
+    mbar_init(bar_qe, kC * 128);
+    for (int st = 0; st < kS; ++st) {
+      mbar_init(bar_k + 8 * st, 1);
+      mbar_init(bar_v + 8 * st, 1);
+      mbar_init(bar_e + 8 * st, kC * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
-  cp_async_wait<1>();  // Q has landed
   __syncthreads();
 
-  const int row0 = warp * kRowsPerWarp;
-  uint32_t qf[kSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const __nv_bfloat16* base = sQ + (row0 + g) * kPitch + ks * 16 + t4 * 2;
-    qf[ks][0] = ld32(base);
-    qf[ks][1] = ld32(base + 8 * kPitch);
-    qf[ks][2] = ld32(base + 8);
-    qf[ks][3] = ld32(base + 8 * kPitch + 8);
+  // the warpgroup, broadcast from lane 0 so that the compiler knows it is
+  // the same in every lane of a warp
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 ::"n"(T::kProducerRegs));
+    if (threadIdx.x == 0) {
+      int it = 0, j = 0;  // key tiles and work items of this block so far
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++j) {
+        const Work x = work_item<kTileQ, kTileK>(p, w, n_bh, n_q_tiles);
+        mbar_wait(bar_qe, (j & 1) ^ 1);  // the consumers are done with Q
+        mbar_expect_tx(bar_qf, T::kQBytes);
+        for (int c = 0; c < kC; ++c)
+          for (int cb = 0; cb < T::kColBlocks; ++cb)
+            tma_load(sQ + (cb * kTileQ + c * kWgRows) * T::kRowBytes, &tq,
+                     bar_qf, cb * T::kCols, x.q0 + c * kWgRows, x.h, x.b);
+        for (int i = 0; i < x.n; ++i, ++it) {
+          const int st = it % kS;
+          const uint32_t phase = (it / kS) & 1;
+          mbar_wait(bar_e + 8 * st, phase ^ 1);  // the stage is free
+          const int k0 = x.lo + i * kTileK;
+          mbar_expect_tx(bar_k + 8 * st, T::kKVBytes);
+          for (int cb = 0; cb < T::kColBlocks; ++cb)
+            tma_load(sK + st * T::kKVBytes + cb * kTileK * T::kRowBytes, &tk,
+                     bar_k + 8 * st, cb * T::kCols, k0, x.hk, x.b);
+          mbar_expect_tx(bar_v + 8 * st, T::kKVBytes);
+          for (int cb = 0; cb < T::kColBlocks; ++cb)
+            tma_load(sV + st * T::kKVBytes + cb * kTileK * T::kRowBytes, &tv,
+                     bar_v + 8 * st, cb * T::kCols, k0, x.hk, x.b);
+        }
+      }
+    }
+    return;
   }
 
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int dn = 0; dn < kDTiles; ++dn)
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  // rows g (half 0) and g + 8 (half 1) of this warp; m in log2 units, l a
-  // partial sum over this lane's columns
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  int qa[2];
-  qa[0] = q0 + row0 + g + p.q_offset;
-  qa[1] = qa[0] + 8;
-  // absolute positions of the block's first and last real query
-  const int qa_first = q0 + p.q_offset;
-  const int qa_last = min(q0 + kBlockQ, p.sq) - 1 + p.q_offset;
-  // ldmatrix row address of this lane inside a V tile (see the P V loop)
-  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int v_col = (lane >> 4) * 8;
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::kConsumerRegs));
+  const int c = wg - 1;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const float scale_log2 = p.scale * kLog2e;
+  const uint32_t q_rows = sQ + c * kWgRows * T::kRowBytes;
+  const uint32_t o_rows = sO + c * kWgRows * T::kRowBytes;
 
-  int buf = 0;
-  for (int k0 = kv_lo; k0 < kv_hi; k0 += kBlockK, buf ^= 1) {
-    const __nv_bfloat16* sK = sKV + (2 * buf) * kTile;
-    const __nv_bfloat16* sV = sK + kTile;
-    if (k0 + kBlockK < kv_hi) {  // prefetch the next tiles
-      __nv_bfloat16* nK = sKV + (2 * (buf ^ 1)) * kTile;
-      load_tile<D>(nK, kb, p.ks.s, k0 + kBlockK, p.skv, tid);
-      load_tile<D>(nK + kTile, vb, p.vs.s, k0 + kBlockK, p.skv, tid);
-      cp_async_commit();
-      cp_async_wait<1>();  // this tile has landed, the next is in flight
-    } else {
-      cp_async_wait<0>();
+  // Q and K K-major, 16 columns deep at column `col`; V MN-major, 16 keys
+  // deep at key 16 kk
+  auto q_desc = [&](int col) {
+    return smem_desc(q_rows + (col / T::kCols) * kTileQ * T::kRowBytes +
+                         (col % T::kCols) * 2,
+                     16, kSbo, T::kLayout);
+  };
+  auto k_desc = [&](int st, int col) {
+    return smem_desc(sK + st * T::kKVBytes +
+                         (col / T::kCols) * kTileK * T::kRowBytes +
+                         (col % T::kCols) * 2,
+                     16, kSbo, T::kLayout);
+  };
+  auto v_desc = [&](int st, int kk) {
+    return smem_desc(sV + st * T::kKVBytes + kk * 16 * T::kRowBytes,
+                     kTileK * T::kRowBytes, kSbo, T::kLayout);
+  };
+
+  constexpr int kN = kTileK / 2;  // S accumulator registers of a thread
+  float o[D / 2], s[kN];
+#pragma unroll
+  for (int x = 0; x < kN; ++x) s[x] = 0.f;
+  uint32_t pf[kTileK / 16][4];
+  // m in log2 units; l a partial sum over this lane's columns
+  float m[2], l[2];
+  float alpha[2];
+  // the current item's first key, the absolute positions of this thread's
+  // two rows and of the consumer's first and last real row
+  int lo = 0, qa[2] = {0, 0}, wg_first = 0, wg_last = 0;
+
+  // S = Q K^T of the tile in stage st, and O += P V of the tile in stage st,
+  // each one commit group
+  auto issue_qk = [&](int st) {
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n128(s, q_desc(ks * 16), k_desc(st, ks * 16), ks > 0);
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int st) {
+#pragma unroll
+    for (int kk = 0; kk < kTileK / 16; ++kk)
+      wgmma_pv<D>(o, pf[kk], v_desc(st, kk));
+    wgmma_commit();
+  };
+  // the online softmax of key tile i's scores, in place: s becomes P (f32),
+  // m and l move on, and alpha is the factor that rescales O
+  auto softmax = [&](int i) {
+    // the mask only on tiles that cross an edge of it for some row of this
+    // consumer
+    const int k0 = lo + i * kTileK;
+    const bool interior = k0 + kTileK <= p.skv &&
+                          (!p.causal || k0 + kTileK - 1 <= wg_first) &&
+                          (p.window <= 0 || wg_last - k0 < p.window);
+    // each step a loop of its own under a branch the whole consumer takes,
+    // so that no score pays for a cap or a mask it does not have.  Without
+    // a cap the scores stay raw and the scale goes into the exponent's FFMA
+    // (the scale is positive, so the raw max is the max)
+    float unit = scale_log2;  // s * unit is in log2 units
+    if (p.logit_cap > 0.f) {
+#pragma unroll
+      for (int x = 0; x < kN; ++x)
+        s[x] = p.logit_cap * tanhf(s[x] * p.scale / p.logit_cap) * kLog2e;
+      unit = 1.f;
     }
-    __syncthreads();
-
-    // S = Q K^T, 16 x 64 per warp
-    float s[kKTiles][4];
+    if (!interior) {
 #pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        const __nv_bfloat16* kp = sK + (nt * 8 + g) * kPitch + ks * 16 + t4 * 2;
-        mma_16816(s[nt], qf[ks], ld32(kp), ld32(kp + 8));
+      for (int x = 0; x < kN; ++x) {
+        const int kj = k0 + (x >> 2) * 8 + t4 * 2 + (x & 1);
+        if (!visible(p, qa[(x >> 1) & 1], kj)) s[x] = -INFINITY;
       }
     }
-
-    // scale and cap, in log2 units; the mask only on tiles that cross an
-    // edge of it (the same for every thread of the block)
-    const bool interior =
-        k0 + kBlockK <= p.skv &&
-        (!p.causal || k0 + kBlockK - 1 <= qa_first) &&
-        (p.window <= 0 || qa_last - k0 < p.window);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * p.scale;
-        if (p.logit_cap > 0.f) x = p.logit_cap * tanhf(x / p.logit_cap);
-        x *= kLog2e;
-        if (!interior &&
-            !visible(p, qa[e >> 1], k0 + nt * 8 + t4 * 2 + (e & 1)))
-          x = -INFINITY;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], m_use[2];
+    for (int x = 0; x < kN; ++x)
+      mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+    float m_use[2];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
       mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
-      const float m_new = fmaxf(m[hf], mx[hf]);
+      const float m_new = fmaxf(m[hf], mx[hf] * unit);
       // no key of the row visible yet: nothing to rescale, every p is 0
-      alpha[hf] = m_new == -INFINITY ? 1.f : exp2f(m[hf] - m_new);
+      alpha[hf] = m_new == -INFINITY ? 1.f : fast_exp2(m[hf] - m_new);
       m_use[hf] = m_new == -INFINITY ? 0.f : m_new;
       m[hf] = m_new;
       l[hf] *= alpha[hf];
     }
 #pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f(s[nt][e] - m_use[e >> 1]);  // masked: 0
-        s[nt][e] = pe;
-        l[e >> 1] += pe;
-      }
-#pragma unroll
-    for (int dn = 0; dn < kDTiles; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
+    for (int x = 0; x < kN; ++x) {
+      // masked: exp2(-inf) = 0
+      s[x] = fast_exp2(fmaf(s[x], unit, -m_use[(x >> 1) & 1]));
+      l[(x >> 1) & 1] += s[x];
     }
+  };
+  // S's accumulator fragment of keys 16 kk .. 16 kk + 15 is the register A
+  // fragment of P for that slice
+  auto to_pf = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kTileK / 16; ++kk) {
+      pf[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+  // O is rescaled once P_{i-1} V_{i-1} is in it, before P_i V_i
+  auto rescale = [&]() {
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+  };
 
-    // O += P V, P taken from the S fragments as bf16.  One ldmatrix.x4.trans
-    // gives the B fragments of two n-tiles: matrices (keys +0..7, d dn),
-    // (keys +8..15, d dn), (keys +0..7, d dn+1), (keys +8..15, d dn+1).
-#pragma unroll
-    for (int t = 0; t < kBlockK / 16; ++t) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * t][0], s[2 * t][1]),
-                              pack_bf16(s[2 * t][2], s[2 * t][3]),
-                              pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
-                              pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < kDTiles; dn += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, sV + (t * 16 + v_row) * kPitch + dn * 8 + v_col);
-        mma_16816(acc[dn], pa, vf[0], vf[1]);
-        mma_16816(acc[dn + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before reuse
-  }
+  // The consumers take turns at the tensor cores, in order: consumer c waits
+  // on named barrier kBarTurn + c before it issues products and hands over
+  // to the next after them.  Consumer 0 goes first, and takes one more turn
+  // at the end to match the last consumer's last hand-over.  Every consumer
+  // takes n turns for an item of n key tiles.
+  const int next = kBarTurn + (c + 1) % kC;
+  auto take_turn = [&]() {
+    named_sync(kBarTurn + c, 256);
+    wgmma_fence();
+  };
+  auto pass_turn = [&]() { named_arrive(next, 256); };
+  // the ring: tile number `cur` of this block is in stage cur % kS
+  auto wait_k = [&](int cur) {
+    mbar_wait(bar_k + 8 * (cur % kS), (cur / kS) & 1);
+  };
+  auto wait_v = [&](int cur) {
+    mbar_wait(bar_v + 8 * (cur % kS), (cur / kS) & 1);
+  };
+  auto release = [&](int cur) { mbar_arrive(bar_e + 8 * (cur % kS)); };
 
+  if (c == kC - 1) named_arrive(kBarTurn, 256);
+  int it = 0, j = 0;  // key tiles and work items of this block so far
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++j) {
+    const Work x = work_item<kTileQ, kTileK>(p, w, n_bh, n_q_tiles);
+    const int n = x.n, r0 = x.q0 + c * kWgRows + warp * 16 + g;
+    lo = x.lo;
+    qa[0] = r0 + p.q_offset;
+    qa[1] = r0 + 8 + p.q_offset;
+    wg_first = x.q0 + c * kWgRows + p.q_offset;
+    wg_last = min(x.q0 + (c + 1) * kWgRows, p.sq) - 1 + p.q_offset;
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
-    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
-    const int qi = q0 + row0 + g + 8 * hf;
-    if (qi < p.sq) {
-      const float inv = l[hf] > 0.f ? 1.f / l[hf] : 0.f;
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+
+    mbar_wait(bar_qf, j & 1);  // Q of this item has landed
+    if (n == 0) mbar_arrive(bar_qe);
+    if (n > 0) {
+      // key tile 0: S only (O is still 0)
+      wait_k(it);
+      take_turn();
+      issue_qk(it % kS);
+      pass_turn();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (n == 1) mbar_arrive(bar_qe);  // this consumer is done with Q
+      softmax(0);
+      to_pf();
+      for (int i = 1; i < n; ++i) {
+        const int cur = it + i;
+        wait_k(cur);
+        take_turn();
+        issue_qk(cur % kS);
+        wait_v(cur - 1);
+        issue_pv((cur - 1) % kS);
+        pass_turn();
+        wgmma_wait<1>();  // S_i is done; P_{i-1} V_{i-1} may still run
+        fence_regs(s);
+        if (i == n - 1) mbar_arrive(bar_qe);  // this consumer is done with Q
+        softmax(i);
+        wgmma_wait<0>();  // P_{i-1} V_{i-1} is done
+        fence_regs(o);
+        fence_regs(pf);
+        release(cur - 1);  // this consumer is done with tile i - 1
+        rescale();
+        to_pf();
+      }
+      const int last = it + n - 1;
+      wait_v(last);  // V of the last tile
+      wgmma_fence();
+      issue_pv(last % kS);
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(last);
+    }
+    it += n;
+
+    // O / l as bf16 into this consumer's rows of the output buffer, swizzled
+    // as the O map reads them, then one TMA store (rows past Sq are clipped)
+    float inv[2];
 #pragma unroll
-      for (int dn = 0; dn < kDTiles; ++dn)
-        *reinterpret_cast<__nv_bfloat162*>(ob + qi * p.os.s + dn * 8 +
-                                           t4 * 2) =
-            __floats2bfloat162_rn(acc[dn][2 * hf] * inv,
-                                  acc[dn][2 * hf + 1] * inv);
+    for (int hf = 0; hf < 2; ++hf) {
+      l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+      l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+      inv[hf] = l[hf] > 0.f ? 1.f / l[hf] : 0.f;
+    }
+    // the previous item's store has read the buffer
+    if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    named_sync(kBarStore + c, 128);
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = warp * 16 + g + 8 * hf, col = jd * 8 + t4 * 2;
+        const uint32_t off = row * T::kRowBytes + (col % T::kCols) * 2;
+        const uint32_t swz =
+            off ^ (((off >> 7) & ((1u << T::kSwizzleBits) - 1)) << 4);
+        const uint32_t val = pack_bf16(o[4 * jd + 2 * hf] * inv[hf],
+                                       o[4 * jd + 2 * hf + 1] * inv[hf]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                         o_rows + (col / T::kCols) * kTileQ * T::kRowBytes +
+                         swz),
+                     "r"(val)
+                     : "memory");
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(kBarStore + c, 128);
+    if (t == 0) {
+      for (int cb = 0; cb < T::kColBlocks; ++cb)
+        tma_store(&to, o_rows + cb * kTileQ * T::kRowBytes, cb * T::kCols,
+                  x.q0 + c * kWgRows, x.h, x.b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
   }
+  if (c == 0) named_sync(kBarTurn, 256);  // the last consumer's hand-over
+  if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 template <typename T, typename Kernel>
@@ -523,16 +897,98 @@ cudaError_t launch(Kernel kernel, size_t smem, const void* q, const void* k,
   return cudaGetLastError();
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry-point
+// query (so the library needs no -lcuda)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                         cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+// a 4-D (d, s, h, b) TMA map of a bf16 [B, H, S, D] tensor given by its
+// strides in elements, moved in boxes of `cols` x `rows` with `swizzle`;
+// boxes past the tensor's edge read as zeros and are clipped on stores
+bool tensor_map(CUtensorMap* map, const void* base, int d, int s, int h, int b,
+                const Strides& st, int cols, int rows,
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int b, int hkv, const Problem& p, cudaStream_t stream) {
+  using T = Bf16Tiles<D>;
+  const CUtensorMapSwizzle swizzle =
+      T::kCols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tq, tk, tv, to;
+  if (!tensor_map(&tq, q, D, p.sq, p.hq, b, p.qs, T::kCols, kWgRows, swizzle) ||
+      !tensor_map(&tk, k, D, p.skv, hkv, b, p.ks, T::kCols, T::kTileK,
+                  swizzle) ||
+      !tensor_map(&tv, v, D, p.skv, hkv, b, p.vs, T::kCols, T::kTileK,
+                  swizzle) ||
+      !tensor_map(&to, o, D, p.sq, p.hq, b, p.os, T::kCols, kWgRows, swizzle))
+    return cudaErrorInvalidValue;
+  const long long n_q_tiles = (p.sq + T::kTileQ - 1) / T::kTileQ;
+  const long long n_work = n_q_tiles * b * p.hq;
+  if (n_work > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_bf16<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (e != cudaSuccess) return e;
+  // one persistent block on each SM, or one for each work item if fewer
+  int device = 0, sms = 0;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  device)) != cudaSuccess)
+    return e;
+  const int blocks = static_cast<int>(n_work < sms ? n_work : sms);
+  kernel<<<blocks, T::kThreads, T::kSmem, stream>>>(
+      tq, tk, tv, to, p, b * p.hq, static_cast<int>(n_q_tiles));
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t dispatch_dtype(int dtype, const void* q, const void* k,
-                           const void* v, void* o, int b, const Problem& p,
-                           cudaStream_t stream) {
-  if (dtype == 0)
+                           const void* v, void* o, int b, int hkv,
+                           const Problem& p, cudaStream_t stream) {
+  if (dtype == 0) {
+    if (static_cast<long long>(b) * p.hq > 65535)  // grid.y of flash_fwd_f32
+      return cudaErrorInvalidValue;
     return launch<float>(flash_fwd_f32<D>, f32_smem_bytes<D>(), q, k, v, o, b,
                          p, stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(flash_fwd_bf16<D>, bf16_smem_bytes<D>(), q,
-                                 k, v, o, b, p, stream);
+  }
+  if (dtype == 1) return launch_bf16<D>(q, k, v, o, b, hkv, p, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -551,7 +1007,7 @@ extern "C" int repro_flash_attention(
     long long o_sh, long long o_ss, int causal, int window, float logit_cap,
     int q_offset, int dtype, void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || skv <= 0 ||
-      b * hq > 65535)
+      static_cast<long long>(b) * hq > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const Problem p{hq,
                   hq / hkv,
@@ -568,9 +1024,9 @@ extern "C" int repro_flash_attention(
                   1.0f / sqrtf(static_cast<float>(d))};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return dispatch_dtype<32>(dtype, q, k, v, o, b, p, s);
-    case 64: return dispatch_dtype<64>(dtype, q, k, v, o, b, p, s);
-    case 128: return dispatch_dtype<128>(dtype, q, k, v, o, b, p, s);
+    case 32: return dispatch_dtype<32>(dtype, q, k, v, o, b, hkv, p, s);
+    case 64: return dispatch_dtype<64>(dtype, q, k, v, o, b, hkv, p, s);
+    case 128: return dispatch_dtype<128>(dtype, q, k, v, o, b, hkv, p, s);
     default: return cudaErrorInvalidValue;
   }
 }

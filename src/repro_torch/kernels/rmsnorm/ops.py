@@ -39,7 +39,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
         raise ValueError("rmsnorm: x and w must be contiguous")
     y = torch.empty_like(x)
     rows = x.numel() // d
-    vec = int(d * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0)
+    vec = int(d * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
+              and w.data_ptr() % 16 == 0)
     fn = _build.function("repro_rmsnorm", _ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, float(eps),
              float(offset), _DTYPE_CODES[x.dtype], vec,

@@ -36,8 +36,8 @@
 //     inbound state goes in as two bf16 parts, hi + lo, each multiplied by
 //     C: rounded whole, its error would meet a sum over N that cancels to
 //     about 1/sqrt(N) of its terms, and move rows by about 7 units of bf16
-//     roundoff at N = 128.  f32 runs the products as f32 FMAs.  No wgmma,
-//     TMA, or fusion of the chunk walk yet.
+//     roundoff at N = 128.  f32 runs the products as scalar FMAs, summed
+//     in double.  No wgmma, TMA, or fusion of the chunk walk yet.
 // Rows past the chunk's end (L not a multiple of 64) are masked.
 
 #include <cuda_bf16.h>
@@ -104,7 +104,9 @@ __device__ __forceinline__ float decay_arg(int i, int j, float dai,
 // float4).  The decayed scores go through a per-warp shared tile, and for
 // y += P x a lane owns output columns lane + 32 k of its 16 rows.  The
 // inbound state, staged [P][N+1] in B's buffer, is multiplied first the same
-// way.
+// way.  The sums over N and over j run in double (a product of two floats is
+// exact there): a row of y can cancel to a thousandth of its terms, and
+// summed in float its error would then exceed 2^-12 of the row.
 // ---------------------------------------------------------------------------
 
 template <int P, int N>
@@ -160,11 +162,11 @@ ssd_chunk_f32(const float* __restrict__ x, const float* __restrict__ dt,
   __syncthreads();
 
   // the inbound state's term: exp(dacs_i) C_i . state^T
-  float acc[kRowsPerWarp][kCols];
+  double acc[kRowsPerWarp][kCols];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.0;
   for (int n = 0; n < N; n += 4) {
     float sv[kCols][4];
 #pragma unroll
@@ -176,13 +178,15 @@ ssd_chunk_f32(const float* __restrict__ x, const float* __restrict__ dt,
       const float4 cv = *reinterpret_cast<const float4*>(sC + (row0 + r) * N + n);
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
-        acc[r][j] += cv.x * sv[j][0] + cv.y * sv[j][1] + cv.z * sv[j][2] +
-                     cv.w * sv[j][3];
+        acc[r][j] += static_cast<double>(cv.x) * sv[j][0] +
+                     static_cast<double>(cv.y) * sv[j][1] +
+                     static_cast<double>(cv.z) * sv[j][2] +
+                     static_cast<double>(cv.w) * sv[j][3];
     }
   }
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
-    const float f = expf(dai[r]);
+    const double f = exp(static_cast<double>(dai[r]));
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc[r][j] *= f;
   }
@@ -214,9 +218,9 @@ ssd_chunk_f32(const float* __restrict__ x, const float* __restrict__ dt,
     }
     __syncthreads();
 
-    float s[kRowsPerWarp][2];
+    double s[kRowsPerWarp][2];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.f;
+    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.0;
     const float* ba = sB + lane * (N + 1);
     const float* bc = sB + (lane + 32) * (N + 1);
 #pragma unroll 2
@@ -227,8 +231,9 @@ ssd_chunk_f32(const float* __restrict__ x, const float* __restrict__ dt,
       for (int r = 0; r < kRowsPerWarp; ++r) {
         const float4 cv =
             *reinterpret_cast<const float4*>(sC + (row0 + r) * N + n);
-        s[r][0] += cv.x * a0 + cv.y * a1 + cv.z * a2 + cv.w * a3;
-        s[r][1] += cv.x * c0 + cv.y * c1 + cv.z * c2 + cv.w * c3;
+        const double x0 = cv.x, x1 = cv.y, x2 = cv.z, x3 = cv.w;
+        s[r][0] += x0 * a0 + x1 * a1 + x2 * a2 + x3 * a3;
+        s[r][1] += x0 * c0 + x1 * c1 + x2 * c2 + x3 * c3;
       }
     }
 #pragma unroll
@@ -237,8 +242,10 @@ ssd_chunk_f32(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int jj = lane + 32 * h;
-        sPw[r * kTile + jj] =
-            s[r][h] * expf(decay_arg(i, j0 + jj, dai[r], sDa[jj])) * sDt[jj];
+        sPw[r * kTile + jj] = static_cast<float>(
+            s[r][h] * exp(static_cast<double>(
+                          decay_arg(i, j0 + jj, dai[r], sDa[jj]))) *
+            sDt[jj]);
       }
     }
     __syncwarp();
@@ -255,8 +262,10 @@ ssd_chunk_f32(const float* __restrict__ x, const float* __restrict__ dt,
         const float4 pr = *reinterpret_cast<const float4*>(sPw + r * kTile + jj);
 #pragma unroll
         for (int j = 0; j < kCols; ++j)
-          acc[r][j] += pr.x * xv[0][j] + pr.y * xv[1][j] + pr.z * xv[2][j] +
-                       pr.w * xv[3][j];
+          acc[r][j] += static_cast<double>(pr.x) * xv[0][j] +
+                       static_cast<double>(pr.y) * xv[1][j] +
+                       static_cast<double>(pr.z) * xv[2][j] +
+                       static_cast<double>(pr.w) * xv[3][j];
       }
     }
     __syncwarp();
@@ -268,7 +277,8 @@ ssd_chunk_f32(const float* __restrict__ x, const float* __restrict__ dt,
     if (i < p.chunk) {
       float* yr = y + (k.t_off + static_cast<long long>(i) * p.heads) * P;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) yr[lane + 32 * j] = acc[r][j];
+      for (int j = 0; j < kCols; ++j)
+        yr[lane + 32 * j] = static_cast<float>(acc[r][j]);
     }
   }
 }

@@ -61,6 +61,22 @@ def cuda():
     (1, 4, 4, 200, 200, 32, True, 48, 0.0, 0, False),
     (1, 8, 2, 100, 356, 128, True, 0, 30.0, 256, False),
     (2, 4, 2, 130, 70, 64, False, 0, 0.0, 0, False),
+    # across the bf16 kernel's 128-row query items and 128-key tiles (64
+    # keys at d=128) and its ring of stages: ragged Sq and Skv
+    (2, 8, 2, 1, 300, 64, True, 0, 0.0, 299, False),
+    (2, 8, 2, 127, 333, 64, True, 0, 0.0, 0, False),
+    (2, 8, 2, 129, 200, 64, False, 0, 0.0, 0, False),
+    (1, 8, 2, 1000, 1111, 64, True, 0, 0.0, 111, False),
+    # a window edge inside a tile; q_offset with Sq < Skv
+    (1, 8, 2, 700, 700, 64, True, 100, 0.0, 0, False),
+    (1, 8, 2, 300, 812, 64, True, 0, 0.0, 512, False),
+    # group 1 and group 8
+    (1, 8, 8, 256, 256, 64, True, 0, 0.0, 0, False),
+    (1, 16, 2, 256, 256, 64, True, 0, 0.0, 0, False),
+    # d 32, 64 and 128 in the strided [B, S, H, D] layout
+    (2, 8, 2, 384, 384, 32, True, 0, 0.0, 0, True),
+    (1, 8, 2, 1000, 1000, 64, True, 0, 0.0, 0, True),
+    (1, 8, 2, 520, 520, 128, True, 0, 0.0, 0, True),
 ])
 def test_flash_kernel_on_card(cuda, dtype, b, hq, hkv, sq, skv, d, causal,
                               window, cap, q_offset, bshd):
@@ -85,6 +101,7 @@ def test_flash_kernel_on_card(cuda, dtype, b, hq, hkv, sq, skv, d, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d,offset", [(8192, 2048, 0.0), (8, 2048, 0.0),
+                                           (8192, 1024, 0.0), (8, 4096, 0.0),
                                            (37, 1001, 1.0)])
 def test_rmsnorm_kernel_on_card(cuda, dtype, rows, d, offset):
     x, w = _normal(9, (rows, d), (d,))

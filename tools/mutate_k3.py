@@ -21,8 +21,8 @@ SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 MUTANTS = {
     "no_state_term": ([("const float f0 = expf(dai[0]), f1 = expf(dai[1]);",
                         "const float f0 = 0.f, f1 = 0.f;"),
-                       ("const float f = expf(dai[r]);",
-                        "const float f = 0.f;")],
+                       ("const double f = exp(static_cast<double>(dai[r]));",
+                        "const double f = 0.0;")],
                       None),
     "diagonal_masked": ([("return j <= i ? dai - daj : -INFINITY;",
                           "return j < i ? dai - daj : -INFINITY;")], None),
