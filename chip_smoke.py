@@ -11,7 +11,7 @@ prints no result line):
    for sm_90a, one ``nvcc`` per source, all started together, timed, with
    each kernel's ptxas register and spill line and any ptxas warning that
    it serialised an entry's ``wgmma`` instructions;
-3. each kernel (K1 flash attention, K2 RMSNorm, K3 the SSD scan) against
+3. each kernel (K1 flash attention, K2 RMSNorm, K3 the whole SSD scan) against
    its plain PyTorch version at the serving paths' shapes and in the layout
    the path hands it, in bf16 and f32, with its time, its bound, the plain
    version's time and, where one exists, one PyTorch library call's time as
@@ -54,10 +54,9 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
     kernel_error as rmsnorm_error, rmsnorm_ref)
-from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
-    chunk_states, ssd_chunk, ssd_scan)
+from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
-    kernel_error as ssd_error, ssd_chunk_ref)
+    kernel_error as ssd_error, ssd_scan_ref)
 from repro_torch.models.attention import gqa_forward  # noqa: E402
 from repro_torch.models.common import embed_lookup, rms_norm  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
@@ -270,7 +269,11 @@ K3_CASES = [  # name, B, S, H, P, G, N, chunk, strided, initial state, decay
     ("init_state", 2, 1024, 32, 64, 1, 128, 256, True, True, "mamba"),
     # dt ~ 5 and a = -16: dacs reaches about -20 000 in a chunk
     ("strong_decay", 2, 1024, 32, 64, 1, 128, 256, True, False, "strong"),
+    # 64 chunks of recurrence on 32 blocks: the card under-filled
+    ("long_init", 1, 16384, 32, 64, 1, 128, 256, True, True, "mamba"),
 ]
+# the cases K3 is timed on (bf16; f32 at prefill only)
+K3_TIMED = ("prefill", "long_init")
 
 
 def k3_inputs(gen, b, s, h, p, g, n, chunk, strided, init, decay, dtype):
@@ -297,8 +300,18 @@ def k3_inputs(gen, b, s, h, p, g, n, chunk, strided, init, decay, dtype):
     return x, dt, a, bm, cm, st0
 
 
+def k3_work(b, s, h, p, n, chunk) -> tuple[int, int]:
+    """The scan's flops and exponentials: per (batch, head, chunk) the
+    visible pairs of C B^T and P x, 2 pairs (N + P), the inbound state's
+    term, 2 L N P, and the local state, 2 L P N; one exponential a pair."""
+    pairs = chunk * (chunk + 1) // 2
+    blocks = b * h * (s // chunk)
+    return blocks * (2 * pairs * (n + p) + 4 * chunk * n * p), blocks * pairs
+
+
 def check_k3(gen, names=None) -> dict:
-    """K3 against its plain version on the cases named (all by default)."""
+    """K3, the whole scan, against its plain version on the cases named
+    (all by default): y and the final state."""
     entry = None
     for dtype in (torch.bfloat16, torch.float32):
         for name, b, s, h, p, g, n, chunk, strided, init, decay in K3_CASES:
@@ -306,40 +319,41 @@ def check_k3(gen, names=None) -> dict:
                 continue
             x, dt, a, bm, cm, st0 = k3_inputs(gen, b, s, h, p, g, n, chunk,
                                               strided, init, decay, dtype)
-            dacs, inbound, _ = chunk_states(x, dt, a, bm, chunk, st0)
-            args = (x, dt, bm, cm, dacs, inbound)
-            y = ssd_chunk(*args)
+            args = (x, dt, a, bm, cm)
+            y, final = ssd_scan(*args, chunk=chunk, initial_state=st0)
             torch.cuda.synchronize()
-            err, elem, row = ssd_error(y, *args)
+            err, elem, row = ssd_error(y, final, *args, chunk, st0)
             ok = all(math.isfinite(v) for v in (err, elem, row)) and max(
                 elem, row) <= 1.0
+            min_dacs = (dt * a).reshape(b, s // chunk, chunk,
+                                        h).cumsum(2).min()
             log(f"  K3 {name:<15} {str(dtype)[6:]:<8} B={b} S={s} H={h} "
                 f"P={p} G={g} N={n} L={chunk} min dacs "
-                f"{dacs.min().item():.0f} max_abs_err={err:.3e}; in units "
+                f"{min_dacs.item():.0f} max_abs_err={err:.3e}; in units "
                 f"of the tolerance: element {elem:.3f}, row {row:.3f} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K3 {name} {dtype}: max abs err {err}, "
                                      f"element {elem}, row {row} of tol")
-            if name != "prefill":
+            if name not in K3_TIMED or (dtype == torch.float32
+                                        and name != "prefill"):
                 continue
-            ms = device_ms(lambda: ssd_chunk(*args))
-            plain_ms = device_ms(lambda: ssd_chunk_ref(*args), batches=3,
-                                 per_batch=2)
-            scan_ms = device_ms(lambda: ssd_scan(x, dt, a, bm, cm,
-                                                 chunk=chunk))
-            pairs = chunk * (chunk + 1) // 2
-            flops = b * h * (s // chunk) * (2 * pairs * (n + p)
-                                            + 2 * chunk * n * p)
-            nbytes = (sum(t.numel() * t.element_size() for t in args)
-                      + y.numel() * y.element_size())
+            kw = dict(chunk=chunk, initial_state=st0)
+            ms = device_ms(lambda: ssd_scan(*args, **kw))
+            plain_ms = device_ms(lambda: ssd_scan_ref(*args, **kw),
+                                 batches=3, per_batch=2)
+            flops, exps = k3_work(b, s, h, p, n, chunk)
+            nbytes = sum(t.numel() * t.element_size() for t in (
+                *args, y, final, *([] if st0 is None else [st0])))
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            log(f"  K3 prefill {str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, whole ssd_scan (K3 and the plain "
-                f"decays, chunk states and recurrence) {scan_ms:.4f} ms, "
-                f"no library call; bound {bound_ms:.4f} ms ({bound_by}; "
-                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
-            if dtype == torch.bfloat16:
+            log(f"  K3 {name} {str(dtype)[6:]}: kernel (the whole scan) "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, no library call; "
+                f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} "
+                f"GFLOP at {flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{nbytes / 1e6:.2f} MB at {nbytes / ms / 1e6:.1f} GB/s); "
+                f"exponential floor {exps / EXP_RATE * 1e3:.4f} ms "
+                f"({exps / 1e6:.1f} M pairs)")
+            if dtype == torch.bfloat16 and name == "prefill":
                 entry = {"name": "ssd_scan", "route": "cuda",
                          "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                          "replaces": "src/repro/kernels/ssd_scan/kernel.py:60",

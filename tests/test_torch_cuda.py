@@ -16,7 +16,7 @@ from repro_torch.kernels.flash_attention.ref import (
     kernel_error as flash_error)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import kernel_error as rmsnorm_error
-from repro_torch.kernels.ssd_scan.ops import chunk_states, ssd_chunk, ssd_scan
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import kernel_error as ssd_error
 
 
@@ -121,12 +121,17 @@ def test_rmsnorm_kernel_on_card(cuda, dtype, rows, d, offset):
     (2, 512, 8, 64, 1, 128, 256, False, False),
     (2, 512, 8, 64, 1, 128, 256, True, True),
     (1, 256, 8, 64, 2, 32, 64, True, False),
-    (2, 192, 4, 32, 1, 64, 96, False, True),
+    (2, 384, 4, 32, 1, 64, 128, False, True),
+    # L = 192 (three i tiles), and 16 chunks of recurrence
+    (1, 768, 4, 64, 1, 128, 192, True, True),
+    (1, 1024, 2, 32, 1, 32, 64, False, True),
 ])
 def test_ssd_kernel_on_card(cuda, dtype, b, s, h, p, g, n, chunk, strided,
                             init):
-    # strided: x, B and C as column slices of one [B, S, H*P + 2*G*N] tensor,
-    # as mamba2_forward passes them; the tolerances are ref.RTOL/ROW_RTOL
+    # the whole scan, one launch: y and the final state against the plain
+    # scan.  strided: x, B and C as column slices of one [B, S, H*P + 2*G*N]
+    # tensor, as mamba2_forward passes them; the tolerances are
+    # ref.RTOL, ROW_RTOL and STATE_ROW_RTOL
     x, dt, a, bi, ci, st0 = _ssd_inputs(20, b, s, h, p, g, n)
     if strided:
         xbc = np.concatenate([x.reshape(b, s, -1), bi.reshape(b, s, -1),
@@ -138,11 +143,21 @@ def test_ssd_kernel_on_card(cuda, dtype, b, s, h, p, g, n, chunk, strided,
     else:
         tx, tbi, tci = (t.to(cuda) for t in _torch([x, bi, ci], dtype))
     tdt, ta, tst0 = (t.to(cuda) for t in _torch([dt, a, st0]))
-    dacs, inbound, _ = chunk_states(tx, tdt, ta, tbi, chunk,
-                                    tst0 if init else None)
+    tst0 = tst0 if init else None
     before = ssd_scan.launches
-    y = ssd_chunk(tx, tdt, tbi, tci, dacs, inbound)
+    y, final = ssd_scan(tx, tdt, ta, tbi, tci, chunk=chunk,
+                        initial_state=tst0)
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
-    _, elem, row = ssd_error(y, tx, tdt, tbi, tci, dacs, inbound)
+    _, elem, row = ssd_error(y, final, tx, tdt, ta, tbi, tci, chunk, tst0)
     assert elem <= 1.0 and row <= 1.0, (elem, row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [32, 96, 320])
+def test_ssd_kernel_refuses_chunks_it_does_not_take(cuda, chunk):
+    # K3 takes a chunk length that is a multiple of 64 up to 256
+    x, dt, a, bi, ci, _ = _torch(_ssd_inputs(21, 1, 960, 2, 32, 1, 32))
+    x, bi, ci = (t.to(cuda).bfloat16() for t in (x, bi, ci))
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt.to(cuda), a.to(cuda), bi, ci, chunk=chunk)

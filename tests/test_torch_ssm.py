@@ -3,7 +3,8 @@
 the same parameters (``params_from_jax``) and the same inputs (numpy's seeded
 generator).  JAX's Pallas SSD kernel runs in interpret mode, as
 tests/test_kernels.py runs it.  K3 itself runs only on the card: it is held
-against its plain version in tests/test_torch_cuda.py."""
+against its plain version, ``ref.ssd_scan_ref``, in
+tests/test_torch_cuda.py; here that plain version is held against JAX."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +21,11 @@ from repro.models.registry import get_config as jax_get_config
 from repro.models.registry import get_smoke_config as jax_get_smoke_config
 from repro.serve.decode import greedy_decode as jax_greedy_decode
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd_scan import ops
-from repro_torch.kernels.ssd_scan.ops import chunk_states, ssd_scan
-from repro_torch.kernels.ssd_scan.ref import (kernel_error, ssd_chunk_ref,
-                                              ssd_ref)
+from repro_torch.kernels.ssd_scan import ref as ssd_plain
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import (chunk_states, kernel_error,
+                                              ssd_chunk_ref, ssd_ref,
+                                              ssd_scan_ref)
 from repro_torch.models import ssm, transformer
 from repro_torch.models.params import init_params, params_from_jax
 from repro_torch.models.registry import get_config, get_smoke_config
@@ -156,7 +158,7 @@ def test_ssd_scan_initial_state_continuation():
 
 
 def test_segment_sum_recurrence_matches_the_chunk_loop():
-    # ops.chunk_states runs the inter-chunk recurrence as one [C+1, C+1]
+    # ref.chunk_states runs the inter-chunk recurrence as one [C+1, C+1]
     # segment-sum product; the plain ssd_chunked loops over the chunks
     x, dt, a, bi, ci, st0 = _t(_ssd_inputs(4, 2, 256, 4, 32, 2, 16,
                                            init=True))
@@ -166,30 +168,111 @@ def test_segment_sum_recurrence_matches_the_chunk_loop():
                                **CHUNK_TOL)
     np.testing.assert_allclose(inbound[:, 0].numpy(), st0.numpy())
     e = torch.randn(3, 9, generator=torch.Generator().manual_seed(0))
-    np.testing.assert_allclose(ops._segsum(e).numpy(),
+    np.testing.assert_allclose(ssd_plain._segsum(e).numpy(),
                                ssm._segsum(e).numpy(), atol=1e-5)
+
+
+def _scan_with_fault(x, dt, a, b_in, c_in, chunk, st0, fault=None):
+    """The scan chunk by chunk, as K3 walks it, with one planted fault:
+    ``no_state`` (y without the inbound state's term), ``no_diag`` (the
+    diagonal masked), ``no_decay`` (the state not decayed between chunks)
+    or ``bf16_local`` (w x rounded to bf16 in the local state).  Returns
+    (y in x.dtype, final state)."""
+    bsz, s, h, p = x.shape
+    g, n = b_in.shape[2], b_in.shape[3]
+    dacs = chunk_states(x, dt, a, b_in, chunk, st0)[0]
+    state, ys = st0.float(), []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        inbound = torch.zeros_like(state) if fault == "no_state" else state
+        y, local = ssd_chunk_ref(x[:, sl], dt[:, sl], b_in[:, sl],
+                                 c_in[:, sl], dacs[:, sl], inbound[:, None])
+        y = y.float()
+        if fault == "no_diag":
+            # the diagonal's term (C_i . B_i) dt_i x_i, left out
+            cb = torch.einsum("bsgn,bsgn->bsg", c_in[:, sl].float(),
+                              b_in[:, sl].float()).repeat_interleave(
+                                  h // g, dim=2)
+            y = y - cb[..., None] * dt[:, sl, :, None] * x[:, sl].float()
+        da = dacs[:, sl]
+        if fault == "bf16_local":
+            w = torch.exp(da[:, -1:] - da) * dt[:, sl]
+            xw = (x[:, sl].float() * w[..., None]).bfloat16().float()
+            bh = b_in[:, sl].float().repeat_interleave(h // g, dim=2)
+            local = torch.einsum("bthp,bthn->bhpn", xw, bh)[:, None]
+        decay = 1.0 if fault == "no_decay" else torch.exp(da[:, -1])
+        state = state * (decay if fault == "no_decay"
+                         else decay[:, :, None, None]) + local[:, 0]
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def _bf16_case(seed):
+    x, dt, a, bi, ci, st0 = _ssd_inputs(seed, 1, 512, 4, 64, 1, 32,
+                                        init=True)
+    tx, tbi, tci = _t([x, bi, ci], torch.bfloat16)
+    tdt, ta, tst0 = _t([dt, a, st0])
+    return tx, tdt, ta, tbi, tci, tst0
 
 
 def test_kernel_error_flags_planted_faults():
     # the tolerance K3 is held to on the card, checked here on the CPU: the
-    # plain version rounded to bf16 passes; the same without the inbound
-    # state's term, or with the mask taken as i > j, fails
-    x, dt, a, bi, ci, st0 = _ssd_inputs(5, 1, 256, 4, 64, 1, 32, init=True)
-    tx, tbi, tci = _t([x, bi, ci], torch.bfloat16)
-    tdt, ta, tst0 = _t([dt, a, st0])
-    dacs, inbound, _ = chunk_states(tx, tdt, ta, tbi, 64, tst0)
-    good = ssd_chunk_ref(tx, tdt, tbi, tci, dacs, inbound)[0]
-    assert good.dtype == torch.bfloat16
-    assert max(kernel_error(good, tx, tdt, tbi, tci, dacs, inbound)[1:]) <= 1
-    no_state = ssd_chunk_ref(tx, tdt, tbi, tci, dacs,
-                             torch.zeros_like(inbound))[0]
-    # the diagonal's term (C_i . B_i) dt_i x_i, left out
-    diag = (torch.einsum("bsgn,bsgn->bsg", tci.float(), tbi.float())[..., None]
-            * tdt[..., None] * tx.float())
-    no_diag = (good.float() - diag).to(torch.bfloat16)
-    for bad in (no_state, no_diag):
-        _, elem, row = kernel_error(bad, tx, tdt, tbi, tci, dacs, inbound)
-        assert elem > 1.0 and row > 1.0, (elem, row)
+    # plain scan in bf16, and the chunk-by-chunk walk, pass; the same without
+    # the inbound state's term, or with the mask taken as i > j, fails
+    tx, tdt, ta, tbi, tci, tst0 = _bf16_case(5)
+    args = (tx, tdt, ta, tbi, tci, 64, tst0)
+    good = ssd_scan(*args[:5], chunk=64, initial_state=tst0)
+    assert good[0].dtype == torch.bfloat16
+    assert max(kernel_error(*good, *args)[1:]) <= 1
+    assert max(kernel_error(*_scan_with_fault(*args), *args)[1:]) <= 1
+    for fault in ("no_state", "no_diag"):
+        _, elem, row = kernel_error(*_scan_with_fault(*args, fault), *args)
+        assert elem > 1.0 and row > 1.0, (fault, elem, row)
+
+
+@pytest.mark.parametrize("fault", ["no_decay", "bf16_local"])
+def test_kernel_error_flags_recurrence_faults(fault):
+    # faults of the state path that K3 now computes itself: a state not
+    # decayed between chunks, and a local state whose weighted x went into
+    # the tensor cores rounded to bf16 (the state rows' tolerance)
+    tx, tdt, ta, tbi, tci, tst0 = _bf16_case(6)
+    args = (tx, tdt, ta, tbi, tci, 64, tst0)
+    _, _, row = kernel_error(*_scan_with_fault(*args, fault), *args)
+    assert row > 1.0, (fault, row)
+
+
+def test_ssd_scan_ref_is_the_chunked_scan():
+    # ssd_scan_ref is chunk_states followed by ssd_chunk_ref with the inbound
+    # states; its dacs is a cumulative sum taken in double and rounded once
+    x, dt, a, bi, ci, st0 = _t(_ssd_inputs(21, 2, 256, 4, 32, 2, 16,
+                                           init=True))
+    y, final = ssd_scan_ref(x, dt, a, bi, ci, 64, st0)
+    dacs, inbound, final2 = chunk_states(x, dt, a, bi, 64, st0)
+    np.testing.assert_array_equal(
+        y.numpy(), ssd_chunk_ref(x, dt, bi, ci, dacs, inbound)[0].numpy())
+    np.testing.assert_array_equal(final.numpy(), final2.numpy())
+    exact = np.cumsum((dt * a).numpy().astype(np.float64).reshape(
+        2, 4, 64, 4), axis=2).astype(np.float32).reshape(2, 256, 4)
+    np.testing.assert_array_equal(dacs.numpy(), exact)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 256, 4, 32, 2, 16, 64),      # L = 64 (groups2's), two groups
+    (1, 1024, 2, 16, 1, 8, 64),      # 16 chunks of recurrence
+    (2, 512, 4, 32, 1, 32, 128),
+])
+def test_ssd_scan_ref_matches_jax_with_initial_state(b, s, h, p, g, n,
+                                                     chunk):
+    # K3's plain version against JAX's ssd_scan (Pallas in interpret mode)
+    # and the sequential oracle, with an initial state
+    arrays = _ssd_inputs(22, b, s, h, p, g, n, init=True)
+    st0 = arrays.pop()
+    y, st = ssd_scan_ref(*_t(arrays), chunk, torch.from_numpy(st0))
+    jy, jst = jax_ssd_scan(*map(jnp.asarray, arrays), chunk=chunk,
+                           initial_state=jnp.asarray(st0))
+    ry, rst = ssd_ref(*_t(arrays), torch.from_numpy(st0))
+    for out, ref in ((y, jy), (y, ry), (st, jst), (st, rst)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **SSD_TOL)
 
 
 @pytest.mark.parametrize("bad", ["seq_not_divisible", "dtype", "b_shape",

@@ -29,9 +29,9 @@ def stamp(i: str, s: int) -> str:
 
 
 SUBS = [
-    ("#include <stdint.h>\n\nnamespace {",
-     "#include <stdint.h>\n__device__ long long g_trace[2][64][12];\n"
-     "namespace {"),
+    ('#include "../../common/csrc/hopper.cuh"\n\nnamespace {',
+     '#include "../../common/csrc/hopper.cuh"\n'
+     "__device__ long long g_trace[2][64][12];\nnamespace {"),
     ("        const int cur = it + i;\n        wait_k(cur);\n"
      "        take_turn();\n        issue_qk(cur % kS);\n"
      "        wait_v(cur - 1);\n",
