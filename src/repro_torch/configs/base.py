@@ -125,3 +125,25 @@ class ShapeConfig:
     global_batch: int
     kind: str                      # "train" | "prefill" | "decode"
 
+
+@dataclass(frozen=True)
+class RunConfig:
+    """One training run: the reference's ``RunConfig``, field for field.
+    This slice runs on one card: ``mesh_shape`` and ``mesh_axes`` are kept
+    for parity and wait for the distribution slice (ROADMAP, Queue 1 item
+    5)."""
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh_shape: tuple[int, ...] = (16, 16)
+    mesh_axes: tuple[str, ...] = ("data", "model")
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    optimizer: str = "adamw"       # adamw | adafactor
+    grad_clip: float = 1.0
+    param_dtype: str = "bfloat16"
+    opt_state_dtype: str = "float32"
+    microbatch: int = 0            # 0 = no gradient accumulation
+    gradient_compression: bool = False
+    seed: int = 0
+    # long-context decode: shard the KV cache / SSM chunks along "data"
+    sequence_sharded_cache: bool = False

@@ -44,6 +44,13 @@
 //     [B, S, H, D] projections are read without a transposing copy.
 // A key masked out contributes exactly 0, and a row with no visible key at
 // all writes 0.
+//
+// Where the caller passes an lse buffer ([B, Hq, Sq] f32, contiguous) the
+// epilogue also writes each row's log-sum-exp, the natural log of
+// sum_j exp(s_ij) over the visible keys of the scaled, capped scores s_ij,
+// for the backward (flash_attention_bwd.cu) to recompute P = exp(s - lse).
+// A row with no visible key writes -inf.  With a null lse the kernels do
+// what they did without it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -62,6 +69,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kBlockQ / kWarps;  // 16
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Problem {
   int hq, group, sq, skv;
@@ -70,6 +78,7 @@ struct Problem {
   float logit_cap;
   int q_offset;
   float scale;
+  float* lse;  // [B, Hq, Sq] f32, or null
 };
 
 // keys [lo, hi) that some query of the kRows-row tile starting at q0 can
@@ -120,6 +129,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y / p.hq, h = blockIdx.y % p.hq;
   const int q0 = blockIdx.x * kBlockQ;
+  float* lse_row = p.lse == nullptr
+                       ? nullptr
+                       : p.lse + static_cast<long long>(blockIdx.y) * p.sq;
   const float* qb = q + b * p.qs.b + h * p.qs.h;
   const float* kb = k + b * p.ks.b + (h / p.group) * p.ks.h;
   const float* vb = v + b * p.vs.b + (h / p.group) * p.vs.h;
@@ -243,6 +255,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
         ob[qi * p.os.s + lane + 32 * j] = acc[r][j] * inv;
+      // m and l are in natural units here (Q was scaled on load)
+      if (lse_row != nullptr && lane == 0)
+        lse_row[qi] = l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
     }
   }
 }
@@ -627,6 +642,18 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
       l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
       inv[hf] = l[hf] > 0.f ? 1.f / l[hf] : 0.f;
     }
+    // the row's log-sum-exp: m is the row max in log2 units (the four lanes
+    // of a row hold the same m) and l the row's sum of exp2(s log2e - m), so
+    // lse = (m + log2 l) ln 2
+    if (p.lse != nullptr && t4 == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = x.q0 + c * kWgRows + warp * 16 + g + 8 * hf;
+        if (row < p.sq)
+          p.lse[(static_cast<long long>(x.b) * p.hq + x.h) * p.sq + row] =
+              l[hf] > 0.f ? (m[hf] + log2f(l[hf])) * kLn2 : -INFINITY;
+      }
+    }
     // the previous item's store has read the buffer
     if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     named_sync(kBarStore + c, 128);
@@ -727,11 +754,13 @@ cudaError_t dispatch_dtype(int dtype, const void* q, const void* k,
 
 // q: [B, Hq, Sq, D], k and v: [B, Hkv, Skv, D], o: [B, Hq, Sq, D], each given
 // by its (batch, head, seq) strides in elements with the last dim contiguous;
-// every stride and base pointer aligned to 16 bytes.  dtype: 0 = float32,
-// 1 = bfloat16.  d in {32, 64, 128}; Hq % Hkv == 0.  Returns
+// every stride and base pointer aligned to 16 bytes.  lse: null, or a
+// contiguous [B, Hq, Sq] f32 buffer for each row's log-sum-exp.  dtype: 0 =
+// float32, 1 = bfloat16.  d in {32, 64, 128}; Hq % Hkv == 0.  Returns
 // cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int b, int hq,
+    const void* q, const void* k, const void* v, void* o, float* lse, int b,
+    int hq,
     int hkv, int sq, int skv, int d, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
@@ -752,7 +781,8 @@ extern "C" int repro_flash_attention(
                   window,
                   logit_cap,
                   q_offset,
-                  1.0f / sqrtf(static_cast<float>(d))};
+                  1.0f / sqrtf(static_cast<float>(d)),
+                  lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return dispatch_dtype<32>(dtype, q, k, v, o, b, hkv, p, s);

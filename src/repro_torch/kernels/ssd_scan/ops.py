@@ -5,9 +5,10 @@
 K3 (``csrc/ssd_scan.cu``), which computes the whole scan: the decays inside
 each chunk, the intra-chunk dual form, the chunk states and the inter-chunk
 recurrence.  On a CPU tensor it runs the plain version,
-``ref.ssd_scan_ref``.  On a CUDA tensor K3 launches or the call raises; there
-is no fallback.  ``ssd_scan.launches`` counts K3's launches, and nothing
-else.
+``ref.ssd_scan_ref``, which autograd differentiates.  On a CUDA tensor K3
+launches or the call raises; there is no fallback.  K3 has no backward yet,
+so on the card a call that would need a gradient raises.
+``ssd_scan.launches`` counts K3's launches, and nothing else.
 """
 from __future__ import annotations
 
@@ -106,6 +107,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"ssd_scan: seq {s} not divisible by chunk {chunk}")
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, a, b_in, c_in, chunk, initial_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b_in, c_in, initial_state)):
+        # K3's outputs would carry no gradient: refuse rather than train
+        # the layers below it silently without one
+        raise NotImplementedError(
+            "ssd_scan: K3 has no backward kernel yet (ROADMAP, Queue 2: "
+            "K3's backward is the next training slice, mamba2-370m); call "
+            "it under torch.no_grad() or on inputs that need no gradient")
     return _launch(x, dt, a, b_in, c_in, chunk, initial_state)
 
 

@@ -96,7 +96,9 @@ def _to_torch(a, device: torch.device) -> torch.Tensor:
 def params_from_jax(tree, device=None) -> dict:
     """Nested dict of numpy arrays (e.g. ``jax.tree.map(np.asarray, p)``)
     -> the same tree of torch tensors, each leaf in its own dtype bit for
-    bit (bf16 weights, the SSM's f32 ``a_log``)."""
+    bit (bf16 weights, the SSM's f32 ``a_log``).  An optimizer-state tree
+    carries across the same way: the 0-d int32 ``step`` and the f32 moments
+    (AdamW's ``m`` and ``v``, Adafactor's ``vr``/``vc``/``v``)."""
     device = resolve_device(device)
 
     def conv(x):
@@ -105,6 +107,14 @@ def params_from_jax(tree, device=None) -> dict:
         return _to_torch(x, device)
 
     return conv(tree)
+
+
+def trainable(tree) -> dict:
+    """The same tree with every leaf a tensor that requires grad: each a
+    detached alias of the leaf (no copy), so ``torch.autograd.grad`` can
+    differentiate a loss of the tree with respect to its leaves."""
+    return {k: trainable(v) if isinstance(v, dict)
+            else v.detach().requires_grad_(True) for k, v in tree.items()}
 
 
 def param_bytes(tree) -> int:

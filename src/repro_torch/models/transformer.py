@@ -1,5 +1,5 @@
-"""LM assembly: the serving paths of the dense Llama family and of the
-attention-free SSM family (Mamba2).
+"""LM assembly: the training and serving paths of the dense Llama family,
+and the serving path of the attention-free SSM family (Mamba2).
 
 Public entry points are plain functions of (cfg, params, batch), with the
 JAX package's names, signatures and layouts (layer-stacked weights [L, ...],
@@ -7,7 +7,7 @@ KV cache [L, B, S_max, kv, hd]; SSM cache ``ssm_state`` [L, B, H, P, N] f32
 and ``conv_state`` [L, B, K-1, conv_ch]):
 
   model_specs(cfg)                       -> ParamSpec tree
-  forward(cfg, params, batch)            -> (loss, logits)      [eval]
+  forward(cfg, params, batch)            -> (loss, logits)  [train / eval]
   prefill(cfg, params, batch)            -> last-token logits   [inference]
   decode_step(cfg, params, cache, batch) -> (logits, cache)
   init_cache_specs(cfg, batch, max_len)  -> cache ParamSpec tree
@@ -22,6 +22,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -91,12 +92,6 @@ def _layer_window(cfg: ModelConfig, layer_idx: int) -> int:
     return cfg.sliding_window
 
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a layer-stacked parameter tree (views, no copy)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 def attn_block(cfg: ModelConfig, lp: dict, h: torch.Tensor,
                positions: torch.Tensor, layer_idx: int) -> torch.Tensor:
     x = rms_norm(h, lp["ln1"], cfg.rms_eps)
@@ -145,33 +140,88 @@ def _positions(batch: dict) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# forward (eval)
+# forward (train / eval)
 # --------------------------------------------------------------------------
+
+def _unstack(tree, n: int) -> list[dict]:
+    """A layer-stacked tree as ``n`` per-layer trees of views (no copy):
+    one unbind a leaf, whose backward stacks the layers' gradients in one
+    pass (a select a layer would build a zero-filled stacked gradient for
+    each)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
 
 def _scan_layers(cfg: ModelConfig, params: dict, h: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     """The reference's layer scan as a Python loop over the stacked
-    weights."""
+    weights.  With ``remat == "full"`` each layer is recomputed in the
+    backward (the reference's ``jax.checkpoint`` of the scan body), so its
+    kernels' forwards run twice when a gradient is taken."""
     _check_family(cfg)
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         if cfg.family == "ssm":
-            h = ssm_block(cfg, lp, h)
+            def block(x, lp=lp):
+                return ssm_block(cfg, lp, x)
         else:
-            h = attn_block(cfg, lp, h, positions, i)
+            def block(x, lp=lp, i=i):
+                return attn_block(cfg, lp, x, positions, i)
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            h = checkpoint(block, h, use_reentrant=False)
+        else:
+            h = block(h)
     return h
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict):
-    """Returns (loss, logits). batch: tokens/embeds, targets, [positions]."""
-    if cfg.loss_vocab_chunk > 0:
-        raise NotImplementedError("vocab-chunked cross entropy comes with "
-                                  "the training slice (ROADMAP, Queue 1 "
-                                  "item 2)")
+    """Returns (loss, logits). batch: tokens/embeds, targets, [positions].
+
+    With ``loss_vocab_chunk`` > 0 the CE loss streams over vocab chunks and
+    the full logits are never materialised (the logits returned are
+    None)."""
     h = _embed(cfg, params, batch)
     h = _scan_layers(cfg, params, h, _positions(batch))
+    if cfg.loss_vocab_chunk > 0:
+        loss = chunked_cross_entropy(cfg, params, h, batch["targets"],
+                                     cfg.loss_vocab_chunk)
+        return loss, None
     logits = _logits(cfg, params, h)
     return cross_entropy(logits, batch["targets"]), logits
+
+
+def chunked_cross_entropy(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                          targets: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Streaming softmax CE over vocab chunks, tracking the running
+    max/sum-exp and the gold-token logit.  Peak memory drops from
+    O(B*S*V) f32 to O(B*S*chunk); flops are unchanged.  The last chunk is
+    the remainder of the vocab (the reference pads it with masked
+    columns)."""
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    table = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    v = table.shape[1]
+    b, s, _ = h.shape
+    tgt = targets.long()
+    hf = h.float()
+    m = torch.full((b, s), -math.inf, device=h.device)
+    l = torch.zeros((b, s), device=h.device)
+    gold = torch.zeros((b, s), device=h.device)
+    for base in range(0, v, chunk):
+        tbl = table[:, base:base + chunk]
+        width = tbl.shape[1]
+        logits = softcap(torch.matmul(hf, tbl.float()),
+                         cfg.final_logit_softcap)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(
+            logits - m_new[..., None]).sum(dim=-1)
+        m = m_new
+        in_chunk = (tgt >= base) & (tgt < base + width)
+        idx = torch.clamp(tgt - base, 0, width - 1)
+        g = torch.gather(logits, -1, idx[..., None])[..., 0]
+        gold = torch.where(in_chunk, g, gold)
+    lse = m + torch.log(l)
+    return torch.mean(lse - gold)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -234,9 +284,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     _check_family(cfg)
     h = _embed(cfg, params, batch)
     index = cache["index"]
+    layers = _unstack(params["layers"], cfg.num_layers)
     if cfg.family == "ssm":
-        for i in range(cfg.num_layers):
-            lp = _layer(params["layers"], i)
+        for i, lp in enumerate(layers):
             x = rms_norm(h, lp["ln"], cfg.rms_eps)
             y, new_s, new_c = mamba2_forward(
                 cfg, lp["ssm"], x, ssm_state=cache["ssm_state"][i],
@@ -246,8 +296,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
             h = h + y
         logits = _logits(cfg, params, h)
         return logits[:, -1], dict(cache, index=index + 1)
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(layers):
         x = rms_norm(h, lp["ln1"], cfg.rms_eps)
         y, _, _ = gqa_decode(cfg, lp["attn"], x, cache["k"][i],
                              cache["v"][i], index,
