@@ -18,7 +18,8 @@ prints no result line):
    bound, the plain version's time and, where one exists, one PyTorch
    library call's time as a yardstick (the port never calls that library
    function); K2 also beside the time of one copy of its input, which the
-   card's memory sets;
+   card's memory sets; K1b and K2b also launched twice at the training
+   shape, their outputs bit-identical (they use no atomics);
 4. two serving paths at full width in bf16 with seeded random weights,
    llama3-1b (K1, K2) and mamba2-370m (K3, K2): ``prefill`` on 4 prompts of
    2048 tokens and ``greedy_decode`` on 8 prompts of 64 tokens (32 new
@@ -37,7 +38,9 @@ prints no result line):
    and a falling loss; then one profiled step;
 7. a gradient gate (full width, 2 layers: bf16 gradients through the
    kernels reach every parameter and stay within twice the plain bf16
-   path's distance from an f32 run), and the training CLI for 3 steps.
+   path's distance from an f32 run), once with the reference's init and
+   once with every scaled weight drawn at std 1/sqrt(its input width), and
+   the training CLI for 3 steps.
 
 The last lines are one JSON object ``{"kernels": [...]}``, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -82,7 +85,8 @@ from repro_torch.models.ssm import mamba2_forward  # noqa: E402
 from repro_torch.models.transformer import (TransformerLM, _embed,  # noqa: E402
                                             decode_step, init_cache_specs,
                                             model_specs, prefill)
-from repro_torch.models.params import init_params, param_count  # noqa: E402
+from repro_torch.models.params import (init_params, param_count,  # noqa: E402
+                                       tree_paths)
 from repro_torch.train.checkpoint import _flatten as flatten  # noqa: E402
 from repro_torch.train.data import DataConfig, SyntheticSource  # noqa: E402
 from repro_torch.train.loop import (  # noqa: E402
@@ -140,6 +144,19 @@ def device_ms(fn, batches: int = 5, per_batch: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_batch)
     return statistics.median(times)
+
+
+def kernel_name(mangled: str) -> str:
+    """``bwd_dkdv_ws<64>`` or ``rmsnorm_bwd_groups<bf16>`` from the mangled
+    entry name of one of K1b's or K2b's kernels; other names unchanged."""
+    import re
+    m = re.search(r"((?:rmsnorm_)?bwd_[a-z]+(?:_[a-z0-9]+)?)I(.*?)EEv",
+                  mangled)
+    if not m:
+        return mangled
+    return m[1] + "<" + ", ".join(
+        a or ("bf16" if b else "f32")
+        for a, b in re.findall(r"Li(\d+)E|(13__nv_bfloat16)|f", m[2])) + ">"
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -343,6 +360,14 @@ def check_k1b(gen) -> dict:
                                      f"{finite}")
             if name != "train":
                 continue
+            again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            log(f"  K1b train {str(dtype)[6:]}: a second launch's dq, dk and "
+                f"dv {'bit-identical' if same else 'DIFFERENT'}")
+            if not same:
+                raise AssertionError(f"K1b train {dtype}: two launches "
+                                     "differ")
+            del again
             ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
                                                        **kw))
             plain_ms = device_ms(lambda: flash_attention_bwd_ref(
@@ -382,7 +407,10 @@ K2B_CASES = [  # name, rows, d, offset
     ("mamba_ln", 8192, 1024, 0.0),
     ("decode", 8, 2048, 0.0),
     ("scalar_path", 37, 1001, 1.0),
-    ("wide", 8, 4096, 0.0),          # llama2-7b's width: the block kernel
+    ("wide", 8, 4096, 0.0),          # llama2-7b's width
+    # gemma's (1 + w) through the groups kernel (scalar_path takes the
+    # block kernel)
+    ("offset", 1024, 2048, 1.0),
 ]
 K2B_TIMED = ("train", "mamba_ln", "decode")
 
@@ -411,6 +439,14 @@ def check_k2b(gen) -> dict:
                                      f"{rrow} of tol), dw {ew} ({rw} of tol)")
             if name not in K2B_TIMED:
                 continue
+            if name == "train":
+                again = rmsnorm_bwd(x, w, dy, 1e-5, offset)
+                same = torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+                log(f"  K2b train {str(dtype)[6:]}: a second launch's dx and "
+                    f"dw {'bit-identical' if same else 'DIFFERENT'}")
+                if not same:
+                    raise AssertionError(f"K2b train {dtype}: two launches "
+                                         "differ")
             ms = device_ms(lambda: rmsnorm_bwd(x, w, dy, 1e-5))
             plain_ms = device_ms(lambda: rmsnorm_bwd_ref(x, w, dy, 1e-5))
             lx, lw = (t.detach().requires_grad_(True) for t in (x, w))
@@ -732,9 +768,9 @@ def tree_map(tree: dict, fn) -> dict:
 TRAIN_B, TRAIN_S = 4, 2048
 # the train step's device time by group of kernels (torch.profiler names)
 TRAIN_GROUPS = {
-    "K1b": ["bwd_dkdv", "bwd_dq", "bwd_delta"],
+    "K1b": ["bwd_dkdv_ws", "bwd_dq_ws", "bwd_delta"],
     "K1": ["flash_fwd"],
-    "K2b": ["rmsnorm_bwd"],
+    "K2b": ["rmsnorm_bwd_groups", "rmsnorm_bwd_block", "rmsnorm_bwd_dw"],
     "K2": ["rmsnorm_rows", "rmsnorm_kernel"],
     "f32 GEMMs (head)": ["gemm_f32f32", "sgemm"],
     "bf16 GEMMs": ["nvjet", "gemm"],
@@ -859,13 +895,38 @@ def plain_norms():
         model_common.rmsnorm = saved
 
 
-def gradient_gate(gen) -> None:
+def fan_in_init(specs: dict, params: dict, gen) -> None:
+    """Redraw, in place, every weight that the reference's "scaled"
+    initializer draws at std 1/sqrt(shape[0]) (for a layer-stacked weight
+    shape[0] is the layer count) at std 1/sqrt(its input width): the
+    model-width axes that the product contracts (two for ``wo``, whose
+    input is heads x head_dim; one for the rest)."""
+    for name, spec in tree_paths(specs).items():
+        if spec.init != "scaled":
+            continue
+        first = 1 if spec.axes[0] == "layers" else 0
+        width = math.prod(spec.shape[first:first + (
+            2 if name.endswith("/wo") else 1)])
+        *path, leaf = name.split("/")
+        node = params
+        for key in path:
+            node = node[key]
+        node[leaf].copy_(torch.randn(spec.shape, generator=gen,
+                                     device="cuda") / math.sqrt(width))
+
+
+def gradient_gate(gen, fan_in: bool = False) -> None:
     """llama3-1b at full width cut to GATE_LAYERS layers: bf16 gradients
     through the kernels (K1, K1b, K2, K2b) must reach every parameter, and
     each parameter's distance from an f32 plain run must be within
-    LOGIT_FACTOR times the bf16 plain path's distance from it."""
+    LOGIT_FACTOR times the bf16 plain path's distance from it.  With
+    ``fan_in`` the weights are drawn by :func:`fan_in_init` instead of the
+    reference's init."""
     cfg = get_config("llama3-1b").scaled(num_layers=GATE_LAYERS)
-    params = init_params(model_specs(cfg), gen, "cuda")
+    specs = model_specs(cfg)
+    params = init_params(specs, gen, "cuda")
+    if fan_in:
+        fan_in_init(specs, params, gen)
     batch = {k: torch.from_numpy(x).cuda() for k, x in next(SyntheticSource(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
                    global_batch=GATE_B, seed=1))).items()}
@@ -892,9 +953,10 @@ def gradient_gate(gen) -> None:
         if not dk <= LOGIT_FACTOR * dp:
             raise AssertionError(f"gradient gate: {name} kernels {dk} > "
                                  f"{LOGIT_FACTOR} x plain {dp}")
-    log(f"  gradient gate ({GATE_LAYERS} layers, {GATE_B}x{TRAIN_S}): "
-        f"every parameter has a gradient through the kernels; largest "
-        f"kernel/plain distance ratio {worst:.2f} (tol {LOGIT_FACTOR:g})")
+    log(f"  gradient gate ({GATE_LAYERS} layers, {GATE_B}x{TRAIN_S}, "
+        f"{'fan-in' if fan_in else 'reference'} init): every parameter has "
+        f"a gradient through the kernels; largest kernel/plain distance "
+        f"ratio {worst:.2f} (tol {LOGIT_FACTOR:g})")
 
 
 def train_cli() -> None:
@@ -998,7 +1060,7 @@ def main() -> int:
     log(f"  {path.name} in {build_s:.1f} s")
     # ptxas -v: one "entry / registers / spills" line per instantiation, and
     # any warning that ptxas serialised an entry's wgmma instructions
-    entry = ""
+    entry, backward = "", []
     for line in diag.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -1009,6 +1071,17 @@ def main() -> int:
         elif "Used" in line and "registers" in line:
             log(f"  ptxas {entry[:90]}: {line.split(':', 1)[1].strip()}; "
                 f"{spills}")
+            name = kernel_name(entry)
+            if name.startswith(("bwd_", "rmsnorm_bwd")):
+                regs = line.split("Used")[1].split("registers")[0].strip()
+                spill = sum(int(w) for w in spills.split()
+                            if w.isdigit()) - int(spills.split()[0])
+                backward.append(f"{name} {regs} registers, "
+                                f"{'no spill' if not spill else spills}")
+    # K1b's and K2b's entries by name (ptxas reports no register count for
+    # an entry it did not rebuild: none when the library was cached)
+    for line in backward:
+        log(f"  K1b/K2b {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("[3] kernels against their plain versions")
@@ -1026,6 +1099,7 @@ def main() -> int:
     runs.append(train_llama(gen))
     log("[7] gradient gate and the training CLI")
     gradient_gate(gen)
+    gradient_gate(gen, fan_in=True)
     train_cli()
     # launches on the three main paths: K1 and K2 run on two or three
     for entry in (k1, k2, k3, k1b, k2b):

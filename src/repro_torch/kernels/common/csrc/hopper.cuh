@@ -1,7 +1,8 @@
 // PTX and TMA helpers for the port's Hopper (sm_90a) kernels: mbarriers,
 // TMA loads and stores through 4-D tensor maps, named barriers, wgmma and
-// its shared-memory descriptors.  Included by K1 (flash_attention.cu) and
-// K3 (ssd_scan.cu); everything here has internal linkage.
+// its shared-memory descriptors.  Included by K1 (flash_attention.cu), K1b
+// (flash_attention_bwd.cu) and K3 (ssd_scan.cu); everything here has
+// internal linkage.
 #pragma once
 
 #include <cuda.h>
@@ -72,6 +73,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned global memory -> shared
+// memory at dst, reported to the mbarrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -107,7 +107,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    # the kernels' scratch: lse in log2 units and delta = rowsum(dO o), for
+    # each (batch, query head), each padded to whole 128-row tiles
+    sqp = -(-sq // 128) * 128
+    delta = torch.empty(b * hq * 2 * sqp, dtype=torch.float32,
+                        device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
     fn = _build.function("repro_flash_attention_bwd", _BWD_ARGTYPES)

@@ -12,15 +12,25 @@
 // Bound on an H100: memory.  At 8192 x 2048 bf16 it reads x and dy and
 // writes dx, 100.7 MB, 30 us at 3.35 TB/s.  Two launches, deterministic and
 // without atomics:
-//   * rmsnorm_bwd_rows (rows of at most 256 16-byte vectors, aligned): one
-//     warp a row, as K2, with the row of x and dy in registers; each block
-//     of 8 warps walks rows b*8 + w, b*8 + w + 8*grid, ... and keeps its
-//     warps' partial dw in registers, sums them in a fixed order in shared
-//     memory and writes one f32 row of partial sums.  Other rows take
-//     rmsnorm_bwd_block: one block a row at a time, the row staged in shared
-//     memory, each thread owning its columns' partial dw;
-//   * rmsnorm_bwd_dw: one thread a column sums the blocks' partial rows in
-//     block order and writes dw in w's dtype.
+//   * rmsnorm_bwd_groups (16-byte aligned rows of 128, 256, 512 or 1024
+//     vectors: bf16 d = 1024 .. 8192): one persistent block of 512 threads
+//     an SM, in row groups of d / 16 threads (bf16; 2 vectors of 8 columns
+//     a thread), so that a thread holds 16 columns of x and dy, not a
+//     whole warp's share of the row: nothing spills.  Each thread keeps its
+//     columns' offset + w (read once a block) and partial dw in f32
+//     registers.  A group walks rows g, g + G, ... (G groups in the grid)
+//     and loads the next two rows' x and dy while it computes the current
+//     one, so the loads of the card's memory overlap the arithmetic.  The
+//     row's two sums go from the warps to shared memory (two slots, used
+//     in turn) and a named barrier of the group; each thread adds the
+//     warps' sums in warp order.  At the end the groups add their partial
+//     dw in shared memory in group order and the block writes one f32 row
+//     of partial sums.  Other rows take rmsnorm_bwd_block: one block a row
+//     at a time, the row staged in shared memory, each thread owning its
+//     columns' partial dw;
+//   * rmsnorm_bwd_dw: 32 columns a block; each of its 8 warps sums every
+//     8th partial row in order, then the 8 sums are added in warp order,
+//     and dw is written in w's dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -30,6 +40,9 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kGroupThreads = 512;  // a rmsnorm_bwd_groups block
+constexpr int kGroupVecs = 2;       // 16-byte vectors a thread in a group
+constexpr int kMaxGroupWarps = kGroupThreads / 32;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -52,93 +65,130 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// T: type of x, w, dy and dx; N: 16-byte vectors a lane holds
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_bwd_rows(const T* __restrict__ x, const T* __restrict__ w,
-                 const T* __restrict__ dy, T* __restrict__ dx,
-                 float* __restrict__ partial, long long rows, int d,
-                 float eps, float offset) {
-  extern __shared__ float sdw[];  // d floats
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// T: type of x, w, dy and dx.  d = tpr * kGroupVecs vectors of 16 bytes, tpr
+// (threads a row) in {64, 128, 256, 512}: kGroupThreads / tpr groups a
+// block, named barriers 1 .. 8.  Dynamic shared memory: d floats.
+template <typename T>
+__global__ void __launch_bounds__(kGroupThreads, 1)
+rmsnorm_bwd_groups(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   float* __restrict__ partial, long long rows, int d,
+                   float eps, float offset) {
   constexpr int kVec = 16 / sizeof(T);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nvec = d / kVec;
-  const uint4* wv = reinterpret_cast<const uint4*>(w);
-  float pw[N][kVec];
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) pw[j][k] = 0.f;
+  constexpr int kV = kGroupVecs;
+  extern __shared__ float sdw[];
+  // the warps' (sum of x^2, sum of g x) of a row, in two slots used in turn
+  __shared__ float red[2][2][kMaxGroupWarps];
+  const int tpr = d / (kVec * kV);
+  const int groups = kGroupThreads / tpr;
+  const int gid = threadIdx.x / tpr, tig = threadIdx.x % tpr;
+  const int lane = threadIdx.x & 31, wig = tig / 32, nw = tpr / 32;
+  float* red_g = &red[0][0][0] + gid * (tpr / 32);  // this group's warps
   const float inv_d = 1.f / static_cast<float>(d);
-  for (long long row = static_cast<long long>(blockIdx.x) * kWarps + warp;
-       row < rows; row += static_cast<long long>(gridDim.x) * kWarps) {
-    const uint4* xv = reinterpret_cast<const uint4*>(x + row * d);
-    const uint4* gv = reinterpret_cast<const uint4*>(dy + row * d);
-    // w is re-read each row from L1 (__ldg) rather than held: registers
-    // go to the rows of x and dy and the partial dw
-    uint4 xr[N], gr[N], wr[N];
+
+  // this thread's columns: vectors tig and tig + tpr of the row
+  float wf[kV][kVec], pw[kV][kVec];
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int i = lane + 32 * j;
-      xr[j] = i < nvec ? xv[i] : make_uint4(0, 0, 0, 0);
-      gr[j] = i < nvec ? gv[i] : make_uint4(0, 0, 0, 0);
-      wr[j] = i < nvec ? __ldg(wv + i) : make_uint4(0, 0, 0, 0);
+  for (int j = 0; j < kV; ++j) {
+    const uint4 raw = reinterpret_cast<const uint4*>(w)[tig + j * tpr];
+    const T* we = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      wf[j][e] = to_f32(we[e]) + offset;
+      pw[j][e] = 0.f;
     }
+  }
+  auto load = [&](long long row, uint4 (&xr)[kV], uint4 (&gr)[kV]) {
+    if (row < rows) {
+      const uint4* xv = reinterpret_cast<const uint4*>(x + row * d);
+      const uint4* gv = reinterpret_cast<const uint4*>(dy + row * d);
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        xr[j] = xv[tig + j * tpr];
+        gr[j] = gv[tig + j * tpr];
+      }
+    }
+  };
+
+  const long long stride = static_cast<long long>(gridDim.x) * groups;
+  long long row = static_cast<long long>(blockIdx.x) * groups + gid;
+  // the next two rows of this group, in flight while a row computes
+  uint4 x1[kV] = {}, g1[kV] = {}, x2[kV] = {}, g2[kV] = {};
+  load(row, x1, g1);
+  load(row + stride, x2, g2);
+  for (int slot = 0; row < rows; row += stride, slot ^= 1) {
+    uint4 xr[kV], gr[kV];
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      xr[j] = x1[j];
+      gr[j] = g1[j];
+      x1[j] = x2[j];
+      g1[j] = g2[j];
+    }
+    load(row + 2 * stride, x2, g2);
     float ss = 0.f, dot = 0.f;
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
+    for (int j = 0; j < kV; ++j) {
       const T* xe = reinterpret_cast<const T*>(&xr[j]);
       const T* ge = reinterpret_cast<const T*>(&gr[j]);
-      const T* we = reinterpret_cast<const T*>(&wr[j]);
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        const float xf = to_f32(xe[k]);
+      for (int e = 0; e < kVec; ++e) {
+        const float xf = to_f32(xe[e]);
         ss += xf * xf;
-        dot += to_f32(ge[k]) * (to_f32(we[k]) + offset) * xf;
+        dot += to_f32(ge[e]) * wf[j][e] * xf;
       }
     }
     ss = warp_sum(ss);
     dot = warp_sum(dot);
+    float* sums = red_g + slot * 2 * kMaxGroupWarps;
+    if (lane == 0) {
+      sums[wig] = ss;
+      sums[kMaxGroupWarps + wig] = dot;
+    }
+    group_sync(1 + gid, tpr);
+    ss = dot = 0.f;
+    for (int i = 0; i < nw; ++i) {
+      ss += sums[i];
+      dot += sums[kMaxGroupWarps + i];
+    }
     const float rstd = rsqrtf(ss * inv_d + eps);
     // mean(g x^) = rstd mean(g x)
     const float c = rstd * dot * inv_d;
     uint4* dxv = reinterpret_cast<uint4*>(dx + row * d);
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int i = lane + 32 * j;
-      if (i < nvec) {
-        const T* xe = reinterpret_cast<const T*>(&xr[j]);
-        const T* ge = reinterpret_cast<const T*>(&gr[j]);
-        const T* we = reinterpret_cast<const T*>(&wr[j]);
-        uint4 raw;
-        T* e = reinterpret_cast<T*>(&raw);
+    for (int j = 0; j < kV; ++j) {
+      const T* xe = reinterpret_cast<const T*>(&xr[j]);
+      const T* ge = reinterpret_cast<const T*>(&gr[j]);
+      uint4 raw;
+      T* o = reinterpret_cast<T*>(&raw);
 #pragma unroll
-        for (int k = 0; k < kVec; ++k) {
-          const float xh = to_f32(xe[k]) * rstd;
-          const float gk = to_f32(ge[k]);
-          e[k] = from_f32<T>(rstd * (gk * (to_f32(we[k]) + offset) - xh * c));
-          pw[j][k] += gk * xh;
-        }
-        dxv[i] = raw;
+      for (int e = 0; e < kVec; ++e) {
+        const float xh = to_f32(xe[e]) * rstd;
+        const float gk = to_f32(ge[e]);
+        o[e] = from_f32<T>(rstd * (gk * wf[j][e] - xh * c));
+        pw[j][e] += gk * xh;
       }
+      dxv[tig + j * tpr] = raw;
     }
   }
-  // the block's partial dw: warps added in order 0, 1, ...
-  for (int wi = 0; wi < kWarps; ++wi) {
-    if (warp == wi) {
+  // the block's partial dw: groups added in order 0, 1, ...
+  for (int gi = 0; gi < groups; ++gi) {
+    if (gid == gi) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const int i = lane + 32 * j;
-        if (i < nvec) {
+      for (int j = 0; j < kV; ++j)
 #pragma unroll
-          for (int k = 0; k < kVec; ++k)
-            sdw[i * kVec + k] = wi == 0 ? pw[j][k] : sdw[i * kVec + k] + pw[j][k];
+        for (int e = 0; e < kVec; ++e) {
+          const int col = (tig + j * tpr) * kVec + e;
+          sdw[col] = gi == 0 ? pw[j][e] : sdw[col] + pw[j][e];
         }
-      }
     }
     __syncthreads();
   }
-  for (int col = threadIdx.x; col < d; col += kThreads)
+  for (int col = threadIdx.x; col < d; col += kGroupThreads)
     partial[static_cast<long long>(blockIdx.x) * d + col] = sdw[col];
 }
 
@@ -195,20 +245,33 @@ rmsnorm_bwd_block(const T* __restrict__ x, const T* __restrict__ w,
     partial[static_cast<long long>(blockIdx.x) * d + col] = sdw[col];
 }
 
+// dw from the blocks' partial rows: 32 columns a block, lane l column
+// 32 blockIdx.x + l; warp w sums partial rows w, w + 8, ... in order, then
+// warp 0 adds the 8 warps' sums in order
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_bwd_dw(const float* __restrict__ partial, T* __restrict__ dw,
                int blocks, int d) {
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= d) return;
+  __shared__ float sums[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int i = 0; i < blocks; ++i)
-    s += partial[static_cast<long long>(i) * d + col];
-  dw[col] = from_f32<T>(s);
+  if (col < d) {
+    for (int i = warp; i < blocks; i += kWarps)
+      s += partial[static_cast<long long>(i) * d + col];
+  }
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && col < d) {
+    s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) s += sums[i][lane];
+    dw[col] = from_f32<T>(s);
+  }
 }
 
 // dynamic shared memory beyond the default 48 KB a block, less the static
-// shared memory the kernel declares (`red`)
+// shared memory the kernels declare
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem + 1024 <= kDefaultSmem) return cudaSuccess;
@@ -217,51 +280,38 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T, int N>
-cudaError_t launch_rows(const void* x, const void* w, const void* dy, void* dx,
-                        float* partial, long long rows, int d, float eps,
-                        float offset, int blocks, cudaStream_t stream) {
-  rmsnorm_bwd_rows<T, N><<<blocks, kThreads, d * sizeof(float), stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(dy), static_cast<T*>(dx), partial, rows, d, eps,
-      offset);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t run(const void* x, const void* w, const void* dy, void* dx,
                 void* dw, float* partial, long long rows, int d, float eps,
                 float offset, int max_blocks, int vec, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const int nvec = d / kVec;
-  const bool by_rows = vec && d % kVec == 0 && nvec <= 256;
-  const long long want = by_rows ? (rows + kWarps - 1) / kWarps : rows;
+  const int tpr = nvec / kGroupVecs;
+  const bool by_groups = vec && d % kVec == 0 && nvec % kGroupVecs == 0 &&
+                         tpr >= 64 && tpr <= kGroupThreads &&
+                         kGroupThreads % tpr == 0;
+  const long long want =
+      by_groups ? (rows + kGroupThreads / tpr - 1) / (kGroupThreads / tpr)
+                : rows;
   const int blocks = static_cast<int>(want < max_blocks ? want : max_blocks);
+  const size_t smem = (by_groups ? 1 : 3) * static_cast<size_t>(d) *
+                      sizeof(float);
   cudaError_t e;
-  if (by_rows) {
-    if (nvec <= 32)
-      e = launch_rows<T, 1>(x, w, dy, dx, partial, rows, d, eps, offset,
-                            blocks, stream);
-    else if (nvec <= 64)
-      e = launch_rows<T, 2>(x, w, dy, dx, partial, rows, d, eps, offset,
-                            blocks, stream);
-    else if (nvec <= 128)
-      e = launch_rows<T, 4>(x, w, dy, dx, partial, rows, d, eps, offset,
-                            blocks, stream);
-    else
-      e = launch_rows<T, 8>(x, w, dy, dx, partial, rows, d, eps, offset,
-                            blocks, stream);
+  if (by_groups) {
+    if ((e = allow_smem(rmsnorm_bwd_groups<T>, smem)) != cudaSuccess) return e;
+    rmsnorm_bwd_groups<T><<<blocks, kGroupThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<const T*>(dy), static_cast<T*>(dx), partial, rows, d, eps,
+        offset);
   } else {
-    const size_t smem = 3 * static_cast<size_t>(d) * sizeof(float);
     if ((e = allow_smem(rmsnorm_bwd_block<T>, smem)) != cudaSuccess) return e;
     rmsnorm_bwd_block<T><<<blocks, kThreads, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
         static_cast<const T*>(dy), static_cast<T*>(dx), partial, rows, d, eps,
         offset);
-    e = cudaGetLastError();
   }
-  if (e != cudaSuccess) return e;
-  rmsnorm_bwd_dw<T><<<(d + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  rmsnorm_bwd_dw<T><<<(d + 31) / 32, kThreads, 0, stream>>>(
       partial, static_cast<T*>(dw), blocks, d);
   return cudaGetLastError();
 }
@@ -272,8 +322,8 @@ cudaError_t run(const void* x, const void* w, const void* dy, void* dx,
 // dy and dx are [rows, d] contiguous, w and dw are [d].  partial: f32 scratch
 // of at least max_blocks * d values.  vec != 0 promises 16-byte aligned rows
 // (d * sizeof(T) % 16 == 0 and a 16-byte aligned x, w, dy and dx).  Launches
-// the rows (or block) kernel and then rmsnorm_bwd_dw on `stream`; returns the
-// first launch error, or cudaGetLastError() after the last.
+// the groups (or block) kernel and then rmsnorm_bwd_dw on `stream`; returns
+// the first launch error, or cudaGetLastError() after the last.
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* w, const void* dy,
                                  void* dx, void* dw, float* partial,
                                  long long rows, int d, float eps,

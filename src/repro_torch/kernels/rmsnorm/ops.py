@@ -25,9 +25,9 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 6
                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
-# blocks of K2b's row kernel for each SM: each writes one f32 row of
-# partial dw sums
-_BWD_BLOCKS_PER_SM = 2
+# blocks of K2b's row kernel for each SM (its 512-thread blocks fill an SM):
+# each writes one f32 row of partial dw sums
+_BWD_BLOCKS_PER_SM = 1
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:

@@ -188,6 +188,10 @@ def test_ssd_kernel_refuses_chunks_it_does_not_take(cuda, chunk):
     (2, 4, 2, 130, 70, 64, False, 0, 0.0, 0),
     (1, 16, 2, 129, 300, 64, True, 0, 0.0, 171),
     (1, 4, 2, 64, 64, 64, True, 8, 0.0, 100),   # no query sees a key
+    # GQA group 4, Sq and Skv not multiples of the bf16 kernels' 128-key
+    # and 128-row items: the ragged edge of both, causal and not
+    (2, 16, 4, 333, 461, 64, True, 0, 0.0, 128),
+    (1, 8, 2, 200, 190, 128, False, 0, 0.0, 0),
 ])
 def test_flash_bwd_kernel_on_card(cuda, dtype, b, hq, hkv, sq, skv, d, causal,
                                   window, cap, q_offset):
@@ -227,6 +231,25 @@ def test_rmsnorm_bwd_kernel_on_card(cuda, dtype, rows, d, offset):
     # the tolerances are the rmsnorm ref.BWD_RTOL, BWD_ROW_RTOL and DW_RTOL
     _, rx, rrow, _, rw = k2b_error(dx, dw, x, w, dy, offset=offset)
     assert max(rx, rrow, rw) <= 1.0, (rx, rrow, rw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_are_deterministic(cuda, dtype):
+    # K1b and K2b add every sum in a fixed order (no atomics): two launches
+    # on the same inputs give the same bits
+    q, k, v = (t.to(cuda) for t in _torch(_qkv(15, 2, 16, 4, 700, 700, 64),
+                                          dtype))
+    do = _torch(_normal(16, (2, 16, 700, 64)), dtype)[0].to(cuda)
+    o, lse = k1_ops._forward(q, k, v, causal=True, window=0, logit_cap=0.0,
+                             q_offset=0, with_lse=True)
+    first, second = (flash_attention_bwd(q, k, v, o, lse, do)
+                     for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    x, w, dy = _normal(17, (4096, 2048), (2048,), (4096, 2048))
+    x, w, dy = (t.to(cuda) for t in _torch([x, 1.0 + 0.1 * w, dy], dtype))
+    first, second = (rmsnorm_bwd(x, w, dy) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _tiny_llama():

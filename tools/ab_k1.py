@@ -60,9 +60,12 @@ print("RESULT " + json.dumps(r), flush=True)
 '''
 
 
-def main() -> int:
+def run_ab(run: str, doc: str) -> int:
+    """Runs the script ``run`` in the tree given on the command line and in
+    this one, in turns (old, new, new, old), each in a process of its own,
+    and prints its ``RESULT`` line for each; returns 1 when a run failed."""
     if len(sys.argv) != 2:
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     old = os.path.abspath(sys.argv[1])
     new = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -73,7 +76,7 @@ def main() -> int:
     failed = 0
     for name, tree in (("old", old), ("new", new), ("new", new),
                        ("old", old)):
-        proc = subprocess.run([sys.executable, "-c", RUN], cwd=tree,
+        proc = subprocess.run([sys.executable, "-c", run], cwd=tree,
                               capture_output=True, text=True, timeout=600)
         lines = [line[7:] for line in proc.stdout.splitlines()
                  if line.startswith("RESULT ")]
@@ -87,4 +90,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_ab(RUN, __doc__))
