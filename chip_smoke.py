@@ -40,7 +40,17 @@ prints no result line):
    kernels reach every parameter and stay within twice the plain bf16
    path's distance from an f32 run), once with the reference's init and
    once with every scaled weight drawn at std 1/sqrt(its input width), and
-   the training CLI for 3 steps.
+   the training CLI for 3 steps;
+8. export on the card: llama3-1b's train step at 4 x 2048 traced on fake
+   ``cuda`` tensors and emitted as StableHLO text, with the card's
+   configuration and with ``attn_impl="chunked"``: the kernels' operator
+   nodes equal phase 6's launches a step, no launch counter moves and no
+   device memory is allocated, the port's two IR front ends give equal
+   Programs, and the ``dot_general`` FLOPs are the JAX export's (chunked)
+   or that plus K1's recomputed scores (kernel); the trace's and the
+   emit's seconds and the text's size; then the host's time for one K2
+   call at the decode shape through its operator (the route inside a
+   trace) and directly (the route outside one, ``library.call``).
 
 The last lines are one JSON object ``{"kernels": [...]}``, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -63,6 +73,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.core import ir  # noqa: E402
+from repro_torch.core.pipeline import export_workload  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as k1_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -70,6 +82,7 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     bwd_kernel_error as k1b_error, flash_attention_bwd_ref,
     flash_attention_fwd_ref, flash_attention_ref, kernel_error, lse_error)
+from repro_torch.kernels.rmsnorm import ops as k2_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
     bwd_kernel_error as k2b_error, kernel_error as rmsnorm_error,
@@ -90,7 +103,7 @@ from repro_torch.models.params import (init_params, param_count,  # noqa: E402
 from repro_torch.train.checkpoint import _flatten as flatten  # noqa: E402
 from repro_torch.train.data import DataConfig, SyntheticSource  # noqa: E402
 from repro_torch.train.loop import (  # noqa: E402
-    _value_and_grad as value_and_grad, make_train_step)
+    _value_and_grad as value_and_grad, make_train_step, train_step_exports)
 from repro_torch.train.optimizer import (  # noqa: E402
     OptimizerConfig, adamw_init, adamw_update)
 
@@ -982,6 +995,84 @@ def train_cli() -> None:
 
 
 # --------------------------------------------------------------------------
+# phase 8: export on the card
+# --------------------------------------------------------------------------
+
+# dot_general FLOPs of llama3-1b's train step at 4 x 2048: the JAX raw
+# export's (tests/test_torch_export.py holds the port's chunked export to
+# it; the card's machine has no JAX), and the kernel path's, whose plain
+# backward of K1 recomputes the scores: one more 2 B Hq S^2 D product a
+# layer, 16 * 2 * 4 * 32 * 2048^2 * 64 in all
+EXPORT_FLOPS = {"chunked": 57_724_360_458_240,
+                "kernel": 57_724_360_458_240 + 16 * 2 * 4 * 32 * 2048**2 * 64}
+# operator names in the export -> the launch counters of phase 6
+EXPORT_OPS = {"flash_attention_lse": "flash_attention",
+              "flash_attention_bwd": "flash_attention_bwd",
+              "rmsnorm": "rmsnorm", "rmsnorm_bwd": "rmsnorm_bwd"}
+
+
+def export_on_the_card(train_launches: dict) -> None:
+    """Export llama3-1b's train step on fake ``cuda`` tensors with the
+    card's configuration and with the chunked attention, and hold each
+    text: kernel operators against phase 6's launches a step, no launch
+    and no device memory, both front ends equal, the FLOPs."""
+    per_step = {k: n / TRAIN_STEPS for k, n in train_launches.items()}
+    for impl in ("kernel", "chunked"):
+        cfg = get_config("llama3-1b").scaled(attn_impl=impl)
+        step, args = train_step_exports(cfg, TRAIN_S, TRAIN_B)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in COUNTERS.items()}
+        mem = torch.cuda.memory_allocated()
+        w = export_workload(step, *args, name=f"llama3-1b-{impl}",
+                            device="cuda")
+        if torch.cuda.memory_allocated() != mem:
+            raise AssertionError(f"export {impl}: device memory "
+                                 f"{mem} -> {torch.cuda.memory_allocated()}")
+        if {k: fn.launches for k, fn in COUNTERS.items()} != counts:
+            raise AssertionError(f"export {impl}: a launch counter moved")
+        ops = w.meta["kernel_ops"]
+        want = ({op: per_step[k] for op, k in EXPORT_OPS.items()}
+                if impl == "kernel" else
+                {"rmsnorm": per_step["rmsnorm"],
+                 "rmsnorm_bwd": per_step["rmsnorm_bwd"]})
+        if ops != want:
+            raise AssertionError(f"export {impl}: operator nodes {ops}, "
+                                 f"expected {want}")
+        text = w.stablehlo_text
+        t0 = time.perf_counter()
+        legacy = ir.parse_stablehlo(text, frontend="legacy")
+        streaming = ir.parse_stablehlo(text, frontend="streaming")
+        parse_s = time.perf_counter() - t0
+        ir.assert_programs_equal(legacy, streaming)
+        flops = int(ir.program_cost(streaming).by_op["dot_general"])
+        if flops != EXPORT_FLOPS[impl]:
+            raise AssertionError(f"export {impl}: dot_general FLOPs {flops}"
+                                 f", expected {EXPORT_FLOPS[impl]}")
+        log(f"  {impl}: trace {w.meta['trace_s']:.2f} s, emit "
+            f"{w.meta['emit_s']:.3f} s, text {w.meta['text_bytes']} bytes, "
+            f"{streaming.num_ops} ops, both front ends {parse_s:.2f} s; "
+            f"operator nodes {ops}; dot_general {flops} FLOPs")
+    # the operator's dispatcher round trip against the direct call, in
+    # turns: host µs a K2 call at 8 x 2048 bf16 (2000 calls, then a sync)
+    x = torch.randn(8, 2048, device="cuda").bfloat16()
+    w1 = torch.ones(2048, device="cuda").bfloat16()
+    routes = {"operator": lambda: k2_ops._FWD(x, w1, 1e-5, 0.0),
+              "direct": lambda: k2_ops._forward(x, w1, 1e-5, 0.0)}
+    us = {k: [] for k in routes}
+    for _ in range(5):
+        for k, fn in routes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            torch.cuda.synchronize()
+            us[k].append((time.perf_counter() - t0) / 2000 * 1e6)
+    log("  host µs a K2 call at 8x2048: " + "; ".join(
+        f"{k} {statistics.median(v):.2f} (runs "
+        f"{', '.join(f'{t:.2f}' for t in v)})" for k, v in us.items()))
+
+
+# --------------------------------------------------------------------------
 # phase 5: where the time goes (torch.profiler)
 # --------------------------------------------------------------------------
 
@@ -1101,6 +1192,8 @@ def main() -> int:
     gradient_gate(gen)
     gradient_gate(gen, fan_in=True)
     train_cli()
+    log("[8] export on the card")
+    export_on_the_card(runs[-1])
     # launches on the three main paths: K1 and K2 run on two or three
     for entry in (k1, k2, k3, k1b, k2b):
         key = entry["name"]

@@ -130,8 +130,7 @@ class ShapeConfig:
 class RunConfig:
     """One training run: the reference's ``RunConfig``, field for field.
     This slice runs on one card: ``mesh_shape`` and ``mesh_axes`` are kept
-    for parity and wait for the distribution slice (ROADMAP, Queue 1 item
-    5)."""
+    for parity and wait for the distribution slice (ROADMAP, Queue 1)."""
     model: ModelConfig
     shape: ShapeConfig
     mesh_shape: tuple[int, ...] = (16, 16)

@@ -1,11 +1,13 @@
 """Flash attention (K1) on [B, H, S, D] with GQA, and its backward (K1b).
 
-:func:`flash_attention` is a ``torch.autograd.Function``.  On CPU tensors
-its forward and backward compute the plain versions (``ref.py``); on CUDA
-tensors the forward launches the hand-written kernel
-(``csrc/flash_attention.cu``), writing each row's log-sum-exp when a
-gradient will be asked for, and the backward launches K1b
-(``csrc/flash_attention_bwd.cu``), or the call raises.
+:func:`flash_attention` is a ``torch.autograd.Function`` over three opaque
+operators, ``torch.ops.repro_torch.flash_attention``, ``flash_attention_lse``
+(which also returns each row's log-sum-exp) and ``flash_attention_bwd``.  On
+CPU tensors each computes its plain version (``ref.py``); on CUDA tensors
+the forward launches the hand-written kernel (``csrc/flash_attention.cu``),
+writing each row's log-sum-exp when a gradient will be asked for, and the
+backward launches K1b (``csrc/flash_attention_bwd.cu``), or the call raises.
+A trace on fake tensors records one node per call and launches nothing.
 ``flash_attention.launches`` counts K1's launches and
 ``flash_attention_bwd.launches`` K1b's (each of which runs its three
 kernels: delta, dK/dV and dQ), and nothing else.
@@ -17,6 +19,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ...library import call, define
 from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 
 HEAD_DIMS = (32, 64, 128)
@@ -126,28 +129,75 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _plain_lse(q, k, v, causal, window, logit_cap, q_offset):
+    return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                   logit_cap=logit_cap, q_offset=q_offset)
+
+
+def _plain(*args):
+    return _plain_lse(*args)[0]
+
+
+def _plain_bwd(q, k, v, o, lse, do, causal, window, logit_cap, q_offset):
+    return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                   window=window, logit_cap=logit_cap,
+                                   q_offset=q_offset)
+
+
+def _kernel(*args):
+    return _forward(*args, with_lse=False)[0]
+
+
+def _kernel_lse(*args):
+    return _forward(*args, with_lse=True)
+
+
+def _kernel_bwd(q, k, v, o, lse, do, causal, window, logit_cap, q_offset):
+    return flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                               window=window, logit_cap=logit_cap,
+                               q_offset=q_offset)
+
+
+def _fake(q, k, v, *_):
+    # K1 writes o as [B, Sq, Hq, D]
+    b, hq, sq, d = q.shape
+    return q.new_empty(b, sq, hq, d).transpose(1, 2)
+
+
+def _fake_lse(q, k, v, *_):
+    return _fake(q, k, v), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _fake_bwd(q, k, v, *_):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+_ARGS = "bool causal, int window, float logit_cap, int q_offset"
+_FWD = define(f"flash_attention(Tensor q, Tensor k, Tensor v, {_ARGS}) "
+              "-> Tensor", _plain, _kernel, _fake)
+_FWD_LSE = define(f"flash_attention_lse(Tensor q, Tensor k, Tensor v, "
+                  f"{_ARGS}) -> (Tensor, Tensor)",
+                  _plain_lse, _kernel_lse, _fake_lse)
+_BWD = define(f"flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+              f"Tensor lse, Tensor dout, {_ARGS}) -> (Tensor, Tensor, Tensor)",
+              _plain_bwd, _kernel_bwd, _fake_bwd)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, logit_cap, q_offset):
-        kw = dict(causal=causal, window=window, logit_cap=logit_cap,
-                  q_offset=q_offset)
-        grad = any(ctx.needs_input_grad[:3])
-        if q.device.type == "cpu":
-            o, lse = flash_attention_fwd_ref(q, k, v, **kw)
-        else:
-            o, lse = _forward(q, k, v, causal, window, logit_cap, q_offset,
-                              with_lse=grad)
-        if grad:
-            ctx.save_for_backward(q, k, v, o, lse)
-            ctx.kw = kw
+        args = (q, k, v, causal, window, logit_cap, q_offset)
+        if not any(ctx.needs_input_grad[:3]):
+            return call(_FWD, *args)
+        o, lse = call(_FWD_LSE, *args)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = args[3:]
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = (flash_attention_bwd_ref if q.device.type == "cpu"
-               else flash_attention_bwd)
-        dq, dk, dv = bwd(q, k, v, o, lse, do, **ctx.kw)
+        dq, dk, dv = call(_BWD, q, k, v, o, lse, do, *ctx.args)
         return dq, dk, dv, None, None, None, None
 
 

@@ -1,12 +1,14 @@
 """Fused RMSNorm (K2) over arbitrary leading dims, and its backward (K2b).
 
-:func:`rmsnorm` is a ``torch.autograd.Function``.  On a CPU tensor its
-forward and backward compute the plain versions (``ref.py``); on a CUDA
-tensor the forward launches the hand-written kernel (``csrc/rmsnorm.cu``)
-and the backward K2b (``csrc/rmsnorm_bwd.cu``), or the call raises.
-``rmsnorm.launches`` counts K2's launches and ``rmsnorm_bwd.launches`` K2b's
-(each of which runs its two kernels: the rows and the dw reduction), and
-nothing else.
+:func:`rmsnorm` is a ``torch.autograd.Function`` over two opaque operators,
+``torch.ops.repro_torch.rmsnorm`` and ``rmsnorm_bwd``.  On a CPU tensor
+each computes its plain version (``ref.py``); on a CUDA tensor the forward
+launches the hand-written kernel (``csrc/rmsnorm.cu``) and the backward K2b
+(``csrc/rmsnorm_bwd.cu``), or the call raises.  A trace on fake tensors
+records one node per call and runs only the operators' fakes, which
+allocate the outputs and launch nothing.  ``rmsnorm.launches`` counts K2's
+launches and ``rmsnorm_bwd.launches`` K2b's (each of which runs its two
+kernels: the rows and the dw reduction), and nothing else.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ...library import call, define
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,11 +88,25 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     return dx, dw
 
 
+def _fake(x, w, eps, offset):
+    return torch.empty_like(x)
+
+
+def _bwd_fake(x, w, dy, eps, offset):
+    return torch.empty_like(x), torch.empty_like(w)
+
+
+_FWD = define("rmsnorm(Tensor x, Tensor w, float eps, float offset) -> Tensor",
+              rmsnorm_ref, _forward, _fake)
+_BWD = define("rmsnorm_bwd(Tensor x, Tensor w, Tensor dy, float eps, "
+              "float offset) -> (Tensor, Tensor)",
+              rmsnorm_bwd_ref, rmsnorm_bwd, _bwd_fake)
+
+
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, eps, offset):
-        y = (rmsnorm_ref(x, w, eps, offset) if x.device.type == "cpu"
-             else _forward(x, w, eps, offset))
+        y = call(_FWD, x, w, eps, offset)
         if any(ctx.needs_input_grad[:2]):
             ctx.save_for_backward(x, w)
             ctx.eps, ctx.offset = eps, offset
@@ -98,8 +115,7 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        bwd = rmsnorm_bwd_ref if x.device.type == "cpu" else rmsnorm_bwd
-        dx, dw = bwd(x, w, dy, ctx.eps, ctx.offset)
+        dx, dw = call(_BWD, x, w, dy, ctx.eps, ctx.offset)
         return dx, dw, None, None
 
 

@@ -4,10 +4,13 @@
 ``kernels/ssd_scan/ops.py::ssd_scan``.  On a CUDA tensor it is one launch of
 K3 (``csrc/ssd_scan.cu``), which computes the whole scan: the decays inside
 each chunk, the intra-chunk dual form, the chunk states and the inter-chunk
-recurrence.  On a CPU tensor it runs the plain version,
-``ref.ssd_scan_ref``, which autograd differentiates.  On a CUDA tensor K3
-launches or the call raises; there is no fallback.  K3 has no backward yet,
-so on the card a call that would need a gradient raises.
+recurrence.  The scan is the opaque operator ``torch.ops.repro_torch.
+ssd_scan``: on a CPU tensor it runs the plain version, ``ref.ssd_scan_ref``;
+on a CUDA tensor K3 launches or the call raises; there is no fallback.  A
+trace on fake tensors records one node per call and launches nothing.  K3
+has no backward yet: on the CPU a call that needs a gradient runs
+``ssd_scan_ref`` itself, which autograd differentiates, and on the card it
+raises.
 ``ssd_scan.launches`` counts K3's launches, and nothing else.
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ...library import call, define
 from .ref import ssd_scan_ref
 
 # the widths K3 is instantiated for: head_dim P and d_state N; the chunk
@@ -105,18 +109,27 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"{tuple(b_in.shape)}, C {tuple(c_in.shape)}")
     if chunk <= 0 or s % chunk:
         raise ValueError(f"ssd_scan: seq {s} not divisible by chunk {chunk}")
-    if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, a, b_in, c_in, chunk, initial_state)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, a, b_in, c_in, initial_state)):
+        if x.device.type == "cpu":
+            return ssd_scan_ref(x, dt, a, b_in, c_in, chunk, initial_state)
         # K3's outputs would carry no gradient: refuse rather than train
         # the layers below it silently without one
         raise NotImplementedError(
             "ssd_scan: K3 has no backward kernel yet (ROADMAP, Queue 2: "
             "K3's backward is the next training slice, mamba2-370m); call "
             "it under torch.no_grad() or on inputs that need no gradient")
-    return _launch(x, dt, a, b_in, c_in, chunk, initial_state)
+    return call(_SCAN, x, dt, a, b_in, c_in, chunk, initial_state)
 
 
+def _fake(x, dt, a, b_in, c_in, chunk, initial_state):
+    bsz, _, h, p = x.shape
+    return (x.new_empty(x.shape),
+            x.new_empty(bsz, h, p, b_in.shape[3], dtype=torch.float32))
+
+
+_SCAN = define("ssd_scan(Tensor x, Tensor dt, Tensor a, Tensor b_in, "
+               "Tensor c_in, int chunk, Tensor? initial_state) "
+               "-> (Tensor, Tensor)", ssd_scan_ref, _launch, _fake)
 ssd_scan.launches = 0

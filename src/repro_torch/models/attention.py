@@ -192,7 +192,7 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
         v = v + p["bv"].to(v.dtype)
     if cfg.mrope_sections:
         raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet "
-                                  "(ROADMAP, Queue 1 item 6)")
+                                  "(ROADMAP, Queue 1: other families)")
     return q, k, v
 
 

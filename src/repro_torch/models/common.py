@@ -1,10 +1,12 @@
-"""Shared building blocks: norms, activations, embeddings."""
+"""Shared building blocks: norms, activations, embeddings, the layer
+barrier."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.rmsnorm.ops import rmsnorm
+from ..library import call, define
 from .params import ParamSpec
 
 
@@ -56,3 +58,25 @@ def norm_spec(d: int, dtype: str) -> ParamSpec:
 def shard_act(x: torch.Tensor, axes) -> torch.Tensor:
     """Identity: this slice runs on one device, with no mesh to shard on."""
     return x
+
+
+_BARRIER = define("barrier(Tensor x) -> Tensor", torch.clone, torch.clone,
+                  lambda x: torch.empty_like(x))
+
+
+class _Barrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return call(_BARRIER, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return call(_BARRIER, g)
+
+
+def barrier(x: torch.Tensor) -> torch.Tensor:
+    """The reference's differentiable ``optimization_barrier``: a copy of x
+    here, and in an export an ``optimization_barrier`` on the value and on
+    its cotangent, so per-layer regions stay apart in the forward and the
+    backward segments of the text."""
+    return _Barrier.apply(x)

@@ -83,6 +83,18 @@ def init_params(tree, generator: torch.Generator, device=None) -> dict:
     return _rebuild(tree, values)
 
 
+def abstract_params(tree, mesh=None, rules=None) -> dict:
+    """The spec tree as meta tensors (shapes and dtypes, no storage): the
+    counterpart of the reference's ``abstract_params`` for an export.  A
+    mesh waits for the distribution slice (ROADMAP, Queue 1)."""
+    if mesh is not None or rules is not None:
+        raise NotImplementedError("abstract_params: a mesh and sharding "
+                                  "rules wait for the distribution slice")
+    values = {name: torch.empty(s.shape, dtype=DTYPES[s.dtype], device="meta")
+              for name, s in tree_paths(tree).items()}
+    return _rebuild(tree, values)
+
+
 def _to_torch(a, device: torch.device) -> torch.Tensor:
     a = np.array(a, copy=True)
     if a.dtype.name == "bfloat16":

@@ -27,8 +27,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import attention_specs, gqa_decode, gqa_forward
-from .common import (embed_lookup, embedding_spec, norm_spec, rms_norm,
-                     softcap)
+from .common import (barrier, embed_lookup, embedding_spec, norm_spec,
+                     rms_norm, softcap)
 from .mlp import mlp_forward, mlp_specs
 from .params import DTYPES, ParamSpec, init_params
 from .ssm import mamba2_forward, ssm_specs
@@ -38,7 +38,7 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family == "hybrid" or cfg.moe is not None or cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family (MoE/MLA/hybrid "
-            "branches) is not ported yet (ROADMAP, Queue 1 item 6)")
+            "branches) is not ported yet (ROADMAP, Queue 1: other families)")
 
 
 # --------------------------------------------------------------------------
@@ -159,7 +159,10 @@ def _scan_layers(cfg: ModelConfig, params: dict, h: torch.Tensor,
     """The reference's layer scan as a Python loop over the stacked
     weights.  With ``remat == "full"`` each layer is recomputed in the
     backward (the reference's ``jax.checkpoint`` of the scan body), so its
-    kernels' forwards run twice when a gradient is taken."""
+    kernels' forwards run twice when a gradient is taken.  The layers are
+    always unrolled, so an export has no layer loop; as in the reference, a
+    barrier follows each layer when ``layer_barriers`` is set and
+    ``scan_layers`` is not (the reference's unrolled stack)."""
     _check_family(cfg)
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         if cfg.family == "ssm":
@@ -172,6 +175,8 @@ def _scan_layers(cfg: ModelConfig, params: dict, h: torch.Tensor,
             h = checkpoint(block, h, use_reentrant=False)
         else:
             h = block(h)
+        if cfg.layer_barriers and not cfg.scan_layers:
+            h = barrier(h)
     return h
 
 

@@ -5,7 +5,7 @@ stream with a resumable cursor (checkpointable), drawn from numpy's
 generator with the reference's seeding, so the batches equal the
 reference's bit for bit.  ``__next__`` returns numpy arrays; the train loop
 moves them to its device.  ``ShardedLoader``, which places batches on a
-mesh, waits for the distribution slice (ROADMAP, Queue 1 item 5).
+mesh, waits for the distribution slice (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -65,4 +65,4 @@ class ShardedLoader:
     def __init__(self, source, mesh, rules=None):
         raise NotImplementedError(
             "ShardedLoader needs a device mesh, which waits for the "
-            "distribution slice (ROADMAP, Queue 1 item 5)")
+            "distribution slice (ROADMAP, Queue 1)")

@@ -3,9 +3,10 @@
 The counterpart of the JAX package's ``train/loop.py`` on one device.  The
 step is eager PyTorch: the forward through the model's kernels (K1 and K2 on
 the card), ``torch.autograd.grad`` through their backward kernels (K1b and
-K2b), then the optimizer on dicts of tensors.  The reference's
-``train_step_exports`` comes with the export slice (ROADMAP, Queue 1 item
-3), and a mesh with the distribution slice (item 5).
+K2b), then the optimizer on dicts of tensors.  :func:`train_step_exports`
+and :func:`forward_exports` give the step and the forward with abstract
+arguments for :func:`repro_torch.core.pipeline.export_workload`; a mesh
+waits for the distribution slice (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -14,14 +15,16 @@ from dataclasses import dataclass
 
 import torch
 
-from ..configs.base import ModelConfig, RunConfig
+from ..configs.base import ModelConfig, RunConfig, ShapeConfig
 from ..device import resolve_device
-from ..models.params import init_params, trainable
+from ..models.params import abstract_params, init_params, trainable
+from ..models.registry import input_specs
 from ..models.transformer import forward, model_specs
 from .checkpoint import CheckpointManager
 from .data import DataConfig, SyntheticSource
 from .fault_tolerance import StragglerDetector
-from .optimizer import OptimizerConfig, make_optimizer, tree_leaves, tree_map
+from .optimizer import (OptimizerConfig, make_optimizer, opt_state_abstract,
+                        tree_leaves, tree_map)
 
 
 def quantize_int8(g: torch.Tensor):
@@ -90,6 +93,33 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         return new_params, new_opt, metrics
 
     return train_step
+
+
+def train_step_exports(cfg: ModelConfig, seq: int, batch: int, mesh=None, *,
+                       rules=None, opt_cfg: OptimizerConfig | None = None):
+    """The full train step (loss, gradient and optimizer update) and meta
+    tensors standing for its arguments (parameters, optimizer state and the
+    token batch), ready for :func:`repro_torch.core.pipeline.export_workload`:
+    the counterpart of the reference's ``train_step_exports``.  Returns
+    ``(step, (params_abs, opt_abs, batch_abs))``; nothing is allocated."""
+    opt_cfg = opt_cfg or OptimizerConfig()
+    specs = model_specs(cfg)
+    shape = ShapeConfig("bench", seq, batch, "train")
+    return make_train_step(cfg, opt_cfg), (
+        abstract_params(specs, mesh, rules),
+        opt_state_abstract(specs, opt_cfg.name, mesh, rules),
+        input_specs(cfg, shape, mesh, rules))
+
+
+def forward_exports(cfg: ModelConfig, seq: int, batch: int):
+    """The forward pass ``(params, batch) -> (loss, logits)`` and meta
+    tensors standing for its arguments: what the reference's campaign
+    exports for ``mode="forward"``."""
+    def step(params, batch):
+        return forward(cfg, params, batch)
+
+    shape = ShapeConfig("bench", seq, batch, "train")
+    return step, (abstract_params(model_specs(cfg)), input_specs(cfg, shape))
 
 
 @dataclass

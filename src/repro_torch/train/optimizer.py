@@ -82,12 +82,12 @@ def clip_by_global_norm(grads, max_norm: float):
 def opt_state_abstract(specs, opt_name: str, mesh=None, rules=None):
     """Meta tensors (no storage) for the optimizer state, from ParamSpecs:
     the zero-allocation twin of ``adamw_init``/``adafactor_init``.  On one
-    card there is no sharding to carry (``mesh`` waits for ROADMAP, Queue 1
-    item 5)."""
+    card there is no sharding to carry (``mesh`` waits for the distribution
+    slice, ROADMAP Queue 1)."""
     if mesh is not None or rules is not None:
         raise NotImplementedError("opt_state_abstract: sharded state waits "
                                   "for the distribution slice (ROADMAP, "
-                                  "Queue 1 item 5)")
+                                  "Queue 1)")
 
     def like(spec: ParamSpec, dtype="float32"):
         return torch.empty(spec.shape, dtype=DTYPES[dtype], device="meta")

@@ -318,3 +318,28 @@ def test_ssd_scan_refuses_a_gradient_on_the_card(cuda):
         ssd_scan(x, dt, a, bi, ci, chunk=64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ssd_scan(x.requires_grad_(True), dt, a, bi, ci, chunk=64)
+
+
+@pytest.mark.cuda
+def test_export_on_the_card_launches_nothing_and_equals_the_cpu_text(cuda):
+    # a trace on fake cuda tensors runs only the operators' fakes: no
+    # launch, no device memory, and the same text as on the CPU
+    from repro_torch.core.pipeline import export_workload
+    from repro_torch.train.loop import train_step_exports
+
+    cfg = get_smoke_config("llama3-1b")
+    step, args = train_step_exports(cfg, 128, 2)
+    counters = [f.launches for f in (flash_attention, flash_attention_bwd,
+                                     rmsnorm, rmsnorm_bwd, ssd_scan)]
+    mem = torch.cuda.memory_allocated(cuda)
+    w = export_workload(step, *args, device=cuda)
+    assert torch.cuda.memory_allocated(cuda) == mem
+    assert [f.launches for f in (flash_attention, flash_attention_bwd,
+                                 rmsnorm, rmsnorm_bwd, ssd_scan)] == counters
+    n = cfg.num_layers
+    assert w.meta["kernel_ops"] == {"flash_attention_lse": n,
+                                    "flash_attention_bwd": n,
+                                    "rmsnorm": 2 * n + 1,
+                                    "rmsnorm_bwd": 2 * n + 1}
+    assert w.stablehlo_text == export_workload(
+        step, *args, device="cpu").stablehlo_text

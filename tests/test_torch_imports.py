@@ -40,9 +40,10 @@ def test_every_module_and_chip_smoke_import_without_jax_or_repro():
         [sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT / "chip_smoke.py")],
         capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # configs (8), device, kernels (11), models (9), serve (2), train (6),
-    # launch (2)
-    assert int(proc.stdout.split()[-1]) >= 39
+    # configs (8), device, library, kernels (11), models (9), serve (2),
+    # train (6), launch (2), core (4: the package, export, stablehlo,
+    # pipeline) and its ir copies (8)
+    assert int(proc.stdout.split()[-1]) >= 52
 
 
 @pytest.fixture
