@@ -50,7 +50,17 @@ prints no result line):
    or that plus K1's recomputed scores (kernel); the trace's and the
    emit's seconds and the text's size; then the host's time for one K2
    call at the decode shape through its operator (the route inside a
-   trace) and directly (the route outside one, ``library.call``).
+   trace) and directly (the route outside one, ``library.call``);
+9. predict on the card: phase 8's kernel-configuration text through the
+   port's ``PredictionJob`` (catalog system ``h100``, ``a2a`` over one
+   device, the linear slicer) with fig6's two estimators, roofline by
+   region and per-op with overheads, each beside phase 6's measured
+   median step (the ratio is printed, not held); then the port's
+   ``run_campaign`` on ``specs/fig6_gpu.json`` as checked in, exporting on
+   fake ``cuda`` tensors (12 raw rows ranking the four systems as the
+   golden's raw rows do, Kendall tau 1.0 per workload; the 12 optimized
+   jobs ``plan`` error rows), and on ``specs/fig10_gemm.json`` against its
+   golden.
 
 The last lines are one JSON object ``{"kernels": [...]}``, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -73,8 +83,16 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.campaign import (CampaignSpec, check_rows,  # noqa: E402
+                                  run_campaign)
+from repro_torch.campaign.builders import (build_estimator,  # noqa: E402
+                                           build_topology)
+from repro_torch.campaign.report import kendall_tau, load_json  # noqa: E402
+from repro_torch.campaign.spec import EstimatorSpec, TopologySpec  # noqa: E402
 from repro_torch.core import ir  # noqa: E402
-from repro_torch.core.pipeline import export_workload  # noqa: E402
+from repro_torch.core.catalog import default_registry  # noqa: E402
+from repro_torch.core.pipeline import (PredictionJob,  # noqa: E402
+                                       export_workload)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as k1_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -812,12 +830,12 @@ def timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def train_llama(gen) -> dict:
+def train_llama(gen) -> tuple[dict, float]:
     """The training path: ``make_train_step`` on llama3-1b (remat none,
     AdamW, bf16 parameters, f32 moments) for TRAIN_WARMUP + TRAIN_STEPS
     steps on one repeated 4 x 2048 batch, with the launch counts set to 0
     after the warm-up and read after the last step; then one profiled
-    step."""
+    step.  Returns the launch counts and the median step's seconds."""
     cfg = get_config("llama3-1b")
     assert cfg.attn_impl == "kernel" and cfg.remat == "none"
     specs = model_specs(cfg)
@@ -892,7 +910,7 @@ def train_llama(gen) -> dict:
                    top=20, groups=TRAIN_GROUPS)
     del params, opt_state
     torch.cuda.empty_cache()
-    return launches
+    return launches, step_s
 
 
 @contextlib.contextmanager
@@ -1011,20 +1029,22 @@ EXPORT_OPS = {"flash_attention_lse": "flash_attention",
               "rmsnorm": "rmsnorm", "rmsnorm_bwd": "rmsnorm_bwd"}
 
 
-def export_on_the_card(train_launches: dict) -> None:
+def export_on_the_card(train_launches: dict):
     """Export llama3-1b's train step on fake ``cuda`` tensors with the
     card's configuration and with the chunked attention, and hold each
     text: kernel operators against phase 6's launches a step, no launch
-    and no device memory, both front ends equal, the FLOPs."""
+    and no device memory, both front ends equal, the FLOPs.  Returns the
+    card's configuration's workload."""
     per_step = {k: n / TRAIN_STEPS for k, n in train_launches.items()}
+    exported = {}
     for impl in ("kernel", "chunked"):
         cfg = get_config("llama3-1b").scaled(attn_impl=impl)
         step, args = train_step_exports(cfg, TRAIN_S, TRAIN_B)
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in COUNTERS.items()}
         mem = torch.cuda.memory_allocated()
-        w = export_workload(step, *args, name=f"llama3-1b-{impl}",
-                            device="cuda")
+        w = exported[impl] = export_workload(
+            step, *args, name=f"llama3-1b-{impl}", device="cuda")
         if torch.cuda.memory_allocated() != mem:
             raise AssertionError(f"export {impl}: device memory "
                                  f"{mem} -> {torch.cuda.memory_allocated()}")
@@ -1070,6 +1090,89 @@ def export_on_the_card(train_launches: dict) -> None:
     log("  host µs a K2 call at 8x2048: " + "; ".join(
         f"{k} {statistics.median(v):.2f} (runs "
         f"{', '.join(f'{t:.2f}' for t in v)})" for k, v in us.items()))
+    return exported["kernel"]
+
+
+# --------------------------------------------------------------------------
+# phase 9: predict on the card
+# --------------------------------------------------------------------------
+
+# fig6's two estimators (specs/fig6_gpu.json): roofline by region, and per
+# op with the per-kernel overheads
+PREDICT_ESTIMATORS = {
+    "roofline": {"kind": "roofline"},
+    "roofline-per-op-ovh": {"kind": "roofline", "options": {
+        "mode": "per-op", "include_overheads": True}},
+}
+FIG6_WORKLOADS = ("llama3-100m", "llama3-500m", "llama3-1b")
+
+
+def predict_on_the_card(workload, step_s: float) -> None:
+    """Predict phase 8's train step (one card: ``a2a`` over 1 device, no
+    mesh) beside phase 6's measured median; then fig6 and fig10 through
+    the port's campaign runner, held against their goldens."""
+    system = default_registry().get("h100")
+    topology = build_topology(TopologySpec.from_dict(
+        {"kind": "a2a", "params": {"num_devices": 1}}), system)
+    program = workload.program("raw")
+    for label, est in PREDICT_ESTIMATORS.items():
+        t0 = time.perf_counter()
+        p = PredictionJob(
+            program=program, slicer="linear", name=workload.name,
+            system_name="h100", topology=topology,
+            estimator=build_estimator(EstimatorSpec.from_dict(est),
+                                      system)).run()
+        secs = time.perf_counter() - t0
+        if not (math.isfinite(p.step_time_s) and p.step_time_s > 0):
+            raise AssertionError(f"predict {label}: step {p.step_time_s}")
+        log(f"  {workload.name} on h100, {label}: predicted "
+            f"{p.step_time_s * 1e3:.2f} ms, measured (phase 6 median) "
+            f"{step_s * 1e3:.2f} ms, predicted/measured "
+            f"{p.step_time_s / step_s:.4f}; {p.num_segments} segments, "
+            f"prediction {secs:.2f} s")
+
+    t0 = time.perf_counter()
+    result = run_campaign(CampaignSpec.from_json(
+        str(ROOT / "specs" / "fig6_gpu.json")), device="cuda")
+    fig6_s = time.perf_counter() - t0
+    raw = [r for r in result.rows if "error" not in r]
+    errors = [r for r in result.rows if "error" in r]
+    if len(raw) != 12 or any(r["fidelity"] != "raw" for r in raw):
+        raise AssertionError(f"fig6: {len(raw)} rows without error, "
+                             "expected the 12 raw rows")
+    if len(errors) != 12 or any(
+            r["fidelity"] != "optimized" or r["error_type"] != "plan"
+            for r in errors):
+        raise AssertionError("fig6: the optimized jobs are not 12 plan "
+                             f"error rows: {errors}")
+    golden = {(r["workload"], r["system"]): r["step_time_s"]
+              for r in load_json(str(ROOT / "specs" / "golden" /
+                                     "fig6-gpu.json"))["rows"]
+              if r["fidelity"] == "raw"}
+    for name in FIG6_WORKLOADS:
+        rows = [r for r in raw if r["workload"] == name]
+        ours = [r["step_time_s"] for r in rows]
+        theirs = [golden[(name, r["system"])] for r in rows]
+        tau = kendall_tau(ours, theirs)
+        log(f"  fig6 {name} raw, per-op roofline: " + "; ".join(
+            f"{r['system']} {a * 1e3:.2f} ms ({a / b:.4f} of golden)"
+            for r, a, b in zip(rows, ours, theirs)) + f"; tau {tau}")
+        if tau != 1.0:
+            raise AssertionError(f"fig6 {name}: Kendall tau {tau} against "
+                                 "the golden raw rows")
+    log(f"  fig6: {len(raw)} raw rows, {len(errors)} optimized plan error "
+        f"rows ({errors[0]['error'][:100]}...), {fig6_s:.2f} s")
+
+    t0 = time.perf_counter()
+    result = run_campaign(CampaignSpec.from_json(
+        str(ROOT / "specs" / "fig10_gemm.json")))
+    check = check_rows(load_json(str(ROOT / "specs" / "golden" /
+                                     "fig10-gemm.json")), result.rows)
+    if check["failures"]:
+        raise AssertionError(f"fig10 against its golden: "
+                             f"{check['failures']}")
+    log(f"  fig10: {check['rows_checked']} rows equal to the golden (max "
+        f"drift {check['max_drift']}), {time.perf_counter() - t0:.2f} s")
 
 
 # --------------------------------------------------------------------------
@@ -1187,13 +1290,16 @@ def main() -> int:
         log(f"[4] {arch} serving path; [5] where the time goes")
         runs.append(serve(arch, gen))
     log("[6] llama3-1b training path")
-    runs.append(train_llama(gen))
+    train_launches, step_s = train_llama(gen)
+    runs.append(train_launches)
     log("[7] gradient gate and the training CLI")
     gradient_gate(gen)
     gradient_gate(gen, fan_in=True)
     train_cli()
     log("[8] export on the card")
-    export_on_the_card(runs[-1])
+    exported = export_on_the_card(train_launches)
+    log("[9] predict on the card")
+    predict_on_the_card(exported, step_s)
     # launches on the three main paths: K1 and K2 run on two or three
     for entry in (k1, k2, k3, k1b, k2b):
         key = entry["name"]
