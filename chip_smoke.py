@@ -57,10 +57,21 @@ prints no result line):
    region and per-op with overheads, each beside phase 6's measured
    median step (the ratio is printed, not held); then the port's
    ``run_campaign`` on ``specs/fig6_gpu.json`` as checked in, exporting on
-   fake ``cuda`` tensors (12 raw rows ranking the four systems as the
-   golden's raw rows do, Kendall tau 1.0 per workload; the 12 optimized
-   jobs ``plan`` error rows), and on ``specs/fig10_gemm.json`` against its
-   golden.
+   fake ``cuda`` tensors (its 12 raw rows ranking the four systems as the
+   golden's raw rows do, Kendall tau 1.0 per workload), and on
+   ``specs/fig10_gemm.json`` against its golden;
+10. the per-rank step of a [4, 1] data mesh (llama3-1b, 4 x 2048 in all):
+   (a) its export through ``build_workload`` on fake ``cuda`` tensors
+   in a fake world of 4 (4 partitions, both front ends equal,
+   ``dot_general`` FLOPs phase 8's over 4, each collective typed by its
+   payload, no launch, no device memory), with the collectives' counts
+   and bytes; (b) its prediction on ``h100``, ``auto`` over 4 devices,
+   with fig6's two estimators; (c) the step itself eagerly on the card
+   in that fake world (1 x 2048 a rank, 2 warm-up and 6 timed steps:
+   median, peak memory, the launches a step, the predicted compute over
+   the median); (d) fig6's 12 optimized rows (Kendall tau 1.0 per
+   workload), ``specs/fig11_tpu.json`` (tau 1.0 per estimator) and
+   ``specs/fig9_scaleout.json`` (printed beside the golden).
 
 The last lines are one JSON object ``{"kernels": [...]}``, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -86,11 +97,13 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.campaign import (CampaignSpec, check_rows,  # noqa: E402
                                   run_campaign)
 from repro_torch.campaign.builders import (build_estimator,  # noqa: E402
-                                           build_topology)
+                                           build_topology, build_workload)
 from repro_torch.campaign.report import kendall_tau, load_json  # noqa: E402
-from repro_torch.campaign.spec import EstimatorSpec, TopologySpec  # noqa: E402
+from repro_torch.campaign.spec import (EstimatorSpec,  # noqa: E402
+                                      TopologySpec, WorkloadSpec)
 from repro_torch.core import ir  # noqa: E402
 from repro_torch.core.catalog import default_registry  # noqa: E402
+from repro_torch.core.ir.collectives import collect_collectives  # noqa: E402
 from repro_torch.core.pipeline import (PredictionJob,  # noqa: E402
                                        export_workload)
 from repro_torch.kernels import _build  # noqa: E402
@@ -106,6 +119,7 @@ from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
     bwd_kernel_error as k2b_error, kernel_error as rmsnorm_error,
     rmsnorm_bwd_ref, rmsnorm_ref)
 from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
+from repro_torch.launch.mesh import traced_mesh  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     kernel_error as ssd_error, ssd_scan_ref)
 from repro_torch.models import common as model_common  # noqa: E402
@@ -116,10 +130,12 @@ from repro_torch.models.ssm import mamba2_forward  # noqa: E402
 from repro_torch.models.transformer import (TransformerLM, _embed,  # noqa: E402
                                             decode_step, init_cache_specs,
                                             model_specs, prefill)
-from repro_torch.models.params import (init_params, param_count,  # noqa: E402
-                                       tree_paths)
+from repro_torch.models.params import (abstract_params,  # noqa: E402
+                                       init_params, param_count,
+                                       shard_params, tree_paths)
 from repro_torch.train.checkpoint import _flatten as flatten  # noqa: E402
-from repro_torch.train.data import DataConfig, SyntheticSource  # noqa: E402
+from repro_torch.train.data import (DataConfig, ShardedLoader,  # noqa: E402
+                                    SyntheticSource)
 from repro_torch.train.loop import (  # noqa: E402
     _value_and_grad as value_and_grad, make_train_step, train_step_exports)
 from repro_torch.train.optimizer import (  # noqa: E402
@@ -206,6 +222,8 @@ K1_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, q_offset
     # the layout gqa_forward passes: [B, S, H, D] projections seen as
     # [B, H, S, D] through .transpose(1, 2)
     ("prefill_bshd", 4, 32, 8, 2048, 2048, 64, True, 0, 0.0, 0),
+    # phase 10's per-rank step: one rank's 1 x 2048 of llama3-1b on [4, 1]
+    ("rank_bshd", 1, 32, 8, 2048, 2048, 64, True, 0, 0.0, 0),
     ("ragged", 2, 32, 8, 1000, 1000, 64, True, 0, 0.0, 0),
     ("window", 1, 32, 8, 2048, 2048, 64, True, 256, 0.0, 0),
     ("cap_offset", 2, 8, 2, 100, 612, 64, True, 0, 30.0, 512),
@@ -297,6 +315,7 @@ def check_k1(gen) -> dict:
 K2_CASES = [  # name, rows, d, offset
     ("prefill", 8192, 2048, 0.0),
     ("decode", 8, 2048, 0.0),
+    ("rank", 2048, 2048, 0.0),       # phase 10's per-rank step
     ("mamba_ln", 8192, 1024, 0.0),   # mamba2-370m's ln and final_norm
     ("scalar_path", 37, 1001, 1.0),
 ]
@@ -349,6 +368,9 @@ K1B_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, q_offset
     ("train", 4, 32, 8, 2048, 2048, 64, True, 0, 0.0, 0),
     # the strided [B, S, H, D] layout gqa_forward passes, and its dO
     ("train_bshd", 2, 32, 8, 1024, 1024, 64, True, 0, 0.0, 0),
+    # phase 10's per-rank step (1 x 2048 of llama3-1b on [4, 1]): at B=1
+    # the persistent dK/dV grid has 128 items, fewer than the 132 SMs
+    ("rank_bshd", 1, 32, 8, 2048, 2048, 64, True, 0, 0.0, 0),
     ("window", 1, 8, 2, 700, 700, 64, True, 100, 0.0, 0),
     # a strong cap: its derivative 1 - tanh^2 is far from 1
     ("cap1", 2, 8, 2, 300, 300, 64, True, 0, 1.0, 0),
@@ -435,6 +457,7 @@ def check_k1b(gen) -> dict:
 
 K2B_CASES = [  # name, rows, d, offset
     ("train", 8192, 2048, 0.0),      # llama3-1b's norms at 4 x 2048
+    ("rank", 2048, 2048, 0.0),       # phase 10's per-rank step
     ("mamba_ln", 8192, 1024, 0.0),
     ("decode", 8, 2048, 0.0),
     ("scalar_path", 37, 1001, 1.0),
@@ -1107,10 +1130,11 @@ PREDICT_ESTIMATORS = {
 FIG6_WORKLOADS = ("llama3-100m", "llama3-500m", "llama3-1b")
 
 
-def predict_on_the_card(workload, step_s: float) -> None:
+def predict_on_the_card(workload, step_s: float):
     """Predict phase 8's train step (one card: ``a2a`` over 1 device, no
     mesh) beside phase 6's measured median; then fig6 and fig10 through
-    the port's campaign runner, held against their goldens."""
+    the port's campaign runner, held against their goldens (fig6's raw
+    rows here, its optimized rows in phase 10).  Returns fig6's result."""
     system = default_registry().get("h100")
     topology = build_topology(TopologySpec.from_dict(
         {"kind": "a2a", "params": {"num_devices": 1}}), system)
@@ -1132,19 +1156,14 @@ def predict_on_the_card(workload, step_s: float) -> None:
             f"prediction {secs:.2f} s")
 
     t0 = time.perf_counter()
-    result = run_campaign(CampaignSpec.from_json(
+    fig6 = run_campaign(CampaignSpec.from_json(
         str(ROOT / "specs" / "fig6_gpu.json")), device="cuda")
     fig6_s = time.perf_counter() - t0
-    raw = [r for r in result.rows if "error" not in r]
-    errors = [r for r in result.rows if "error" in r]
-    if len(raw) != 12 or any(r["fidelity"] != "raw" for r in raw):
-        raise AssertionError(f"fig6: {len(raw)} rows without error, "
-                             "expected the 12 raw rows")
-    if len(errors) != 12 or any(
-            r["fidelity"] != "optimized" or r["error_type"] != "plan"
-            for r in errors):
-        raise AssertionError("fig6: the optimized jobs are not 12 plan "
-                             f"error rows: {errors}")
+    errors = [r for r in fig6.rows if "error" in r]
+    if errors or len(fig6.rows) != 24:
+        raise AssertionError(f"fig6: {len(fig6.rows)} rows, expected 24 "
+                             f"without error: {errors[:2]}")
+    raw = [r for r in fig6.rows if r["fidelity"] == "raw"]
     golden = {(r["workload"], r["system"]): r["step_time_s"]
               for r in load_json(str(ROOT / "specs" / "golden" /
                                      "fig6-gpu.json"))["rows"]
@@ -1160,8 +1179,8 @@ def predict_on_the_card(workload, step_s: float) -> None:
         if tau != 1.0:
             raise AssertionError(f"fig6 {name}: Kendall tau {tau} against "
                                  "the golden raw rows")
-    log(f"  fig6: {len(raw)} raw rows, {len(errors)} optimized plan error "
-        f"rows ({errors[0]['error'][:100]}...), {fig6_s:.2f} s")
+    log(f"  fig6: {len(raw)} raw rows (its 12 optimized rows: phase 10), "
+        f"{fig6_s:.2f} s for the campaign (both texts of each workload)")
 
     t0 = time.perf_counter()
     result = run_campaign(CampaignSpec.from_json(
@@ -1173,6 +1192,236 @@ def predict_on_the_card(workload, step_s: float) -> None:
                              f"{check['failures']}")
     log(f"  fig10: {check['rows_checked']} rows equal to the golden (max "
         f"drift {check['max_drift']}), {time.perf_counter() - t0:.2f} s")
+    return fig6
+
+
+# --------------------------------------------------------------------------
+# phase 10: the per-rank step of a [4, 1] data mesh
+# --------------------------------------------------------------------------
+
+MESH = (4, 1)
+# each rank takes one row of phase 6's 4 x 2048 batch: phase 8's kernel
+# text's dot_general FLOPs over the mesh's 4 ranks, 14,705,968,021,504
+RANK_FLOPS = EXPORT_FLOPS["kernel"] // MESH[0]
+FIG_GRIDS = {"fig11": "fig11_tpu.json", "fig9": "fig9_scaleout.json"}
+
+
+def allocations() -> int:
+    """The card's allocator's count of allocations so far (a free does
+    not lower it)."""
+    return torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+
+
+def mesh_export():
+    """(a) fig6's llama3-1b cell (4 x 2048 on [4, 1]) through the
+    campaign's export on fake ``cuda`` tensors: the global step's raw text
+    and the per-rank text, traced in a fake world of 4.  Holds the
+    per-rank text: 4 partitions, both front ends equal, the FLOPs, every
+    collective typed by its payload (the gathers move the sharded leaves'
+    bf16 bytes, the reduce-scatters their bf16 gradients'), no launch and
+    no device memory."""
+    spec = WorkloadSpec.from_dict({
+        "name": "llama3-1b", "arch": "llama3-1b", "mode": "train",
+        "seq": TRAIN_S, "batch": TRAIN_B, "mesh": list(MESH)})
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in COUNTERS.items()}
+    allocs = allocations()
+    w = build_workload(spec, device="cuda")
+    if allocations() != allocs:
+        raise AssertionError(f"mesh export: {allocations() - allocs} "
+                             "device allocations")
+    if {k: fn.launches for k, fn in COUNTERS.items()} != counts:
+        raise AssertionError("mesh export: a launch counter moved")
+    legacy = ir.parse_stablehlo(w.hlo_text, frontend="legacy")
+    streaming = ir.parse_stablehlo(w.hlo_text, frontend="streaming")
+    ir.assert_programs_equal(legacy, streaming)
+    if streaming.meta.get("num_partitions") != MESH[0]:
+        raise AssertionError(f"mesh export: num_partitions "
+                             f"{streaming.meta.get('num_partitions')}")
+    flops = int(ir.program_cost(streaming).by_op["dot_general"])
+    if flops != RANK_FLOPS:
+        raise AssertionError(f"mesh export: dot_general FLOPs {flops}, "
+                             f"expected {RANK_FLOPS}")
+    specs = model_specs(get_config("llama3-1b"))
+    whole = flatten(abstract_params(specs))
+    with traced_mesh(MESH, "cuda") as mesh:
+        shards = flatten(abstract_params(specs, mesh))
+    sizes = {k: t.numel() * t.element_size() for k, t in whole.items()}
+    sharded = sum(n for k, n in sizes.items()
+                  if shards[k].shape != whole[k].shape)
+    kinds: dict = {}
+    for c, mult in collect_collectives(streaming):
+        if not (c.bytes_in > 0 and c.group_size == MESH[0]):
+            raise AssertionError(f"mesh export: collective {c} is not "
+                                 "typed by its payload over 4 ranks")
+        k = kinds.setdefault(c.kind, [0, 0.0])
+        k[0] += mult
+        k[1] += c.algo_bytes * mult
+    # the gathers move the sharded leaves' bf16 bytes, the reduce-scatters
+    # their gradients'; the all-reduces the replicated leaves' gradients
+    # and two f32 scalars (the loss, the clip's sum of squares)
+    want = {"all_gather": sharded, "reduce_scatter": sharded,
+            "all_reduce": sum(sizes.values()) - sharded + 8}
+    if {k: b for k, (_, b) in kinds.items()} != want:
+        raise AssertionError(f"mesh export: collective bytes {kinds}, "
+                             f"expected {want}")
+    opt = w.meta["optimized"]
+    log(f"  per-rank text: trace {opt['trace_s']:.2f} s, emit "
+        f"{opt['emit_s']:.3f} s, {opt['text_bytes']} bytes, "
+        f"{streaming.num_ops} ops, num_partitions 4, operator nodes "
+        f"{opt['kernel_ops']}; dot_general {flops} FLOPs (phase 8's / 4); "
+        f"global text: trace {w.meta['trace_s']:.2f} s")
+    log("  collectives (count, algorithm bytes a rank): " + "; ".join(
+        f"{k} {n}, {b:.0f}" for k, (n, b) in sorted(kinds.items()))
+        + f"; the sharded leaves' bf16 bytes {sharded}")
+    return w
+
+
+def mesh_predict(w) -> dict:
+    """(b) the per-rank text on ``h100``, ``auto`` over 4 devices, with
+    fig6's two estimators."""
+    system = default_registry().get("h100")
+    topology = build_topology(TopologySpec.from_dict(
+        {"kind": "auto", "params": {"num_devices": MESH[0]}}), system)
+    program = w.program("optimized")
+    out = {}
+    for label, est in PREDICT_ESTIMATORS.items():
+        t0 = time.perf_counter()
+        p = out[label] = PredictionJob(
+            program=program, slicer="linear", name=w.name,
+            system_name="h100", topology=topology,
+            estimator=build_estimator(EstimatorSpec.from_dict(est),
+                                      system)).run()
+        if not (math.isfinite(p.step_time_s) and p.compute_s > 0
+                and p.comm_s > 0):
+            raise AssertionError(f"mesh predict {label}: {p}")
+        log(f"  per-rank llama3-1b on h100 (auto, 4 devices), {label}: "
+            f"step {p.step_time_s * 1e3:.2f} ms, compute "
+            f"{p.compute_s * 1e3:.2f} ms, communication "
+            f"{p.comm_s * 1e3:.2f} ms; {p.num_segments} segments, "
+            f"{p.num_comm} collectives, {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def rank_step(gen, predicted: dict) -> dict:
+    """(c) one rank's step of llama3-1b on [4, 1], eagerly on the card in
+    a fake world of 4 (1 x 2048 a rank; AdamW on the shards), with the
+    launch counts set to 0 after the warm-up and read after the last
+    step.  Returns the launch counts."""
+    cfg = get_config("llama3-1b")
+    specs = model_specs(cfg)
+    opt_cfg = OptimizerConfig(warmup_steps=1)
+    times = []
+    with traced_mesh(MESH, "cuda") as mesh:
+        params = shard_params(specs, init_params(specs, gen, "cuda"), mesh)
+        torch.cuda.empty_cache()
+        opt_state = adamw_init(params, opt_cfg)
+        step_fn = make_train_step(cfg, opt_cfg, mesh=mesh)
+        batch = next(ShardedLoader(SyntheticSource(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+            global_batch=TRAIN_B, seed=0)), mesh))
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            if i == TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                # ---- the main path: counts at 0 just before, read after --
+                for fn in COUNTERS.values():
+                    fn.launches = 0
+            # the same shards every step: the fake world fills no gather
+            # buffer, so the values are not the point
+            times.append(timed(lambda: step_fn(params, opt_state, batch)))
+        launches = {k: fn.launches for k, fn in COUNTERS.items()}
+        # ---- end of the main path ----
+        peak = torch.cuda.max_memory_allocated()
+    del params, opt_state
+    torch.cuda.empty_cache()
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+    expected = {k: 0 for k in COUNTERS}
+    expected.update(flash_attention=cfg.num_layers,
+                    flash_attention_bwd=cfg.num_layers,
+                    rmsnorm=2 * cfg.num_layers + 1,
+                    rmsnorm_bwd=2 * cfg.num_layers + 1)
+    if per_step != expected:
+        raise AssertionError(f"per-rank launches a step {per_step}, "
+                             f"expected {expected}")
+    step_s = statistics.median(times[TRAIN_WARMUP:])
+    log(f"  per-rank step (rank 0 of a fake world of 4: its collectives "
+        f"move no data, so this is the rank's compute; its values are not "
+        f"checked here, the CPU tests hold the numerics): median "
+        f"{step_s * 1e3:.2f} ms over steps {TRAIN_WARMUP}.."
+        f"{TRAIN_WARMUP + TRAIN_STEPS - 1} (all: "
+        + ", ".join(f"{t * 1e3:.2f}" for t in times)
+        + f" ms), peak memory {peak / 2**30:.2f} GiB; launches a step "
+        f"{per_step}")
+    for label, p in predicted.items():
+        log(f"  predicted compute / measured median, {label}: "
+            f"{p.compute_s * 1e3:.2f} / {step_s * 1e3:.2f} = "
+            f"{p.compute_s / step_s:.4f} (a finding, not held)")
+    return launches
+
+
+def mesh_campaigns(fig6) -> None:
+    """(d) fig6's optimized rows (phase 9's campaign), fig11 and fig9 as
+    checked in, exported on fake ``cuda`` tensors: per fig6 workload the
+    four systems, and per fig11 estimator the four workloads, rank as the
+    golden's optimized rows do; fig9's two optimized rows are printed
+    beside the golden's."""
+    def golden(name):
+        return {(r["workload"], r["system"], r["estimator"]): r for r in
+                load_json(str(ROOT / "specs" / "golden" / name))["rows"]}
+
+    def held(rows, gold, label):
+        ours = [r["step_time_s"] for r in rows]
+        theirs = [gold[(r["workload"], r["system"], r["estimator"])]
+                  ["step_time_s"] for r in rows]
+        tau = kendall_tau(ours, theirs)
+        log(f"  {label}: " + "; ".join(
+            f"{r['workload']}/{r['system']} {a * 1e3:.2f} ms "
+            f"({a / b:.4f} of golden)" for r, a, b in zip(rows, ours, theirs))
+            + f"; tau {tau}")
+        if tau != 1.0:
+            raise AssertionError(f"{label}: Kendall tau {tau}")
+
+    gold = golden("fig6-gpu.json")
+    for name in FIG6_WORKLOADS:
+        held([r for r in fig6.rows if r["workload"] == name
+              and r["fidelity"] == "optimized"], gold,
+             f"fig6 {name} optimized, roofline")
+    for fig, path in FIG_GRIDS.items():
+        t0 = time.perf_counter()
+        result = run_campaign(CampaignSpec.from_json(
+            str(ROOT / "specs" / path)), device="cuda")
+        secs = time.perf_counter() - t0
+        errors = [r for r in result.rows if "error" in r]
+        if errors:
+            raise AssertionError(f"{fig}: error rows {errors[:2]}")
+        gold = golden(path.replace("_", "-"))
+        if fig == "fig11":
+            by_est = {}
+            for est in sorted({r["estimator"] for r in result.rows}):
+                by_est[est] = [r for r in result.rows if r["estimator"] == est]
+                held(by_est[est], gold, f"fig11 {est}")
+            steps = {tuple(r["step_time_s"] for r in rows)
+                     for rows in by_est.values()}
+            if len(steps) == 1:
+                log("  fig11: the mixed rows equal the roofline rows, so "
+                    "their tau is no second witness: systolic's matmul "
+                    "share does not follow `call` callees (K1's and K1b's "
+                    "products), no region reaches its 90%, and each falls "
+                    "back to roofline (ROADMAP Queue 3; "
+                    "tools/systolic_share.py)")
+        else:
+            for r in result.rows:
+                g = gold[(r["workload"], r["system"], r["estimator"])]
+                log(f"  fig9 {r['workload']} {r['estimator']} "
+                    f"({r['fidelity']}): {r['step_time_s']:.4f} s (compute "
+                    f"{r['compute_s']:.4f}, communication "
+                    f"{r['comm_s']:.4f}, {r['num_segments']} segments); "
+                    f"golden {g['step_time_s']:.4f} s (compute "
+                    f"{g['compute_s']:.4f}, communication "
+                    f"{g['comm_s']:.4f}, {g['num_segments']} segments); "
+                    f"{r['step_time_s'] / g['step_time_s']:.4f}")
+        log(f"  {fig}: {len(result.rows)} rows, {secs:.2f} s")
 
 
 # --------------------------------------------------------------------------
@@ -1299,8 +1548,12 @@ def main() -> int:
     log("[8] export on the card")
     exported = export_on_the_card(train_launches)
     log("[9] predict on the card")
-    predict_on_the_card(exported, step_s)
-    # launches on the three main paths: K1 and K2 run on two or three
+    fig6 = predict_on_the_card(exported, step_s)
+    log("[10] the per-rank step of a [4, 1] data mesh")
+    predicted = mesh_predict(mesh_export())
+    runs.append(rank_step(gen, predicted))
+    mesh_campaigns(fig6)
+    # launches on the four main paths: K1 and K2 run on two, three or four
     for entry in (k1, k2, k3, k1b, k2b):
         key = entry["name"]
         entry["launches"] = sum(run[key] for run in runs)

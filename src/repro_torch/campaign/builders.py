@@ -18,12 +18,13 @@ An ``arch`` workload in ``mode="train"``/``"forward"`` is the port's own
 export: :func:`repro_torch.train.loop.train_step_exports` (or
 ``forward_exports``) traced by :func:`repro_torch.core.pipeline.export_workload`
 on fake tensors on ``device`` (None: the card), with the arch's config as
-the port registers it (``attn_impl="kernel"``, what the card runs).  A
-mesh is recorded in ``Workload.meta["mesh"]`` and the global step is
-exported, which is what the reference's raw text of a sharded ``jit``
-computes; the optimized (per-device, compiled) text stays absent until
-the distribution slice (ROADMAP, Queue 1), so a job that asks for it
-becomes a ``plan`` error row.
+the port registers it (``attn_impl="kernel"``, what the card runs).  The
+raw text is the global step, which is what the reference's raw text of a
+sharded ``jit`` computes.  With a mesh (recorded in
+``Workload.meta["mesh"]``) the optimized text is the per-rank program of
+the data mesh with its collectives, the port's counterpart of the
+reference's compiled per-device text; without one there is no optimized
+text, and a job that asks for it becomes a ``plan`` error row.
 """
 from __future__ import annotations
 
@@ -338,25 +339,42 @@ def _export_from_arch(spec: WorkloadSpec, device=None) -> Workload:
 
     ``mode="forward"`` traces one forward pass; ``mode="train"`` a full
     train step (loss + gradients + optimizer update) with abstract
-    optimizer state.  The trace runs on fake tensors on ``device`` (None:
-    the card): no device memory, no launch."""
+    optimizer state.  With a mesh a train workload also gets its
+    optimized text (a forward one raises): the per-rank step of the data
+    mesh, traced in a fake world of the mesh's size
+    (``launch/mesh.py::traced_mesh``), the counterpart of the reference's
+    ``_mesh_for`` under forced host devices.  The traces
+    run on fake tensors on ``device`` (None: the card): no device memory,
+    no launch."""
     if spec.arch.startswith("resnet"):
         raise NotImplementedError(
             f"workload {spec.name!r}: {spec.arch} is not ported to "
             "repro_torch yet: ResNet's export waits for the ResNet slice "
             "(ROADMAP, Queue 1)")
+    from ..launch.mesh import traced_mesh
     from ..models.registry import get_config
     from ..train.loop import forward_exports, train_step_exports
     from ..train.optimizer import OptimizerConfig
 
     cfg = get_config(spec.arch)
+    if spec.mesh is not None and spec.mode != "train":
+        raise NotImplementedError(
+            f"workload {spec.name!r}: a {spec.mode!r} workload with a mesh "
+            "has no per-rank program yet; only the train step is ported "
+            "for a data mesh (ROADMAP, Queue 1 item 10)")
     if spec.mode == "train":
-        step, abs_args = train_step_exports(
-            cfg, spec.seq, spec.batch,
-            opt_cfg=OptimizerConfig(name=spec.optimizer))
+        exports, kw = train_step_exports, {
+            "opt_cfg": OptimizerConfig(name=spec.optimizer)}
     else:
-        step, abs_args = forward_exports(cfg, spec.seq, spec.batch)
-    w = export_workload(step, *abs_args, name=spec.name, device=device)
-    if spec.mesh is not None:
-        w.meta["mesh"] = list(spec.mesh)
+        exports, kw = forward_exports, {}
+    step, abs_args = exports(cfg, spec.seq, spec.batch, **kw)
+    if spec.mesh is None:
+        return export_workload(step, *abs_args, name=spec.name,
+                               device=device)
+    with traced_mesh(spec.mesh, device) as mesh:
+        rank_step, rank_args = train_step_exports(cfg, spec.seq, spec.batch,
+                                                  mesh, **kw)
+        w = export_workload(step, *abs_args, name=spec.name, device=device,
+                            per_rank=(rank_step, rank_args, mesh))
+    w.meta["mesh"] = list(spec.mesh)
     return w

@@ -11,8 +11,8 @@ The port's copy of the reference's ``campaign/plans.py``, with one
 difference: a fidelity whose text the workload lacks is never replaced by
 another.  The reference costs the raw text when a job asks for optimized
 text that is absent; here the plan raises, naming what is missing (a
-torch export has raw text only until the distribution slice), and the
-runner records a ``plan`` error row.
+torch export has optimized text only when its workload has a mesh), and
+the runner records a ``plan`` error row.
 """
 from __future__ import annotations
 

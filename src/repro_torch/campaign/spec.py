@@ -69,8 +69,9 @@ class WorkloadSpec:
 
     ``mesh`` is the device-mesh shape for arch exports: 2 entries map to
     ("data", "model") axes, 3 to ("pod", "data", "model").  The port
-    exports the global step and records the mesh (its per-device
-    optimized text waits for the distribution slice, ROADMAP Queue 1).
+    exports the global step as the raw text and the per-rank program of
+    the data mesh as the optimized text (a ``model`` or ``pod`` axis above
+    1 raises ``NotImplementedError``).
 
     ``fidelity`` is the *default* program fidelity for this workload; an
     :class:`EstimatorSpec` may override it (the paper's estimator classes

@@ -129,8 +129,8 @@ class ShapeConfig:
 @dataclass(frozen=True)
 class RunConfig:
     """One training run: the reference's ``RunConfig``, field for field.
-    This slice runs on one card: ``mesh_shape`` and ``mesh_axes`` are kept
-    for parity and wait for the distribution slice (ROADMAP, Queue 1)."""
+    ``mesh_shape`` and ``mesh_axes`` are kept for parity: the port's
+    ``train`` takes a mesh its caller builds (``launch/mesh.py``)."""
     model: ModelConfig
     shape: ShapeConfig
     mesh_shape: tuple[int, ...] = (16, 16)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import time
 from collections import Counter
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 from torch._decomp import core_aten_decompositions
@@ -43,16 +43,27 @@ DECOMPOSITIONS = core_aten_decompositions()
 BARRIER = torch.ops.repro_torch.barrier.default
 
 
+#: the collectives of ``torch.distributed._functional_collectives``; each
+#: names its process group in its last argument
+COLLECTIVES = {torch.ops._c10d_functional.all_gather_into_tensor.default,
+               torch.ops._c10d_functional.reduce_scatter_tensor.default,
+               torch.ops._c10d_functional.all_reduce.default}
+
+
 @dataclass
 class Traced:
     """A traced step: the functional graph (its inputs and outputs are the
     flattened argument and result trees), one plain-version graph per
     distinct operator call (``node.meta["plain"]`` names it), the count of
-    each operator's nodes, and the seconds the trace took."""
+    each operator's nodes, and the seconds the trace took.  A per-rank step
+    of a mesh also has the mesh's size (``num_partitions``) and the ranks
+    of each process group its collectives name."""
     graph: torch.fx.GraphModule
     plain: dict[str, torch.fx.GraphModule]
     op_counts: dict[str, int]
     seconds: float
+    num_partitions: int = 1
+    groups: dict[str, list[int]] = field(default_factory=dict)
 
 
 def _functional(fn, args) -> torch.fx.GraphModule:
@@ -89,10 +100,24 @@ def _plain_graph(node: torch.fx.Node) -> torch.fx.GraphModule:
     return _functional(plain, [args[i].meta["val"] for i in slots])
 
 
-def trace(fn, *abstract_args, device=None) -> Traced:
+def _groups(graph: torch.fx.GraphModule) -> dict[str, list[int]]:
+    """The ranks of each process group the graph's collectives name."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    names = {node.args[-1] for node in graph.graph.nodes
+             if node.op == "call_function" and node.target in COLLECTIVES}
+    return {name: dist.get_process_group_ranks(_resolve_process_group(name))
+            for name in sorted(names)}
+
+
+def trace(fn, *abstract_args, device=None, mesh=None) -> Traced:
     """Trace ``fn(*abstract_args)`` on fake tensors on ``device`` (None:
     the card).  The abstract arguments are trees (dicts) of tensors whose
-    shapes and dtypes are all that is read, e.g. meta tensors."""
+    shapes and dtypes are all that is read, e.g. meta tensors.  For the
+    per-rank step of a ``mesh`` the trace runs while the mesh's process
+    group is up (a fake world, ``launch/mesh.py``); its collectives stay
+    one node each and move nothing."""
     device = resolve_device(device)
     t0 = time.perf_counter()
     with FakeTensorMode() as mode:
@@ -118,4 +143,5 @@ def trace(fn, *abstract_args, device=None) -> Traced:
                 key = node.meta["plain"] = _call_key(node)
                 if key not in plain:
                     plain[key] = _plain_graph(node)
-    return Traced(graph, plain, dict(counts), time.perf_counter() - t0)
+    return Traced(graph, plain, dict(counts), time.perf_counter() - t0,
+                  mesh.size() if mesh is not None else 1, _groups(graph))

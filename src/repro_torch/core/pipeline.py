@@ -8,12 +8,14 @@ One :class:`Workload` (the StableHLO text a torch step exports) can be
 driven through any combination of slicer × estimator × topology — the
 cross-fidelity, cross-architecture axis of the paper.
 
-A torch export has the raw StableHLO text and no optimized (compiled,
-SPMD-partitioned) text, so :meth:`Workload.program` raises for the
-"optimized" fidelity instead of falling back to the raw text as the
-reference does: a prediction that asks for the optimized text must not get
-the raw one without being told.  The optimized text waits for the
-distribution slice (ROADMAP, Queue 1).
+A torch export's raw text is the global step as written.  Its optimized
+text, for a workload with a mesh, is the per-rank program of the data mesh
+with its collectives (``train/loop.py``, ``distributed/data_parallel.py``):
+the port's counterpart of the reference's compiled, SPMD-partitioned text.
+Without it :meth:`Workload.program` raises for the "optimized" fidelity
+instead of falling back to the raw text as the reference does: a prediction
+that asks for the optimized text must not get the raw one without being
+told.
 
 Execution is split into two phases, as in the reference:
 
@@ -55,8 +57,8 @@ FIDELITIES = ("raw", "optimized")
 
 @dataclass
 class Workload:
-    """An exported workload: raw StableHLO and, once the distribution
-    slice emits it, optimized text."""
+    """An exported workload: raw StableHLO and, for a workload with a
+    mesh, the per-rank (optimized) text."""
     name: str
     stablehlo_text: str | None = None
     hlo_text: str | None = None
@@ -75,26 +77,45 @@ class Workload:
 
 def missing_text(name: str, fidelity: str) -> str:
     """Why workload ``name`` cannot be costed at ``fidelity``."""
-    why = ("a torch export has raw StableHLO only; the optimized "
-           "(compiled, per-device) text waits for the distribution slice "
-           "(ROADMAP, Queue 1)" if fidelity == "optimized" else
+    why = ("a torch export has optimized (per-device) text only when it is "
+           "exported with a mesh, as the per-rank program of a data mesh; "
+           "this one has none" if fidelity == "optimized" else
            "the workload carries no raw StableHLO text")
     return f"workload {name!r}: no {fidelity} text: {why}"
 
 
-def export_workload(fn, *specs, name: str = "workload",
-                    device=None) -> Workload:
+def export_workload(fn, *specs, name: str = "workload", device=None,
+                    per_rank=None) -> Workload:
     """Trace ``fn(*specs)`` on fake tensors on ``device`` (None: the card)
     and emit its StableHLO text; no device memory is allocated and no
     kernel launches.  ``meta`` holds the trace's and the emit's seconds,
     the text's size in bytes and the count of each operator of the port's
-    library in the graph (``kernel_ops``)."""
-    traced = trace(fn, *specs, device=device)
+    library in the graph (``kernel_ops``).
+
+    ``per_rank`` is ``(rank_fn, rank_specs, mesh)``: the per-rank program
+    of the same step on a mesh and its arguments, e.g. from
+    ``train_step_exports(cfg, seq, batch, mesh)``, called while the mesh's
+    process group is up (``launch/mesh.py::traced_mesh``).  Its text is the
+    workload's optimized text (``hlo_text``) and its figures are
+    ``meta["optimized"]``."""
+    w = Workload(name=name)
+    w.stablehlo_text, w.meta = _export(fn, specs, name, device)
+    if per_rank is not None:
+        rank_fn, rank_specs, mesh = per_rank
+        w.hlo_text, w.meta["optimized"] = _export(rank_fn, rank_specs, name,
+                                                  device, mesh)
+        w.meta["optimized"]["num_partitions"] = mesh.size()
+    return w
+
+
+def _export(fn, specs, name: str, device, mesh=None) -> tuple[str, dict]:
+    traced = trace(fn, *specs, device=device, mesh=mesh)
     t0 = time.perf_counter()
     text = emit(traced, name)
-    return Workload(name=name, stablehlo_text=text, meta={
-        "trace_s": traced.seconds, "emit_s": time.perf_counter() - t0,
-        "text_bytes": len(text.encode()), "kernel_ops": traced.op_counts})
+    return text, {"trace_s": traced.seconds,
+                  "emit_s": time.perf_counter() - t0,
+                  "text_bytes": len(text.encode()),
+                  "kernel_ops": traced.op_counts}
 
 
 @dataclass

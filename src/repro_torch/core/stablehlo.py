@@ -9,7 +9,13 @@ max, ``broadcast_in_dim`` for implicit broadcasting, ``gather``/``scatter``
 for indexing, and so on.  An operator of the port's library becomes a
 ``call`` of a private function holding its plain version's ops (one
 function per distinct call), and the layer barrier an
-``optimization_barrier``.  An op with no lowering raises
+``optimization_barrier``.  A per-rank step's collectives
+(``_c10d_functional``) become ``all_gather``, ``reduce_scatter`` and
+``all_reduce`` over their group's ranks, each with a channel of its own and
+each printed on one line, reduction region included (the reference's front
+ends type a collective printed over several lines by its attributes, ROADMAP
+Queue 3); the module then carries the mesh's size as
+``mhlo.num_partitions``.  An op with no lowering raises
 ``NotImplementedError`` naming it: nothing is skipped.
 
 Element types are ``bf16``, ``f32``, ``i32`` and ``i1``; PyTorch's int64
@@ -121,6 +127,10 @@ _RESHAPE = {aten.view.default, aten.view_copy.default, aten._unsafe_view.default
 _FILL = {  # factory op -> its fill value, from the node's args
     aten.full.default: lambda a: a[1], aten.full_like.default: lambda a: a[1],
     aten.scalar_tensor.default: lambda a: a[0],
+    # uninitialised memory (a buffer that a copy or a scatter then fills):
+    # its value is undefined, and the text writes zeros
+    aten.empty.memory_format: lambda a: 0,
+    aten.empty_permuted.default: lambda a: 0,
 }
 
 
@@ -349,6 +359,12 @@ class _Module:
         self.traced = traced
         self.names: dict[str, str] = {}
         self.functions: list[str] = []
+        self.channels = 0
+
+    def channel(self) -> int:
+        """A channel handle no other collective of the module has."""
+        self.channels += 1
+        return self.channels
 
     def function_for(self, node: torch.fx.Node, types: list[str]) -> str:
         """The private function of the plain version of an operator call,
@@ -373,8 +389,9 @@ def emit(traced: Traced, name: str = "workload") -> str:
     module = _Module(traced)
     main = _Function(module).text("main", "public", traced.graph.graph)
     sym = re.sub(r"[^A-Za-z0-9_]", "_", name)
-    return (f"module @jit_{sym} attributes {{mhlo.num_partitions = 1 : i32, "
-            "mhlo.num_replicas = 1 : i32} {\n"
+    return (f"module @jit_{sym} attributes {{mhlo.num_partitions = "
+            f"{traced.num_partitions} : i32, mhlo.num_replicas = 1 : i32}} "
+            "{\n"
             + "\n".join([main, *module.functions]) + "\n}\n")
 
 
@@ -470,6 +487,13 @@ def _where(f, node, c, a, b):
 @_lowers(*_IDENTITY)
 def _identity(f, node, x, **kw):
     return f.value(x)
+
+
+@_lowers(aten.copy.default)
+def _copy(f, node, x, src, non_blocking=False):
+    """``x`` overwritten by ``src``: src in x's dtype and shape."""
+    shape, dt = _out(node)
+    return f.operand(src, dt, shape)
 
 
 @_lowers(aten._to_copy.default)
@@ -737,3 +761,63 @@ def _slice_scatter(f, node, x, src, dim=0, start=None, end=None, step=1):
     starts[dim] = start
     return _update(f, f.operand(x, dt, shape),
                    f.convert(f.value(src), dt), starts)
+
+
+# ---------------------------------------------------------------------------
+# collectives of a per-rank step
+# ---------------------------------------------------------------------------
+
+_C10D = torch.ops._c10d_functional
+
+
+def _collective(f, node, kind: str, x: Value, group: str, first: str = "",
+                last: str = "", reduce_op: str | None = None) -> Value:
+    """One collective on one line: ``"stablehlo.<kind>"(x) <{...}>`` with
+    the attributes in JAX's order (``first``, the channel, the replica
+    groups, ``last``), then its reduction region when it has one, then its
+    signature."""
+    ranks = f.module.traced.groups[group]
+    shape, dt = _out(node)
+    name = f"%{f.count}"
+    f.count += 1
+    region = ""
+    if reduce_op is not None:
+        # the step sums and scales means itself (data_parallel.py)
+        if reduce_op != "sum":
+            raise NotImplementedError(f"{node.target} with reduce_op "
+                                      f"{reduce_op!r}")
+        e, n = _tensor_type((), x.dt), name[1:]
+        region = (f" ({{^bb0(%lhs{n}: {e}, %rhs{n}: {e}): %red{n} = "
+                  f"stablehlo.add %lhs{n}, %rhs{n} : {e} stablehlo.return "
+                  f"%red{n} : {e}}})")
+    f.lines.append(
+        f'    {name} = "stablehlo.{kind}"({x.name}) <{{{first}channel_handle '
+        f"= #stablehlo.channel_handle<handle = {f.module.channel()}, type = "
+        f"1>, replica_groups = dense<[[{', '.join(map(str, ranks))}]]> : "
+        f"tensor<1x{len(ranks)}xi64>, {last}use_global_device_ids}}>{region} : "
+        f"({x.ty}) -> {_tensor_type(shape, x.dt)}")
+    return Value(name, shape, x.dt)
+
+
+@_lowers(_C10D.all_gather_into_tensor.default)
+def _all_gather(f, node, x, group_size, group):
+    return _collective(f, node, "all_gather", f.value(x), group,
+                       first="all_gather_dim = 0 : i64, ")
+
+
+@_lowers(_C10D.reduce_scatter_tensor.default)
+def _reduce_scatter(f, node, x, reduce_op, group_size, group):
+    return _collective(f, node, "reduce_scatter", f.value(x), group,
+                       last="scatter_dimension = 0 : i64, ",
+                       reduce_op=reduce_op)
+
+
+@_lowers(_C10D.all_reduce.default)
+def _all_reduce(f, node, x, reduce_op, group):
+    return _collective(f, node, "all_reduce", f.value(x), group,
+                       reduce_op=reduce_op)
+
+
+@_lowers(_C10D.wait_tensor.default)
+def _wait(f, node, x):
+    return f.value(x)

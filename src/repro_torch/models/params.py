@@ -85,14 +85,43 @@ def init_params(tree, generator: torch.Generator, device=None) -> dict:
 
 def abstract_params(tree, mesh=None, rules=None) -> dict:
     """The spec tree as meta tensors (shapes and dtypes, no storage): the
-    counterpart of the reference's ``abstract_params`` for an export.  A
-    mesh waits for the distribution slice (ROADMAP, Queue 1)."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError("abstract_params: a mesh and sharding "
-                                  "rules wait for the distribution slice")
-    values = {name: torch.empty(s.shape, dtype=DTYPES[s.dtype], device="meta")
+    counterpart of the reference's ``abstract_params`` for an export.  With
+    a mesh each leaf is one rank's shard of it, laid out by the parameter
+    rules (``distributed/sharding.py``)."""
+    from ..distributed.sharding import param_sharding, shard_shape
+
+    def shape(s: ParamSpec) -> tuple[int, ...]:
+        if mesh is None:
+            return s.shape
+        return shard_shape(s.shape, param_sharding(s.axes, mesh, rules,
+                                                   s.shape), mesh)
+
+    values = {name: torch.empty(shape(s), dtype=DTYPES[s.dtype],
+                                device="meta")
               for name, s in tree_paths(tree).items()}
     return _rebuild(tree, values)
+
+
+def shard_params(tree, params: dict, mesh, rules=None) -> dict:
+    """Whole parameters -> this rank's shard of each leaf (a copy), laid
+    out as :func:`abstract_params` lays them out."""
+    from ..distributed.sharding import (param_sharding, shard_index,
+                                        shard_shape)
+
+    def one(s: ParamSpec, x: torch.Tensor) -> torch.Tensor:
+        layout = param_sharding(s.axes, mesh, rules, s.shape)
+        for dim, width in enumerate(shard_shape(s.shape, layout, mesh)):
+            if width != s.shape[dim]:
+                x = x.narrow(dim, shard_index(layout, dim, mesh) * width,
+                             width)
+        return x.clone()
+
+    def go(t, p):
+        if is_spec(t):
+            return one(t, p)
+        return {k: go(v, p[k]) for k, v in t.items()}
+
+    return go(tree, params)
 
 
 def _to_torch(a, device: torch.device) -> torch.Tensor:
@@ -121,12 +150,16 @@ def params_from_jax(tree, device=None) -> dict:
     return conv(tree)
 
 
-def trainable(tree) -> dict:
+def trainable(tree):
     """The same tree with every leaf a tensor that requires grad: each a
     detached alias of the leaf (no copy), so ``torch.autograd.grad`` can
-    differentiate a loss of the tree with respect to its leaves."""
-    return {k: trainable(v) if isinstance(v, dict)
-            else v.detach().requires_grad_(True) for k, v in tree.items()}
+    differentiate a loss of the tree with respect to its leaves.  A list
+    (a leaf's layers, one tensor each) is a node."""
+    if isinstance(tree, dict):
+        return {k: trainable(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [trainable(v) for v in tree]
+    return tree.detach().requires_grad_(True)
 
 
 def param_bytes(tree) -> int:

@@ -45,11 +45,12 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
 
 
-def _no_mesh(name: str, mesh, rules, seq_sharded: bool) -> None:
-    if mesh is not None or rules is not None or seq_sharded:
+def _no_seq_sharding(name: str, seq_sharded: bool) -> None:
+    if seq_sharded:
         raise NotImplementedError(
-            f"{name}: a mesh and sharding rules wait for the distribution "
-            "slice (ROADMAP, Queue 1)")
+            f"{name}: the sequence-sharded rules are not ported yet "
+            "(ROADMAP, Queue 1: tensor parallelism, the pod axis and "
+            "sharded serving)")
 
 
 def _meta(shape, dtype: str) -> torch.Tensor:
@@ -59,20 +60,32 @@ def _meta(shape, dtype: str) -> torch.Tensor:
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None, rules=None,
                 seq_sharded: bool = False) -> dict:
     """Meta tensors (no storage) standing for one step's inputs: the
-    counterpart of the reference's ``ShapeDtypeStruct`` stand-ins."""
-    _no_mesh("input_specs", mesh, rules, seq_sharded)
+    counterpart of the reference's ``ShapeDtypeStruct`` stand-ins.  With a
+    mesh they are one rank's rows of the batch, laid out by the activation
+    rules (``batch`` over ``pod`` and ``data``)."""
+    from ..distributed.sharding import act_sharding, shard_shape
+
+    _no_seq_sharding("input_specs", seq_sharded)
     if cfg.mrope_sections:
         raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet "
                                   "(ROADMAP, Queue 1: other families)")
+
+    def meta(shp, dtype, axes):
+        if mesh is not None:
+            shp = shard_shape(shp, act_sharding(axes, mesh, rules, shp),
+                              mesh)
+        return _meta(shp, dtype)
+
     b, s = shape.global_batch, shape.seq_len
     lead = (b, 1) if shape.kind == "decode" else (b, s)
     batch: dict = {}
     if cfg.frontend == "stub":
-        batch["embeds"] = _meta((*lead, cfg.d_model), cfg.dtype)
+        batch["embeds"] = meta((*lead, cfg.d_model), cfg.dtype,
+                               ("batch", "seq", "embed"))
     else:
-        batch["tokens"] = _meta(lead, "int32")
+        batch["tokens"] = meta(lead, "int32", ("batch", "seq"))
     if shape.kind == "train":
-        batch["targets"] = _meta(lead, "int32")
+        batch["targets"] = meta(lead, "int32", ("batch", "seq"))
     return batch
 
 
@@ -80,6 +93,11 @@ def cache_specs_abstract(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
                          rules=None, seq_sharded: bool = False) -> dict:
     """Meta tensors for the decode cache of ``shape``'s batch and
     sequence length."""
-    _no_mesh("cache_specs_abstract", mesh, rules, seq_sharded)
+    _no_seq_sharding("cache_specs_abstract", seq_sharded)
+    if mesh is not None or rules is not None:
+        raise NotImplementedError(
+            "cache_specs_abstract: sharded serving is not ported yet "
+            "(ROADMAP, Queue 1: tensor parallelism, the pod axis and "
+            "sharded serving)")
     return {name: _meta(shp, dtype) for name, (shp, dtype, _) in cache_shapes(
         cfg, shape.global_batch, shape.seq_len).items()}

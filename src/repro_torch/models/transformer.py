@@ -147,10 +147,13 @@ def _unstack(tree, n: int) -> list[dict]:
     """A layer-stacked tree as ``n`` per-layer trees of views (no copy):
     one unbind a leaf, whose backward stacks the layers' gradients in one
     pass (a select a layer would build a zero-filled stacked gradient for
-    each)."""
+    each).  A leaf that is a list already holds one tensor a layer (a data
+    mesh's step gathers its layers one by one), and is taken as it is."""
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    if isinstance(tree, list):
+        return tree
     return list(torch.unbind(tree, 0))
 
 

@@ -4,8 +4,8 @@ The counterpart of the JAX package's ``train/data.py``: a host-side token
 stream with a resumable cursor (checkpointable), drawn from numpy's
 generator with the reference's seeding, so the batches equal the
 reference's bit for bit.  ``__next__`` returns numpy arrays; the train loop
-moves them to its device.  ``ShardedLoader``, which places batches on a
-mesh, waits for the distribution slice (ROADMAP, Queue 1).
+moves them to its device; :class:`ShardedLoader` gives a rank of a mesh
+its rows of each batch.
 """
 from __future__ import annotations
 
@@ -60,9 +60,49 @@ class SyntheticSource:
 
 
 class ShardedLoader:
-    """Placement of host batches onto a mesh: not ported yet."""
+    """This rank's rows of each host batch, on the mesh's device: the
+    counterpart of the reference's placement of each batch onto the mesh
+    with the activation sharding.  It keeps one batch of prefetch, as the
+    reference does."""
+
+    _AXES = {
+        "tokens": ("batch", "seq"),
+        "targets": ("batch", "seq"),
+        "embeds": ("batch", "seq", "embed"),
+    }
 
     def __init__(self, source, mesh, rules=None):
-        raise NotImplementedError(
-            "ShardedLoader needs a device mesh, which waits for the "
-            "distribution slice (ROADMAP, Queue 1)")
+        self.source = source
+        self.mesh = mesh
+        self.rules = rules
+        self._pending = None
+
+    def _place(self, batch: dict) -> dict:
+        import torch
+
+        from ..distributed.sharding import (act_sharding, shard_index,
+                                            shard_shape)
+        out = {}
+        for k, v in batch.items():
+            layout = act_sharding(self._AXES[k], self.mesh, self.rules,
+                                  v.shape)
+            for dim, width in enumerate(shard_shape(v.shape, layout,
+                                                    self.mesh)):
+                start = shard_index(layout, dim, self.mesh) * width
+                v = v[(slice(None),) * dim + (slice(start, start + width),)]
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.mesh.device_type)
+        return out
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        if self._pending is None:
+            self._pending = self._place(next(self.source))
+        out = self._pending
+        try:
+            self._pending = self._place(next(self.source))
+        except StopIteration:
+            self._pending = None
+        return out

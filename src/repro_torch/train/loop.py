@@ -3,10 +3,12 @@
 The counterpart of the JAX package's ``train/loop.py`` on one device.  The
 step is eager PyTorch: the forward through the model's kernels (K1 and K2 on
 the card), ``torch.autograd.grad`` through their backward kernels (K1b and
-K2b), then the optimizer on dicts of tensors.  :func:`train_step_exports`
-and :func:`forward_exports` give the step and the forward with abstract
-arguments for :func:`repro_torch.core.pipeline.export_workload`; a mesh
-waits for the distribution slice (ROADMAP, Queue 1).
+K2b), then the optimizer on dicts of tensors.  With a mesh the step is the
+per-rank program of a data mesh (``distributed/data_parallel.py``): the
+rank's shards in, its collectives around the loss, the gradients and the
+clip.  :func:`train_step_exports` (with or without a mesh) and
+:func:`forward_exports` (one device) give the step and the forward with
+abstract arguments for :func:`repro_torch.core.pipeline.export_workload`.
 """
 from __future__ import annotations
 
@@ -17,11 +19,13 @@ import torch
 
 from ..configs.base import ModelConfig, RunConfig, ShapeConfig
 from ..device import resolve_device
-from ..models.params import abstract_params, init_params, trainable
+from ..distributed.data_parallel import DataParallel
+from ..models.params import (abstract_params, init_params, shard_params,
+                             trainable)
 from ..models.registry import input_specs
 from ..models.transformer import forward, model_specs
 from .checkpoint import CheckpointManager
-from .data import DataConfig, SyntheticSource
+from .data import DataConfig, ShardedLoader, SyntheticSource
 from .fault_tolerance import StragglerDetector
 from .optimizer import (OptimizerConfig, make_optimizer, opt_state_abstract,
                         tree_leaves, tree_map)
@@ -52,12 +56,30 @@ def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
-                    microbatch: int = 0, gradient_compression: bool = False):
+                    microbatch: int = 0, gradient_compression: bool = False,
+                    mesh=None, rules=None):
     """Builds ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with ``loss``, ``grad_norm`` and ``lr`` in ``metrics``.  The
     inputs are not modified; the new parameters and state are new
-    tensors."""
+    tensors.
+
+    With a ``mesh`` (a data mesh: any other axis of size above 1 raises) the
+    step is one rank's program: it takes the rank's shards of the
+    parameters and the optimizer state and its rows of the batch, gathers
+    the parameters, all-reduces the loss and reduce-scatters the gradients
+    as means over the ranks, and updates its shards with the clip's norm
+    taken over all of them (``distributed/data_parallel.py``)."""
     _, update_fn = make_optimizer(opt_cfg)
+    dp = None
+    if mesh is not None:
+        if opt_cfg.name != "adamw" or gradient_compression:
+            raise NotImplementedError(
+                "a data mesh's step takes AdamW without gradient "
+                "compression; sharded Adafactor (whose factored moments "
+                "reduce over sharded dims) and compression over shards are "
+                "not ported yet (ROADMAP, Queue 1: tensor parallelism, the "
+                "pod axis and sharded serving)")
+        dp = DataParallel(model_specs(cfg), mesh, rules)
 
     def compute_grads(params, batch):
         if microbatch and microbatch > 1:
@@ -78,6 +100,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
             return loss_sum * inv, tree_map(lambda g: g * inv, g_sum)
         return _value_and_grad(cfg, params, batch)
 
+    def rank_step(shards, opt_state, batch):
+        loss, grads = compute_grads(dp.gather(shards), batch)
+        loss, grads = dp.mean(loss), dp.reduce_grads(grads)
+        new_params, new_opt, metrics = update_fn(
+            shards, grads, opt_state, opt_cfg, global_norm=dp.global_norm)
+        metrics["loss"] = loss
+        return new_params, new_opt, metrics
+
     def train_step(params, opt_state, batch):
         loss, grads = compute_grads(params, batch)
         if gradient_compression:
@@ -92,7 +122,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         metrics["loss"] = loss
         return new_params, new_opt, metrics
 
-    return train_step
+    return train_step if dp is None else rank_step
 
 
 def train_step_exports(cfg: ModelConfig, seq: int, batch: int, mesh=None, *,
@@ -101,11 +131,16 @@ def train_step_exports(cfg: ModelConfig, seq: int, batch: int, mesh=None, *,
     tensors standing for its arguments (parameters, optimizer state and the
     token batch), ready for :func:`repro_torch.core.pipeline.export_workload`:
     the counterpart of the reference's ``train_step_exports``.  Returns
-    ``(step, (params_abs, opt_abs, batch_abs))``; nothing is allocated."""
+    ``(step, (params_abs, opt_abs, batch_abs))``; nothing is allocated.
+
+    With a ``mesh`` the step is one rank's program (:func:`make_train_step`)
+    and the meta tensors are the rank's shards and rows: the per-rank
+    (optimized) program of the reference's sharded ``jit``.  ``batch`` is
+    the global batch either way."""
     opt_cfg = opt_cfg or OptimizerConfig()
     specs = model_specs(cfg)
     shape = ShapeConfig("bench", seq, batch, "train")
-    return make_train_step(cfg, opt_cfg), (
+    return make_train_step(cfg, opt_cfg, mesh=mesh, rules=rules), (
         abstract_params(specs, mesh, rules),
         opt_state_abstract(specs, opt_cfg.name, mesh, rules),
         input_specs(cfg, shape, mesh, rules))
@@ -131,15 +166,35 @@ class TrainResult:
     restarts: int = 0
 
 
-def train(run: RunConfig, *, device=None, num_steps: int = 20,
-          checkpoint_dir: str | None = None, checkpoint_every: int = 0,
-          resume: bool = False, log_every: int = 10,
+def train(run: RunConfig, *, device=None, mesh=None, rules=None,
+          num_steps: int = 20, checkpoint_dir: str | None = None,
+          checkpoint_every: int = 0, resume: bool = False,
+          log_every: int = 10,
           inject_failure_at: int | None = None) -> TrainResult:
     """End-to-end training with checkpoint/restart and straggler tracking,
     on ``device`` (None: the card).
 
+    With a ``mesh`` (a data mesh over a real process group that the caller
+    has initialised: gloo is tested, NCCL is untested) each rank holds its
+    shards of the parameters and the optimizer state, takes its rows of
+    each batch (:class:`ShardedLoader`) and runs the per-rank step on the
+    mesh's device type; a ``device`` of another type raises.  Checkpoints
+    of shards are not ported yet.
+
     ``inject_failure_at``: raise a simulated node failure at that step;
     the loop restores from the last committed checkpoint and continues."""
+    if mesh is not None:
+        if checkpoint_dir:
+            raise NotImplementedError(
+                "train: checkpoints of a mesh's shards are not ported yet "
+                "(ROADMAP, Queue 1: tensor parallelism, the pod axis and "
+                "sharded serving)")
+        if device is not None and torch.device(device).type != \
+                mesh.device_type:
+            raise ValueError(
+                f"train: device {device!r} is not the mesh's device type "
+                f"{mesh.device_type!r}")
+        device = mesh.device_type
     device = resolve_device(device)
     cfg = run.model
     opt_cfg = OptimizerConfig(
@@ -148,7 +203,10 @@ def train(run: RunConfig, *, device=None, num_steps: int = 20,
     init_fn, _ = make_optimizer(opt_cfg)
 
     gen = torch.Generator(device=device).manual_seed(run.seed)
-    params = init_params(model_specs(cfg), gen, device)
+    specs = model_specs(cfg)
+    params = init_params(specs, gen, device)
+    if mesh is not None:
+        params = shard_params(specs, params, mesh, rules)
     opt_state = init_fn(params, opt_cfg)
 
     data_cfg = DataConfig(
@@ -157,8 +215,9 @@ def train(run: RunConfig, *, device=None, num_steps: int = 20,
         frontend=cfg.frontend, d_model=cfg.d_model)
     source = SyntheticSource(data_cfg)
 
-    def to_device(batch: dict) -> dict:
-        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    loader = (ShardedLoader(source, mesh, rules) if mesh is not None else
+              ({k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b in source))
 
     ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
     start_step = 0
@@ -173,7 +232,8 @@ def train(run: RunConfig, *, device=None, num_steps: int = 20,
 
     step_fn = make_train_step(
         cfg, opt_cfg, microbatch=run.microbatch,
-        gradient_compression=run.gradient_compression)
+        gradient_compression=run.gradient_compression, mesh=mesh,
+        rules=rules)
 
     detector = StragglerDetector()
     losses: list[float] = []
@@ -182,7 +242,7 @@ def train(run: RunConfig, *, device=None, num_steps: int = 20,
     failure_armed = inject_failure_at is not None
     while step < num_steps:
         try:
-            batch = to_device(next(source))
+            batch = next(loader)
             t0 = time.perf_counter()
             if failure_armed and step == inject_failure_at:
                 failure_armed = False

@@ -33,17 +33,23 @@ class OptimizerConfig:
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts; ``rest`` has ``tree``'s
-    structure (or ``tree`` as a prefix of it, as ``jax.tree.map``)."""
+    """``fn`` over the leaves of nested dicts and lists; ``rest`` has
+    ``tree``'s structure (or ``tree`` as a prefix of it, as
+    ``jax.tree.map``)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
@@ -72,8 +78,12 @@ def _global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = _global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, global_norm=_global_norm):
+    """Gradients scaled to a global norm of at most ``max_norm``, and that
+    norm.  ``global_norm`` computes it from the tree (a data mesh's step
+    passes :meth:`repro_torch.distributed.DataParallel.global_norm`, which
+    sums over the ranks' shards)."""
+    norm = global_norm(grads)
     scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                     grads), norm
@@ -81,16 +91,17 @@ def clip_by_global_norm(grads, max_norm: float):
 
 def opt_state_abstract(specs, opt_name: str, mesh=None, rules=None):
     """Meta tensors (no storage) for the optimizer state, from ParamSpecs:
-    the zero-allocation twin of ``adamw_init``/``adafactor_init``.  On one
-    card there is no sharding to carry (``mesh`` waits for the distribution
-    slice, ROADMAP Queue 1)."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError("opt_state_abstract: sharded state waits "
-                                  "for the distribution slice (ROADMAP, "
-                                  "Queue 1)")
+    the zero-allocation twin of ``adamw_init``/``adafactor_init``.  With a
+    mesh the moments are one rank's shards: they take their parameter's
+    layout (a fully sharded optimizer), and Adafactor's factored moments
+    drop the corresponding axes, as in the reference."""
+    from ..distributed.sharding import param_sharding, shard_shape
 
     def like(spec: ParamSpec, dtype="float32"):
-        return torch.empty(spec.shape, dtype=DTYPES[dtype], device="meta")
+        shape = spec.shape if mesh is None else shard_shape(
+            spec.shape, param_sharding(spec.axes, mesh, rules, spec.shape),
+            mesh)
+        return torch.empty(shape, dtype=DTYPES[dtype], device="meta")
 
     def over(fn):
         def go(t):
@@ -132,10 +143,11 @@ def adamw_init(params, cfg: OptimizerConfig):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: OptimizerConfig):
+def adamw_update(params, grads, state, cfg: OptimizerConfig,
+                 global_norm=_global_norm):
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, global_norm)
     b1, b2 = cfg.b1, cfg.b2
     c1 = 1.0 - torch.pow(b1, step.to(torch.float32))
     c2 = 1.0 - torch.pow(b2, step.to(torch.float32))

@@ -343,3 +343,66 @@ def test_export_on_the_card_launches_nothing_and_equals_the_cpu_text(cuda):
                                     "rmsnorm_bwd": 2 * n + 1}
     assert w.stablehlo_text == export_workload(
         step, *args, device="cpu").stablehlo_text
+
+
+_KERNELS = (flash_attention, flash_attention_bwd, rmsnorm, rmsnorm_bwd)
+
+
+@pytest.mark.cuda
+def test_per_rank_step_in_a_fake_world_launches_the_four_kernels(cuda):
+    # one rank of a [4, 1] data mesh, eagerly on the card: its gathers move
+    # no data (the fake backend), so this counts launches only
+    from repro_torch.launch.mesh import traced_mesh
+    from repro_torch.models.params import shard_params
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_init
+
+    cfg = _tiny_llama()
+    specs = model_specs(cfg)
+    toks = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (1, 129)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    with traced_mesh((4, 1), cuda) as mesh:
+        params = shard_params(specs, init_params(
+            specs, torch.Generator(cuda).manual_seed(2), cuda), mesh)
+        opt_cfg = OptimizerConfig()
+        step = make_train_step(cfg, opt_cfg, mesh=mesh)
+        before = [f.launches for f in _KERNELS]
+        step(params, adamw_init(params, opt_cfg), batch)
+        torch.cuda.synchronize()
+    n = cfg.num_layers
+    assert [f.launches - b for f, b in zip(_KERNELS, before)] == [
+        n, n, 2 * n + 1, 2 * n + 1]
+
+
+def _allocations(device) -> int:
+    """The card's allocator's count of allocations so far (a free does
+    not lower it)."""
+    return torch.cuda.memory_stats(device).get("allocation.all.allocated", 0)
+
+
+@pytest.mark.cuda
+def test_mesh_export_on_the_card_allocates_nothing(cuda):
+    # the [4, 1] export on fake cuda tensors: the global and the per-rank
+    # traces launch nothing and allocate nothing (counted around the
+    # export, inside the fake world); the per-rank text is the CPU's
+    from repro_torch.core.pipeline import export_workload
+    from repro_torch.launch.mesh import traced_mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.loop import train_step_exports
+
+    cfg = get_config("llama3-100m")
+    step, args = train_step_exports(cfg, 128, 4)
+    texts = []
+    for device in (cuda, "cpu"):
+        with traced_mesh((4, 1), device) as mesh:
+            rank = train_step_exports(cfg, 128, 4, mesh)
+            counters = [f.launches for f in _KERNELS]
+            allocs = _allocations(cuda)
+            w = export_workload(step, *args, device=device,
+                                per_rank=(*rank, mesh))
+            assert _allocations(cuda) == allocs
+            assert [f.launches for f in _KERNELS] == counters
+        texts.append(w.hlo_text)
+    assert "mhlo.num_partitions = 4 " in texts[0]
+    assert texts[0] == texts[1]

@@ -40,6 +40,7 @@ from repro_torch.core.export import trace
 from repro_torch.core.pipeline import Workload, export_workload
 from repro_torch.core.stablehlo import emit
 from repro_torch.kernels import _build
+from repro_torch.launch.mesh import traced_mesh
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_bwd)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
@@ -318,6 +319,24 @@ def test_an_op_with_no_lowering_raises_and_names_it():
         emit(traced)
 
 
+def test_a_buffer_filled_by_a_copy_runs_to_the_eager_values():
+    """``empty`` then ``copy_`` (and an ``empty`` that slices then fill)
+    lower to values XLA computes as the eager function does."""
+    def f(x):
+        y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        y.copy_(x * 2)
+        z = torch.empty_like(x)
+        z[:2] = x[:2] + 1
+        z[2:] = x[2:] - 1
+        return y, z
+
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(4, 3))
+                         .astype(np.float32))
+    text = emit(trace(f, torch.empty(4, 3, device="meta"), device="cpu"))
+    for got, want in zip(_run_xla(text, [x]), f(x)):
+        np.testing.assert_array_equal(got, want.numpy())
+
+
 def test_optimized_fidelity_raises_for_a_torch_export():
     w = Workload("w", stablehlo_text=_port("llama3-1b", "kernel")
                  .stablehlo_text)
@@ -355,7 +374,11 @@ def test_abstract_arguments_match_the_reference():
             jax_abstract(jax_specs(jcfg)))
     ps = abstract_params(model_specs(get_config("llama3-1b")))
     assert all(t.device.type == "meta" for t in pytree.tree_leaves(ps))
-    with pytest.raises(NotImplementedError, match="distribution"):
-        registry.input_specs(get_config("llama3-1b"),
-                             ShapeConfig("s", 128, 8, "train"), mesh=object())
+    # with a mesh: one rank's rows of the batch
+    with traced_mesh((4, 1), "cpu") as mesh:
+        rows = registry.input_specs(get_config("llama3-1b"),
+                                    ShapeConfig("s", 128, 8, "train"), mesh)
+    assert {k: tuple(t.shape) for k, t in rows.items()} == {
+        "tokens": (2, 128), "targets": (2, 128)}
+    assert all(t.device.type == "meta" for t in rows.values())
     assert math.prod(ps["embed"].shape) == 32768 * 2048

@@ -265,45 +265,72 @@ def test_fig10_rows_equal_the_reference_and_the_golden():
 # --------------------------------------------------------------------------
 
 def test_fig6_raw_rows_rank_the_systems_as_the_golden():
-    """fig6 as checked in, exported by the port (traced on the CPU): 12
-    raw rows, and the 12 optimized jobs are ``plan`` error rows (the
-    optimized text waits for the distribution slice; no row is computed
-    from raw text in its place).  Per workload the raw rows rank the four
-    systems as the golden's raw rows do.  The ratios to the golden are a
-    finding (the port's text is not JAX's), printed, not asserted."""
+    """fig6 as checked in, exported by the port (traced on the CPU): 24
+    rows, the 12 raw rows costed on the global step's text and the 12
+    optimized rows on the per-rank text of the ``[4, 1]`` data mesh.  Per
+    workload and fidelity the rows rank the four systems as the golden's
+    rows of that fidelity do.  The ratios to the golden are a finding (the
+    port's texts are not JAX's), printed, not asserted."""
     spec = campaign.CampaignSpec.from_json(str(SPECS / "fig6_gpu.json"))
     result = campaign.run_campaign(spec, device="cpu")
-    raw = [r for r in result.rows if "error" not in r]
-    errors = [r for r in result.rows if "error" in r]
-    assert len(raw) == 12 and all(r["fidelity"] == "raw" for r in raw)
-    assert len(errors) == 12
-    assert all(r["fidelity"] == "optimized" and r["error_type"] == "plan"
-               and "distribution slice" in r["error"] for r in errors)
-    golden = {(r["workload"], r["system"]): r["step_time_s"]
+    assert len(result.rows) == 24 and not [r for r in result.rows
+                                           if "error" in r]
+    golden = {(r["workload"], r["system"], r["fidelity"]): r["step_time_s"]
               for r in load_json(str(SPECS / "golden" / "fig6-gpu.json"))[
-                  "rows"] if r["fidelity"] == "raw"}
-    for workload in ("llama3-100m", "llama3-500m", "llama3-1b"):
-        rows = [r for r in raw if r["workload"] == workload]
-        ours = [r["step_time_s"] for r in rows]
-        theirs = [golden[(workload, r["system"])] for r in rows]
-        print(workload, ", ".join(f"{r['system']} {a / b:.3f}"
-                                  for r, a, b in zip(rows, ours, theirs)))
-        assert kendall_tau(ours, theirs) == 1.0
+                  "rows"]}
+    for fidelity in ("raw", "optimized"):
+        for workload in ("llama3-100m", "llama3-500m", "llama3-1b"):
+            rows = [r for r in result.rows if r["workload"] == workload
+                    and r["fidelity"] == fidelity]
+            assert len(rows) == 4
+            ours = [r["step_time_s"] for r in rows]
+            theirs = [golden[(workload, r["system"], fidelity)]
+                      for r in rows]
+            print(workload, fidelity, ", ".join(
+                f"{r['system']} {a / b:.3f}"
+                for r, a, b in zip(rows, ours, theirs)))
+            assert kendall_tau(ours, theirs) == 1.0
+    optimized = [r for r in result.rows if r["fidelity"] == "optimized"]
+    assert all(r["num_segments"] > 1 and r["comm_s"] > 0 for r in optimized)
 
 
 def test_mesh_and_resnet_workloads():
-    """A mesh is recorded and the optimized text stays absent; ResNet
-    raises, naming its slice."""
-    w = build_workload(WorkloadSpec.from_dict(
-        {"name": "t", "arch": "llama3-100m", "mode": "train", "seq": 16,
-         "batch": 2, "mesh": [4, 1]}), device="cpu")
-    assert w.meta["mesh"] == [4, 1] and w.hlo_text is None
-    with pytest.raises(ValueError, match="distribution slice"):
+    """A mesh gives both texts: the global step's raw text and the
+    per-rank text with its collectives; without a mesh the optimized text
+    is absent and asking for it raises.  ResNet raises, naming its
+    slice."""
+    spec = {"name": "t", "arch": "llama3-100m", "mode": "train", "seq": 16,
+            "batch": 4, "mesh": [4, 1]}
+    w = build_workload(WorkloadSpec.from_dict(spec), device="cpu")
+    assert w.meta["mesh"] == [4, 1]
+    assert w.program("raw").meta.get("num_partitions") == 1
+    assert w.program("optimized").meta["num_partitions"] == 4
+    assert "stablehlo.reduce_scatter" in w.hlo_text
+    assert "stablehlo.all_gather" not in w.stablehlo_text
+    del spec["mesh"]
+    w = build_workload(WorkloadSpec.from_dict(spec), device="cpu")
+    assert w.hlo_text is None
+    with pytest.raises(ValueError, match="with a mesh"):
         w.program("optimized")
     with pytest.raises(NotImplementedError, match="ResNet slice"):
         build_workload(WorkloadSpec.from_dict(
             {"name": "r", "arch": "resnet18", "mode": "train"}),
             device="cpu")
+
+
+def test_an_optimized_job_without_optimized_text_is_a_plan_error_row():
+    """No row is computed from the raw text in place of the optimized
+    text: the job is a ``plan`` error row that names what is missing."""
+    spec = campaign.CampaignSpec.from_dict({
+        "name": "no-mesh", "workloads": [{"name": "w"}],
+        "systems": ["h100"], "estimators": [{"kind": "roofline"}],
+        "topologies": [{"kind": "a2a", "params": {"num_devices": 1}}]},
+        provided={"w"})
+    result = campaign.run_campaign(spec, workloads={"w": Workload(
+        "w", stablehlo_text=_text("sharded"))})
+    [row] = result.rows
+    assert row["fidelity"] == "optimized" and row["error_type"] == "plan"
+    assert "with a mesh" in row["error"] and "step_time_s" not in row
 
 
 # --------------------------------------------------------------------------

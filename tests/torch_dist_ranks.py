@@ -1,0 +1,72 @@
+"""One rank of a gloo world for ``tests/test_torch_distributed.py``.
+
+Imported by the spawned rank processes (not a test module): it imports
+torch and ``repro_torch`` only.  Each rank joins a gloo world through a
+``FileStore``, builds a ``[world, 1]`` mesh and runs one job:
+
+* ``"step"``: the per-rank ``make_train_step`` for two steps from the whole
+  parameters and batches in ``inputs.pt``; it saves its shards and rows
+  before the first step and every step's flattened outputs;
+* ``"train"``: ``train(run, mesh=...)`` for two steps; it saves the losses.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
+
+# a collective that waits longer than this fails the rank
+COLLECTIVE_TIMEOUT_S = 60
+
+
+def run(rank: int, world: int, store: str, work: str, job: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    try:
+        from repro_torch.launch.mesh import make_mesh
+
+        mesh = make_mesh((world, 1), ("data", "model"), "cpu")
+        out = _step(mesh, work) if job == "step" else _train(mesh, work)
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _step(mesh, work: str) -> dict:
+    from repro_torch.models.params import shard_params
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.train.data import ShardedLoader
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import adamw_init
+
+    inputs = torch.load(os.path.join(work, "inputs.pt"),
+                        weights_only=False)
+    cfg, opt_cfg = inputs["cfg"], inputs["opt_cfg"]
+    specs = model_specs(cfg)
+    params = shard_params(specs, inputs["params"], mesh)
+    opt = adamw_init(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, mesh=mesh)
+    loader = ShardedLoader(iter(inputs["batches"]), mesh)
+    first = next(loader)
+    out = {"inputs": pytree.tree_leaves((params, opt, first)), "steps": []}
+    batch = first
+    for i in range(len(inputs["batches"])):
+        if i:
+            batch = next(loader)
+        params, opt, metrics = step(params, opt, batch)
+        out["steps"].append(pytree.tree_leaves((params, opt, metrics)))
+    return out
+
+
+def _train(mesh, work: str) -> dict:
+    from repro_torch.train.loop import train
+
+    run_cfg = torch.load(os.path.join(work, "run.pt"), weights_only=False)
+    res = train(run_cfg, mesh=mesh, num_steps=2, log_every=0)
+    return {"losses": res.losses}
