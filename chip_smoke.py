@@ -71,7 +71,23 @@ prints no result line):
    median, peak memory, the launches a step, the predicted compute over
    the median); (d) fig6's 12 optimized rows (Kendall tau 1.0 per
    workload), ``specs/fig11_tpu.json`` (tau 1.0 per estimator) and
-   ``specs/fig9_scaleout.json`` (printed beside the golden).
+   ``specs/fig9_scaleout.json`` (printed beside the golden);
+11. fig7, the data-parallel ResNet step: (a) its four workloads
+   (resnet18/34/50/101 at 64 x 224, f16, [4, 1]) exported through
+   ``build_workload`` on fake ``cuda`` tensors in a fake world of 4, each
+   global and per-rank text's convolutions and their FLOPs (the per-rank
+   ones x 4 equal to the global ones), the per-rank collectives, both front
+   ends equal, no launch and no device memory; (b) each rank's step
+   eagerly on the card in that fake world (16 x 224 a rank, AdamW, 2
+   warm-up and 6 timed steps from the same shards, since the fake world's
+   collectives move no data) and then trained on those 16 images as one
+   card's step (each step on the last one's parameters), a finite loss on
+   every step of both: median, images/s, peak memory, and the predicted
+   compute on ``h100`` over the rank step's median; (c) ``specs/fig7_resnet.json`` as
+   checked in over (a)'s exports, the four step times at Kendall tau 1.0
+   against the golden's; (d) ``python -m repro_torch.campaign`` in
+   subprocesses: ``validate`` and ``list``, and fig10's ``run`` and
+   ``report --check`` against its golden.
 
 The last lines are one JSON object ``{"kernels": [...]}``, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -85,11 +101,13 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -126,6 +144,8 @@ from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models.attention import gqa_forward  # noqa: E402
 from repro_torch.models.common import embed_lookup, rms_norm  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
+from repro_torch.models.resnet import (make_resnet_train_step,  # noqa: E402
+                                       resnet_arch_config, resnet_specs)
 from repro_torch.models.ssm import mamba2_forward  # noqa: E402
 from repro_torch.models.transformer import (TransformerLM, _embed,  # noqa: E402
                                             decode_step, init_cache_specs,
@@ -1425,6 +1445,246 @@ def mesh_campaigns(fig6) -> None:
 
 
 # --------------------------------------------------------------------------
+# phase 11: fig7, the data-parallel ResNet step
+# --------------------------------------------------------------------------
+
+FIG7_SPEC = ROOT / "specs" / "fig7_resnet.json"
+# the rank's images (fig7: 64 x 224 on [4, 1])
+RESNET_RANK_B, RESNET_IMG = 16, 224
+RESNET_WARMUP, RESNET_STEPS = 2, 6
+
+
+def _collective_kinds(program) -> dict:
+    """kind -> [count, algorithm bytes a rank]; each collective must be
+    typed by its payload over the mesh's 4 ranks."""
+    kinds: dict = {}
+    for c, mult in collect_collectives(program):
+        if not (c.bytes_in > 0 and c.group_size == MESH[0]):
+            raise AssertionError(f"fig7 export: collective {c} is not "
+                                 "typed by its payload over 4 ranks")
+        k = kinds.setdefault(c.kind, [0, 0.0])
+        k[0] += mult
+        k[1] += c.algo_bytes * mult
+    return kinds
+
+
+def fig7_export() -> dict:
+    """(a) fig7's four workloads through the campaign's export, as checked
+    in (64 x 224, f16, [4, 1]), on fake ``cuda`` tensors in a fake world of
+    4: each global and per-rank text's convolutions, their FLOPs and the
+    per-rank collectives.  Holds, for each text, equal Programs from both
+    front ends; the per-rank convolution FLOPs x 4 equal to the global
+    text's; no launch and no device memory."""
+    spec = CampaignSpec.from_json(str(FIG7_SPEC))
+    # the process's first fake cuda tensor initialises the device's context
+    # with a real 4-byte tensor (FakeTensor's init_gpu_context): made here,
+    # before the counting, when phase 8 has not made it already
+    with FakeTensorMode():
+        torch.empty(1, device="cuda")
+    out = {}
+    for wspec in spec.workloads:
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in COUNTERS.items()}
+        allocs = allocations()
+        w = build_workload(wspec, device="cuda")
+        if allocations() != allocs:
+            raise AssertionError(f"fig7 export {w.name}: "
+                                 f"{allocations() - allocs} allocations")
+        if {k: fn.launches for k, fn in COUNTERS.items()} != counts:
+            raise AssertionError(f"fig7 export {w.name}: a launch counter "
+                                 "moved")
+        flops = {}
+        for label, text in (("global", w.stablehlo_text),
+                            ("per-rank", w.hlo_text)):
+            legacy = ir.parse_stablehlo(text, frontend="legacy")
+            streaming = ir.parse_stablehlo(text, frontend="streaming")
+            ir.assert_programs_equal(legacy, streaming)
+            flops[label] = int(ir.program_cost(streaming).by_op[
+                "convolution"])
+            log(f"  {w.name} {label} text: "
+                f"{text.count('stablehlo.convolution(')} convolutions, "
+                f"{flops[label]} FLOPs; {streaming.num_ops} ops, "
+                f"{len(text.encode())} bytes")
+        if flops["per-rank"] * MESH[0] != flops["global"]:
+            raise AssertionError(f"fig7 export {w.name}: per-rank "
+                                 f"convolution FLOPs {flops['per-rank']} "
+                                 f"x 4 != {flops['global']}")
+        kinds = _collective_kinds(streaming)
+        opt = w.meta["optimized"]
+        log(f"  {w.name}: trace {w.meta['trace_s']:.2f} s (global), "
+            f"{opt['trace_s']:.2f} s (per rank); emit {w.meta['emit_s']:.3f}"
+            f" s, {opt['emit_s']:.3f} s; per-rank collectives (count, "
+            "algorithm bytes a rank): " + "; ".join(
+                f"{k} {n}, {b:.0f}" for k, (n, b) in sorted(kinds.items())))
+        out[w.name] = w
+    return out
+
+
+def _steps(step, params, opt, images, labels, feed_back: bool):
+    """RESNET_WARMUP + RESNET_STEPS calls of a ResNet train step, the
+    launch counts set to 0 after the warm-up and the peak memory reset
+    there: (seconds, losses, peak bytes, launches)."""
+    times, losses = [], []
+    for i in range(RESNET_WARMUP + RESNET_STEPS):
+        if i == RESNET_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # ---- this path: counts at 0 just before, read after ----
+            for fn in COUNTERS.values():
+                fn.launches = 0
+        out = []
+        times.append(timed(lambda: out.append(step(params, opt, images,
+                                                   labels))))
+        if feed_back:
+            params, opt = out[0][0], out[0][1]
+        losses.append(float(out[0][2]))
+        del out
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    # ---- end of this path ----
+    return times, losses, torch.cuda.max_memory_allocated(), launches
+
+
+def fig7_rank_steps(gen, workloads: dict) -> dict:
+    """(b) each ResNet's rank step eagerly on the card in a fake world of 4
+    (16 x 224 images a rank, f16, AdamW), RESNET_WARMUP + RESNET_STEPS
+    steps: the median, images/s, peak memory, and the predicted compute on
+    ``h100`` (phase 10's two estimators on the per-rank text) over the
+    median, printed and not held.  The fake world's collectives move no
+    data: its all-gather fills each rank's block with this rank's shard,
+    but torch 2.11 leaves some reduce-scatter outputs unfilled (NaN
+    gradients, seen on the card), so each step starts from the same shards
+    and the values are not the point.  Then the same model trains on the
+    rank's 16 images as one card's step (no mesh), each step on the last
+    one's parameters.  Both hold a finite loss on every step.  Returns the
+    launch counts of the port's kernels (neither path runs one)."""
+    system = default_registry().get("h100")
+    topology = build_topology(TopologySpec.from_dict(
+        {"kind": "auto", "params": {"num_devices": MESH[0]}}), system)
+    launches = {k: 0 for k in COUNTERS}
+    for name, w in workloads.items():
+        cfg = resnet_arch_config(name)
+        specs = resnet_specs(cfg)
+        opt_cfg = OptimizerConfig(name="adamw")
+        images = torch.randn(RESNET_RANK_B, RESNET_IMG, RESNET_IMG, 3,
+                             generator=gen, device="cuda").to(torch.float16)
+        labels = torch.randint(0, cfg.num_classes, (RESNET_RANK_B,),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        params = init_params(specs, gen, "cuda")
+        runs = {}
+        with traced_mesh(MESH, "cuda") as mesh:
+            shards = shard_params(specs, params, mesh)
+            runs["rank"] = _steps(
+                make_resnet_train_step(cfg, opt_cfg, mesh=mesh), shards,
+                adamw_init(shards, opt_cfg), images, labels, False)
+            del shards
+        runs["one card"] = _steps(
+            make_resnet_train_step(cfg, opt_cfg), params,
+            adamw_init(params, opt_cfg), images, labels, True)
+        del params
+        torch.cuda.empty_cache()
+        for label, (times, losses, peak, counts) in runs.items():
+            for k, n in counts.items():
+                launches[k] += n
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"{name} {label} step: losses {losses}")
+            step_s = statistics.median(times[RESNET_WARMUP:])
+            log(f"  {name} {label} step (16 x 224, f16): median "
+                f"{step_s * 1e3:.2f} ms over steps {RESNET_WARMUP}.."
+                f"{RESNET_WARMUP + RESNET_STEPS - 1} (all: "
+                + ", ".join(f"{t * 1e3:.2f}" for t in times)
+                + f" ms), {RESNET_RANK_B / step_s:.1f} images/s, peak "
+                f"memory {peak / 2**30:.2f} GiB; losses "
+                + ", ".join(f"{x:.4f}" for x in losses))
+        step_s = statistics.median(runs["rank"][0][RESNET_WARMUP:])
+        program = w.program("optimized")
+        for label, est in PREDICT_ESTIMATORS.items():
+            p = PredictionJob(
+                program=program, slicer="linear", name=name,
+                system_name="h100", topology=topology,
+                estimator=build_estimator(EstimatorSpec.from_dict(est),
+                                          system)).run()
+            log(f"  {name} predicted compute on h100 ({label}) / the rank "
+                f"step's median: {p.compute_s * 1e3:.2f} / "
+                f"{step_s * 1e3:.2f} = {p.compute_s / step_s:.4f} (a "
+                "finding, not held)")
+    if any(launches.values()):
+        raise AssertionError(f"fig7 rank steps launched {launches}: no "
+                             "kernel of the port lies on this path")
+    return launches
+
+
+def fig7_campaign(workloads: dict) -> None:
+    """(c) fig7 as checked in (``a100``, roofline, ``a2a`` over 4), with
+    (a)'s exports: the four step times rank as the golden's (Kendall tau
+    1.0); each row beside the golden's, comm segments included."""
+    t0 = time.perf_counter()
+    result = run_campaign(CampaignSpec.from_json(str(FIG7_SPEC)),
+                          workloads=workloads, device="cuda")
+    errors = [r for r in result.rows if "error" in r]
+    if errors:
+        raise AssertionError(f"fig7: error rows {errors[:2]}")
+    gold = {r["workload"]: r for r in load_json(
+        str(ROOT / "specs" / "golden" / "fig7-resnet.json"))["rows"]}
+    rows = sorted(result.rows, key=lambda r: r["workload"])
+    for r in rows:
+        g = gold[r["workload"]]
+        log(f"  fig7 {r['workload']}: step {r['step_time_s'] * 1e3:.3f} ms "
+            f"(compute {r['compute_s'] * 1e3:.3f}, communication "
+            f"{r['comm_s'] * 1e3:.3f}; {r['num_segments']} segments, "
+            f"{r['num_comm']} comm); golden {g['step_time_s'] * 1e3:.3f} ms "
+            f"({g['num_segments']} segments, {g['num_comm']} comm); "
+            f"{r['step_time_s'] / g['step_time_s']:.4f} of golden")
+    tau = kendall_tau([r["step_time_s"] for r in rows],
+                      [gold[r["workload"]]["step_time_s"] for r in rows])
+    log(f"  fig7: Kendall tau {tau} against the golden, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if tau != 1.0:
+        raise AssertionError(f"fig7: Kendall tau {tau}")
+
+
+def campaign_cli() -> None:
+    """(d) ``python -m repro_torch.campaign`` in subprocesses: ``validate``
+    of the paper's suite and ``list`` exit 0; ``run`` of fig10 and then
+    ``report --check`` of its rows give the golden's rows."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [["validate", "specs/paper_full.json"], ["list"],
+                ["run", "specs/fig10_gemm.json", "--out", tmp, "--quiet"],
+                ["report", "specs/fig10_gemm.json", "--results",
+                 os.path.join(tmp, "results.jsonl"), "--check", "--out",
+                 os.path.join(tmp, "report")]]
+        for args in runs:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.campaign", *args],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=300)
+            last = (proc.stdout.strip().splitlines() or [""])[-1]
+            log(f"  repro_torch.campaign {' '.join(args[:2])}: rc "
+                f"{proc.returncode}, {time.perf_counter() - t0:.1f} s; "
+                f"{last[:160]}")
+            if proc.returncode != 0:
+                raise AssertionError(f"campaign CLI {args}: rc "
+                                     f"{proc.returncode}\n{proc.stdout}"
+                                     f"\n{proc.stderr}")
+        if "golden OK" not in proc.stdout:
+            raise AssertionError(f"fig10 report: {proc.stdout}")
+
+
+def fig7_phase(gen) -> dict:
+    """Phase 11, (a) to (d).  Returns (b)'s launch counts."""
+    t0 = time.perf_counter()
+    workloads = fig7_export()
+    log(f"  (a) {time.perf_counter() - t0:.1f} s")
+    launches = fig7_rank_steps(gen, workloads)
+    fig7_campaign(workloads)
+    campaign_cli()
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 5: where the time goes (torch.profiler)
 # --------------------------------------------------------------------------
 
@@ -1553,7 +1813,9 @@ def main() -> int:
     predicted = mesh_predict(mesh_export())
     runs.append(rank_step(gen, predicted))
     mesh_campaigns(fig6)
-    # launches on the four main paths: K1 and K2 run on two, three or four
+    log("[11] fig7: the data-parallel ResNet step")
+    runs.append(fig7_phase(gen))
+    # launches on the main paths: K1 and K2 run on two, three or four
     for entry in (k1, k2, k3, k1b, k2b):
         key = entry["name"]
         entry["launches"] = sum(run[key] for run in runs)

@@ -6,9 +6,9 @@ The port's copy of the reference's ``repro.campaign``.  Workloads come
 from pre-exported IR on disk, from the port's exports of registered
 archs (``mode="forward"`` or ``mode="train"``, traced on fake tensors on
 the card unless ``device`` says otherwise), or from synthesized GEMM
-modules.  Field reference: ``docs/campaign.md``.  The command line
-(``python -m repro.campaign``) waits for the port's facade (ROADMAP,
-Queue 1).
+modules.  Field reference: ``docs/campaign.md``.  The command line is
+``python -m repro_torch.campaign`` (``campaign/__main__.py``), and the
+facade ``repro_torch.api``.
 
 Quickstart::
 

@@ -16,9 +16,11 @@ Workloads: the GEMM and sharded-stack syntheses and the serving steps
 are copies (the same text, byte for byte, from the port's ``configs/``).
 An ``arch`` workload in ``mode="train"``/``"forward"`` is the port's own
 export: :func:`repro_torch.train.loop.train_step_exports` (or
-``forward_exports``) traced by :func:`repro_torch.core.pipeline.export_workload`
-on fake tensors on ``device`` (None: the card), with the arch's config as
-the port registers it (``attn_impl="kernel"``, what the card runs).  The
+``forward_exports``; for a ``resnet*`` arch
+:func:`repro_torch.models.resnet.resnet_train_exports`) traced by
+:func:`repro_torch.core.pipeline.export_workload` on fake tensors on
+``device`` (None: the card), with the arch's config as the port registers
+it (``attn_impl="kernel"``, what the card runs).  The
 raw text is the global step, which is what the reference's raw text of a
 sharded ``jit`` computes.  With a mesh (recorded in
 ``Workload.meta["mesh"]``) the optimized text is the per-rank program of
@@ -339,42 +341,54 @@ def _export_from_arch(spec: WorkloadSpec, device=None) -> Workload:
 
     ``mode="forward"`` traces one forward pass; ``mode="train"`` a full
     train step (loss + gradients + optimizer update) with abstract
-    optimizer state.  With a mesh a train workload also gets its
-    optimized text (a forward one raises): the per-rank step of the data
-    mesh, traced in a fake world of the mesh's size
-    (``launch/mesh.py::traced_mesh``), the counterpart of the reference's
-    ``_mesh_for`` under forced host devices.  The traces
-    run on fake tensors on ``device`` (None: the card): no device memory,
-    no launch."""
-    if spec.arch.startswith("resnet"):
-        raise NotImplementedError(
-            f"workload {spec.name!r}: {spec.arch} is not ported to "
-            "repro_torch yet: ResNet's export waits for the ResNet slice "
-            "(ROADMAP, Queue 1)")
+    optimizer state.  A ``resnet*`` arch is train-only (the fig7 workload
+    family: :func:`repro_torch.models.resnet.resnet_train_exports` at
+    ``spec.batch`` images of ``spec.img`` pixels).  With a mesh a train
+    workload also gets its optimized text (a forward one raises): the
+    per-rank step of the data mesh, traced in a fake world of the mesh's
+    size (``launch/mesh.py::traced_mesh``), the counterpart of the
+    reference's ``_mesh_for`` under forced host devices.  The traces run on
+    fake tensors on ``device`` (None: the card): no device memory, no
+    launch."""
     from ..launch.mesh import traced_mesh
-    from ..models.registry import get_config
-    from ..train.loop import forward_exports, train_step_exports
     from ..train.optimizer import OptimizerConfig
 
-    cfg = get_config(spec.arch)
-    if spec.mesh is not None and spec.mode != "train":
-        raise NotImplementedError(
-            f"workload {spec.name!r}: a {spec.mode!r} workload with a mesh "
-            "has no per-rank program yet; only the train step is ported "
-            "for a data mesh (ROADMAP, Queue 1 item 10)")
-    if spec.mode == "train":
-        exports, kw = train_step_exports, {
-            "opt_cfg": OptimizerConfig(name=spec.optimizer)}
+    opt_cfg = OptimizerConfig(name=spec.optimizer)
+    if spec.arch.startswith("resnet"):
+        from ..models.resnet import resnet_arch_config, resnet_train_exports
+
+        if spec.mode != "train":
+            raise ValueError(
+                f"workload {spec.name!r}: resnet export is train-only (the "
+                f"fig7 workload family), not mode {spec.mode!r}; set "
+                "mode='train'")
+        cfg = resnet_arch_config(spec.arch)
+
+        def exports(mesh=None):
+            return resnet_train_exports(cfg, spec.batch, spec.img, mesh,
+                                        opt_cfg=opt_cfg)
     else:
-        exports, kw = forward_exports, {}
-    step, abs_args = exports(cfg, spec.seq, spec.batch, **kw)
+        from ..models.registry import get_config
+        from ..train.loop import forward_exports, train_step_exports
+
+        cfg = get_config(spec.arch)
+        if spec.mesh is not None and spec.mode != "train":
+            raise NotImplementedError(
+                f"workload {spec.name!r}: a {spec.mode!r} workload with a "
+                "mesh has no per-rank program yet; only the train step is "
+                "ported for a data mesh (ROADMAP, Queue 1 item 10)")
+
+        def exports(mesh=None):
+            if spec.mode == "train":
+                return train_step_exports(cfg, spec.seq, spec.batch, mesh,
+                                          opt_cfg=opt_cfg)
+            return forward_exports(cfg, spec.seq, spec.batch)
+    step, abs_args = exports()
     if spec.mesh is None:
         return export_workload(step, *abs_args, name=spec.name,
                                device=device)
     with traced_mesh(spec.mesh, device) as mesh:
-        rank_step, rank_args = train_step_exports(cfg, spec.seq, spec.batch,
-                                                  mesh, **kw)
         w = export_workload(step, *abs_args, name=spec.name, device=device,
-                            per_rank=(rank_step, rank_args, mesh))
+                            per_rank=(*exports(mesh), mesh))
     w.meta["mesh"] = list(spec.mesh)
     return w

@@ -40,10 +40,9 @@ The port's copy of the reference's ``campaign/runner.py``.  Its
 differences: workloads that need an export are traced on fake tensors on
 ``run_campaign``'s ``device`` (None: the card), and a job whose fidelity
 the workload has no text for is a ``plan`` error row (the reference
-costs the raw text instead; see ``campaign/plans.py``).  Sessions of the
-reference's facade (``repro.api``) are not ported yet: ``session`` takes
-any object with the same ``estimators``/``topologies``/``systems``
-registries.
+costs the raw text instead; see ``campaign/plans.py``).  ``session`` is
+a :class:`repro_torch.api.Session`, or any object with the same
+``estimators``/``topologies``/``systems`` registries.
 """
 from __future__ import annotations
 
@@ -435,8 +434,10 @@ def run_campaign(spec: CampaignSpec, *,
     every live worker — at one shared append-log (H, C, R) store; the
     log is compacted once on completion and the returned ``cache``
     report includes the across-run ``time_saving_fraction`` from
-    persisted per-key costs.  ``session`` (an object with scoped
-    ``estimators``/``topologies``/``systems`` registries) supplies scoped registries — plugin estimator/topology kinds and
+    persisted per-key costs.  ``session`` (a
+    :class:`repro_torch.api.Session`, or an object with the same scoped
+    ``estimators``/``topologies``/``systems`` registries) supplies scoped
+    registries — plugin estimator/topology kinds and
     user system catalogs — that jobs build against; without one the
     global registries and the spec's own ``system_catalog`` apply.
 

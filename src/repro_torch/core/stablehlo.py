@@ -18,8 +18,20 @@ Queue 3); the module then carries the mesh's size as
 ``mhlo.num_partitions``.  An op with no lowering raises
 ``NotImplementedError`` naming it: nothing is skipped.
 
-Element types are ``bf16``, ``f32``, ``i32`` and ``i1``; PyTorch's int64
-indices are written as ``i32``, as JAX writes them without x64.
+A convolution is written in JAX's forms, on PyTorch's NCHW activations and
+OIHW weights (``dim_numbers`` name each dim, so the cost model reads them
+as it reads JAX's NHWC/HWIO ones): the forward ``convolution``; the data
+gradient as a ``reverse`` of the kernel and an lhs-dilated convolution;
+the weight gradient as a convolution of the input with the rhs-dilated
+output gradient.  A zero pad that feeds a convolution is folded into its
+window, and the crop that undoes it in the backward into the data
+gradient, so an asymmetric ``"SAME"`` window (which ``F.conv2d`` cannot
+pad) costs what JAX's does.  A max pool is a ``reduce_window`` (its -inf
+pad folded in the same way) and its backward, as JAX writes it, a
+``select_and_scatter`` over the -inf-padded input and a ``slice``.
+
+Element types are ``bf16``, ``f16``, ``f32``, ``i32`` and ``i1``; PyTorch's
+int64 indices are written as ``i32``, as JAX writes them without x64.
 """
 from __future__ import annotations
 
@@ -36,9 +48,12 @@ from .export import BARRIER, Traced
 
 aten = torch.ops.aten
 
-_ELEMENT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int32: "i32",
-            torch.int64: "i32", torch.bool: "i1"}
-_FLOATS = ("f32", "bf16")
+_ELEMENT = {torch.float32: "f32", torch.bfloat16: "bf16",
+            torch.float16: "f16", torch.int32: "i32", torch.int64: "i32",
+            torch.bool: "i1"}
+_FLOATS = ("f32", "bf16", "f16")
+_TORCH_FLOAT = {"f32": torch.float32, "bf16": torch.bfloat16,
+                "f16": torch.float16}
 
 
 def _element(dtype: torch.dtype) -> str:
@@ -68,10 +83,11 @@ def _float_literal(x: float, dt: str) -> str:
     """A float as MLIR prints it: the value rounded to ``dt``, in decimal
     with a point, or as bits when it is not finite."""
     if math.isnan(x) or math.isinf(x):
+        if dt == "f16":
+            return f"0x{struct.unpack('<H', struct.pack('<e', x))[0]:04X}"
         bits = struct.unpack("<I", struct.pack("<f", x))[0]
         return f"0x{bits:08X}" if dt == "f32" else f"0x{bits >> 16:04X}"
-    rounded = torch.tensor(x, dtype=torch.float32 if dt == "f32"
-                           else torch.bfloat16).item()
+    rounded = torch.tensor(x, dtype=_TORCH_FLOAT[dt]).item()
     mant, _, exp = repr(rounded).partition("e")
     if "." not in mant:
         mant += ".0"
@@ -108,7 +124,8 @@ _UNARY = {
 }
 _BINARY = {
     aten.add.Tensor: "add", aten.sub.Tensor: "subtract",
-    aten.mul.Tensor: "multiply", aten.div.Tensor: "divide",
+    aten.mul.Tensor: "multiply", aten.mul.Scalar: "multiply",
+    aten.div.Tensor: "divide",
     aten.div.Scalar: "divide", aten.maximum.default: "maximum",
     aten.minimum.default: "minimum", aten.pow.Scalar: "power",
     aten.bitwise_and.Tensor: "and", aten.bitwise_or.Tensor: "or",
@@ -132,6 +149,42 @@ _FILL = {  # factory op -> its fill value, from the node's args
     aten.empty.memory_format: lambda a: 0,
     aten.empty_permuted.default: lambda a: 0,
 }
+
+
+class _Deferred:
+    """A value whose ops are written only when a consumer takes it as a
+    tensor (:meth:`_Function.value`): until then a convolution or a pool
+    may fold it into its window instead."""
+
+    def materialize(self, f: "_Function") -> Value:
+        raise NotImplementedError
+
+
+@dataclass
+class _Pad(_Deferred):
+    """``src`` padded with ``fill`` (``low``/``high`` per dim, >= 0)."""
+    src: Value
+    low: list[int]
+    high: list[int]
+    fill: float
+
+    def materialize(self, f):
+        return f.pad(self.src, self.low, self.high, self.fill)
+
+
+@dataclass
+class _PaddedGrad(_Deferred):
+    """The data gradient of a convolution whose input is a folded
+    :class:`_Pad`, taken by the crop that undoes the pad: with respect to
+    the unpadded input (``inner``), which is JAX's form."""
+    inner: object
+    low: list[int]
+    high: list[int]
+
+    def materialize(self, f):
+        raise NotImplementedError(
+            "the data gradient of a convolution with respect to its padded "
+            "input, used other than by the crop that undoes the pad")
 
 
 class _Function:
@@ -251,6 +304,44 @@ class _Function:
         return self._emit(f"stablehlo.slice {x.name} [{spec}] : ({x.ty}) -> "
                           f"{_tensor_type(shape, x.dt)}", shape, x.dt)
 
+    def pad(self, x: Value, low, high, fill) -> Value:
+        v = self.constant(fill, x.dt)
+        shape = tuple(n + lo + hi for n, lo, hi in zip(x.shape, low, high))
+        return self._emit(
+            f"stablehlo.pad {x.name}, {v.name}, low = {_dims(low)}, high = "
+            f"{_dims(high)}, interior = {_dims([0] * len(low))} : ({x.ty}, "
+            f"{v.ty}) -> {_tensor_type(shape, x.dt)}", shape, x.dt)
+
+    def region_op(self, head: str, operands, attrs: str, regions, shape,
+                  dt: str) -> Value:
+        """``"stablehlo.<head>"(operands) <{attrs}> ({region}, ...)`` over
+        several lines, as JAX prints a reduce_window or a
+        select_and_scatter: each region takes two scalars of
+        ``operands[0]``'s type and returns ``op`` of them (``"GE"``, a
+        comparison, or an elementwise op)."""
+        name = f"%{self.count}"
+        self.count += 1
+        e = _tensor_type((), operands[0].dt)
+        blocks = []
+        for i, op in enumerate(regions):
+            lhs, rhs, res = (f"%{k}{name[1:]}_{i}" for k in ("lhs", "rhs",
+                                                            "red"))
+            if op == "GE":
+                body, rty = (f"stablehlo.compare  {op}, {lhs}, {rhs},  FLOAT "
+                             f": ({e}, {e}) -> tensor<i1>"), "tensor<i1>"
+            else:
+                body, rty = f"stablehlo.{op} {lhs}, {rhs} : {e}", e
+            blocks.append(f"    ^bb0({lhs}: {e}, {rhs}: {e}):\n"
+                          f"      {res} = {body}\n"
+                          f"      stablehlo.return {res} : {rty}")
+        self.lines.append(
+            f'    {name} = "stablehlo.{head}"('
+            f"{', '.join(v.name for v in operands)}) <{{{attrs}}}> ({{\n"
+            + "\n    }, {\n".join(blocks)
+            + f"\n    }}) : ({', '.join(v.ty for v in operands)}) -> "
+            f"{_tensor_type(shape, dt)}")
+        return Value(name, tuple(shape), dt)
+
     def slice_dim(self, x: Value, dim: int, start, end, step=1) -> Value:
         size = x.shape[dim]
         start = 0 if start is None else start
@@ -267,6 +358,8 @@ class _Function:
 
     def value(self, arg) -> Value:
         v = self.env[arg]
+        if isinstance(v, _Deferred):
+            v = self.env[arg] = v.materialize(self)
         if not isinstance(v, Value):
             raise NotImplementedError(f"{arg} is not a single tensor")
         return v
@@ -761,6 +854,188 @@ def _slice_scatter(f, node, x, src, dim=0, start=None, end=None, step=1):
     starts[dim] = start
     return _update(f, f.operand(x, dt, shape),
                    f.convert(f.value(src), dt), starts)
+
+
+@_lowers(aten.relu.default)
+def _relu(f, node, x):
+    shape, dt = _out(node)
+    return f.binary("maximum", f.value(x), f.full(0, shape, dt))
+
+
+@_lowers(aten.constant_pad_nd.default)
+def _constant_pad(f, node, x, pad, value=0):
+    """A pad (``pad`` in PyTorch's order: the last dim's low and high
+    first) is deferred, so that a convolution or a pool can fold it into
+    its window; a crop (every entry <= 0) is a ``slice``, or, when it undoes
+    the pad of a convolution's input, that convolution's data gradient
+    with respect to the unpadded input."""
+    raw = f.env[x]
+    rank = len(_out(node)[0])
+    low, high = [0] * rank, [0] * rank
+    for i in range(len(pad) // 2):
+        low[rank - 1 - i], high[rank - 1 - i] = pad[2 * i], pad[2 * i + 1]
+    if all(p >= 0 for p in low + high):
+        return _Pad(f.value(x), low, high, value)
+    if all(p <= 0 for p in low + high):
+        if isinstance(raw, _PaddedGrad) and raw.low == [-p for p in low] \
+                and raw.high == [-p for p in high]:
+            return raw.inner(f)
+        v = f.value(x)
+        return f.slice(v, [-p for p in low],
+                       [n + p for n, p in zip(v.shape, high)], [1] * rank)
+    return f.pad(f.value(x), low, high, value)
+
+
+def _window_input(f, x, padding, fill) -> tuple[Value, list, list]:
+    """The input of a convolution or a pool over NCHW's spatial dims, with
+    a deferred pad of ``fill`` folded into the window: ``(x, lows, highs)``
+    of the two spatial dims."""
+    raw = f.env[x]
+    low, high = [padding[0], padding[1]], [padding[0], padding[1]]
+    if isinstance(raw, _Pad) and raw.fill == fill \
+            and raw.low[:2] == [0, 0] and raw.high[:2] == [0, 0]:
+        return (raw.src, [a + b for a, b in zip(low, raw.low[2:])],
+                [a + b for a, b in zip(high, raw.high[2:])])
+    return f.value(x), low, high
+
+
+def _window_ok(node, dilation=(1, 1), groups=1, transposed=False,
+               ceil_mode=False) -> None:
+    if list(dilation) != [1, 1] or groups != 1 or transposed or ceil_mode:
+        raise NotImplementedError(
+            f"{node.target} with dilation {dilation}, groups {groups}, "
+            f"transposed {transposed}, ceil_mode {ceil_mode}")
+
+
+def _convolution(f, lhs: Value, rhs: Value, dims: str, stride, low, high,
+                 lhs_dilate, rhs_dilate, shape, dt: str) -> Value:
+    pad = ", ".join(_dims(p) for p in zip(low, high))
+    return f._emit(
+        f"stablehlo.convolution({lhs.name}, {rhs.name}) dim_numbers = {dims}"
+        f", window = {{stride = {_dims(stride)}, pad = [{pad}], lhs_dilate = "
+        f"{_dims(lhs_dilate)}, rhs_dilate = {_dims(rhs_dilate)}, reverse = "
+        f"[false, false]}} {{batch_group_count = 1 : i64, "
+        f"feature_group_count = 1 : i64, precision_config = "
+        f"[#stablehlo<precision DEFAULT>, #stablehlo<precision DEFAULT>]}} : "
+        f"({lhs.ty}, {rhs.ty}) -> {_tensor_type(shape, dt)}", shape, dt)
+
+
+# NCHW activations and OIHW weights: the forward, the data gradient (the
+# kernel's O is the transposed convolution's input feature) and the weight
+# gradient (the images are its contracted "input feature", Cin its batch)
+_CONV_FWD = "[b, f, 0, 1]x[o, i, 0, 1]->[b, f, 0, 1]"
+_CONV_DATA = "[b, f, 0, 1]x[i, o, 0, 1]->[b, f, 0, 1]"
+_CONV_WEIGHT = "[f, b, 0, 1]x[i, o, 0, 1]->[f, b, 0, 1]"
+
+
+@_lowers(aten.convolution.default)
+def _conv(f, node, x, w, bias, stride, padding, dilation, transposed,
+          output_padding, groups):
+    _window_ok(node, dilation, groups, transposed)
+    if bias is not None:
+        raise NotImplementedError(f"{node.target} with a bias")
+    shape, dt = _out(node)
+    v, low, high = _window_input(f, x, padding, 0)
+    return _convolution(f, v, f.value(w), _CONV_FWD, stride, low, high,
+                        [1, 1], [1, 1], shape, dt)
+
+
+@_lowers(aten.convolution_backward.default)
+def _conv_backward(f, node, dy, x, w, bias_sizes, stride, padding, dilation,
+                   transposed, output_padding, groups, output_mask):
+    """JAX's two forms: the data gradient is a convolution of the
+    lhs-dilated output gradient with the reversed kernel, the weight
+    gradient one of the input with the rhs-dilated output gradient."""
+    _window_ok(node, dilation, groups, transposed)
+    if output_mask[2]:
+        raise NotImplementedError(f"{node.target} with a bias")
+    g, k = f.value(dy), f.value(w)
+    v, low, high = _window_input(f, x, padding, 0)
+    metas = _meta(node)
+    out = g.shape[2:]
+    ks = k.shape[2:]
+
+    def data_grad(size, lo, hi, dt):
+        rev = f._emit(f"stablehlo.reverse {k.name}, dims = [2, 3] : {k.ty}",
+                      k.shape, k.dt)
+        before = [kk - a - 1 for kk, a in zip(ks, lo)]
+        after = [n + kk - 1 - ((o - 1) * s + 1) - b for n, kk, o, s, b in
+                 zip(size, ks, out, stride, before)]
+        return _convolution(f, g, rev, _CONV_DATA, [1, 1], before, after,
+                            stride, [1, 1], (g.shape[0], k.shape[1], *size),
+                            dt)
+
+    res: list = [None, None, None]
+    if output_mask[1]:
+        after = [(o - 1) * s + 1 - n + kk - a - 1 for o, s, n, kk, a in
+                 zip(out, stride, v.shape[2:], ks, low)]
+        res[1] = _convolution(f, v, g, _CONV_WEIGHT, [1, 1], low, after,
+                              [1, 1], stride, k.shape,
+                              _element(metas[1].dtype))
+    if output_mask[0]:
+        shape, dt = tuple(metas[0].shape), _element(metas[0].dtype)
+        if shape == v.shape:
+            res[0] = data_grad(v.shape[2:], low, high, dt)
+        else:      # x is a folded pad of v: v's gradient, for the crop
+            pad_lo = [0, 0] + [a - p for a, p in zip(low, padding)]
+            pad_hi = [0, 0] + [a - p for a, p in zip(high, padding)]
+            res[0] = _PaddedGrad(
+                lambda f: data_grad(v.shape[2:], low, high, dt),
+                pad_lo, pad_hi)
+    return res
+
+
+def _pair(x) -> list[int]:
+    return list(x) * (2 // len(x))
+
+
+def _pool_attrs(kernel, stride, low, high) -> tuple[list, list, str]:
+    window = [1, 1, *_pair(kernel)]
+    strides = [1, 1, *_pair(stride or kernel)]
+    pads = [[0, 0], [0, 0], *([a, b] for a, b in zip(low, high))]
+    dense = ("0" if not any(map(any, pads)) else
+             "[" + ", ".join(_dims(p) for p in pads) + "]")
+    return window, strides, (f"padding = dense<{dense}> : "
+                             "tensor<4x2xi64>")
+
+
+@_lowers(aten.max_pool2d_with_indices.default)
+def _max_pool(f, node, x, kernel, stride=(), padding=(0, 0),
+              dilation=(1, 1), ceil_mode=False):
+    """A ``reduce_window`` of ``maximum`` from -inf (a deferred -inf pad
+    folded into its padding).  The indices are not computed: the backward
+    selects each window's maximum again, as JAX's does, and any other use
+    of them raises."""
+    _window_ok(node, dilation, ceil_mode=ceil_mode)
+    m = _meta(node)[0]
+    shape, dt = tuple(m.shape), _element(m.dtype)
+    v, low, high = _window_input(f, x, _pair(padding), -math.inf)
+    window, strides, pads = _pool_attrs(kernel, stride, low, high)
+    out = f.region_op(
+        "reduce_window", [v, f.constant(-math.inf, v.dt)],
+        f"base_dilations = array<i64: 1, 1, 1, 1>, {pads}, "
+        f"window_dilations = array<i64: 1, 1, 1, 1>, window_dimensions = "
+        f"array<i64: {', '.join(map(str, window))}>, window_strides = "
+        f"array<i64: {', '.join(map(str, strides))}>", ["maximum"], shape, dt)
+    return [out, None]
+
+
+@_lowers(aten.max_pool2d_with_indices_backward.default)
+def _max_pool_backward(f, node, dy, x, kernel, stride, padding, dilation,
+                       ceil_mode, indices):
+    """JAX's ``select_and_scatter``: each window's first maximum (``GE``)
+    takes the window's output gradient, the others 0, summed where windows
+    overlap.  A folded pad is written out here, and the crop that undoes it
+    is a ``slice``: JAX's text has the same ``pad`` and ``slice``."""
+    _window_ok(node, dilation, ceil_mode=ceil_mode)
+    shape, dt = _out(node)
+    window, strides, pads = _pool_attrs(kernel, stride, _pair(padding),
+                                        _pair(padding))
+    return f.region_op(
+        "select_and_scatter", [f.value(x), f.value(dy), f.constant(0, dt)],
+        f"{pads}, window_dimensions = array<i64: "
+        f"{', '.join(map(str, window))}>, window_strides = array<i64: "
+        f"{', '.join(map(str, strides))}>", ["GE", "add"], shape, dt)
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,8 @@ import torch
 
 from ..device import resolve_device
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-          "int32": torch.int32}
+DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+          "float32": torch.float32, "int32": torch.int32}
 
 
 @dataclass(frozen=True)
@@ -137,7 +137,7 @@ def _to_torch(a, device: torch.device) -> torch.Tensor:
 def params_from_jax(tree, device=None) -> dict:
     """Nested dict of numpy arrays (e.g. ``jax.tree.map(np.asarray, p)``)
     -> the same tree of torch tensors, each leaf in its own dtype bit for
-    bit (bf16 weights, the SSM's f32 ``a_log``).  An optimizer-state tree
+    bit (bf16 weights, ResNet's f16 weights, the SSM's f32 ``a_log``).  An optimizer-state tree
     carries across the same way: the 0-d int32 ``step`` and the f32 moments
     (AdamW's ``m`` and ``v``, Adafactor's ``vr``/``vc``/``v``)."""
     device = resolve_device(device)

@@ -7,7 +7,12 @@ torch and ``repro_torch`` only.  Each rank joins a gloo world through a
 * ``"step"``: the per-rank ``make_train_step`` for two steps from the whole
   parameters and batches in ``inputs.pt``; it saves its shards and rows
   before the first step and every step's flattened outputs;
-* ``"train"``: ``train(run, mesh=...)`` for two steps; it saves the losses.
+* ``"train"``: ``train(run, mesh=...)`` for two steps; it saves the losses;
+* ``"resnet"``: one ResNet rank step (``tests/test_torch_resnet.py``) from
+  the whole parameters and images in ``inputs.pt``, on the rank's rows; it
+  saves the loss, the gradient norm (the step's clip takes it the same way),
+  the loss with batch-norm statistics over the rank's rows only, its new
+  shards and moments, and each leaf's sharded dim.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ def run(rank: int, world: int, store: str, work: str, job: str) -> None:
         from repro_torch.launch.mesh import make_mesh
 
         mesh = make_mesh((world, 1), ("data", "model"), "cpu")
-        out = _step(mesh, work) if job == "step" else _train(mesh, work)
+        out = {"step": _step, "train": _train, "resnet": _resnet}[job](
+            mesh, work)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -70,3 +76,36 @@ def _train(mesh, work: str) -> dict:
     run_cfg = torch.load(os.path.join(work, "run.pt"), weights_only=False)
     res = train(run_cfg, mesh=mesh, num_steps=2, log_every=0)
     return {"losses": res.losses}
+
+
+def _resnet(mesh, work: str) -> dict:
+    from repro_torch.distributed.data_parallel import DataParallel
+    from repro_torch.models import resnet
+    from repro_torch.models.params import shard_params
+    from repro_torch.train.optimizer import adamw_init
+
+    inputs = torch.load(os.path.join(work, "inputs.pt"),
+                        weights_only=False)
+    cfg, opt_cfg = inputs["cfg"], inputs["opt_cfg"]
+    specs = resnet.resnet_specs(cfg)
+    params = shard_params(specs, inputs["params"], mesh)
+    dp = DataParallel(specs, mesh)
+    rows = inputs["images"].shape[0] // dp.size
+    r = mesh.get_local_rank("data")
+    images = inputs["images"][r * rows:(r + 1) * rows]
+    labels = inputs["labels"][r * rows:(r + 1) * rows]
+    whole = dp.gather(params)
+    _, grads = resnet._value_and_grad(cfg, whole, images, labels, dp.group)
+    norm = dp.global_norm(dp.reduce_grads(grads))
+    local_loss, _ = resnet.resnet_forward(cfg, whole, images, labels)
+    step = resnet.make_resnet_train_step(cfg, opt_cfg, mesh=mesh)
+    new, opt, loss = step(params, adamw_init(params, opt_cfg), images,
+                          labels)
+
+    def dims(t):
+        if isinstance(t, dict):
+            return {k: dims(v) for k, v in t.items()}
+        return t[0]
+    return {"loss": loss, "grad_norm": norm, "local_loss": local_loss,
+            "params": new, "m": opt["m"], "v": opt["v"],
+            "dims": dims(dp.dims)}
