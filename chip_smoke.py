@@ -56,12 +56,9 @@ prints no result line):
    device, the linear slicer) with fig6's two estimators, roofline by
    region and per-op with overheads, each beside phase 6's measured
    median step (the ratio is printed, not held); then the port's
-   ``run_campaign`` on ``specs/fig6_gpu.json`` as checked in, exporting on
-   fake ``cuda`` tensors (its 12 raw rows ranking the four systems as the
-   golden's raw rows do, Kendall tau 1.0 per workload), and on
-   ``specs/fig10_gemm.json`` against its golden;
+   ``run_campaign`` on ``specs/fig10_gemm.json`` against its golden;
 10. the per-rank step of a [4, 1] data mesh (llama3-1b, 4 x 2048 in all):
-   (a) its export through ``build_workload`` on fake ``cuda`` tensors
+   (a) its export with the card's configuration on fake ``cuda`` tensors
    in a fake world of 4 (4 partitions, both front ends equal,
    ``dot_general`` FLOPs phase 8's over 4, each collective typed by its
    payload, no launch, no device memory), with the collectives' counts
@@ -69,9 +66,14 @@ prints no result line):
    with fig6's two estimators; (c) the step itself eagerly on the card
    in that fake world (1 x 2048 a rank, 2 warm-up and 6 timed steps:
    median, peak memory, the launches a step, the predicted compute over
-   the median); (d) fig6's 12 optimized rows (Kendall tau 1.0 per
-   workload), ``specs/fig11_tpu.json`` (tau 1.0 per estimator) and
-   ``specs/fig9_scaleout.json`` (printed beside the golden);
+   the median); (d) ``specs/fig6_gpu.json`` (its 12 raw and 12 optimized
+   rows ranking the four systems as the golden's rows of that fidelity
+   do, Kendall tau 1.0 per workload), ``specs/fig11_tpu.json`` (tau 1.0
+   per estimator, each mixed row below its roofline row) and
+   ``specs/fig9_scaleout.json`` (printed beside the golden), all as
+   checked in through the campaign's exports (the reference's chunked
+   attention) on fake ``cuda`` tensors; fig6 and fig9 through the CLI in
+   subprocesses while fig11 runs;
 11. fig7, the data-parallel ResNet step: (a) its four workloads
    (resnet18/34/50/101 at 64 x 224, f16, [4, 1]) exported through
    ``build_workload`` on fake ``cuda`` tensors in a fake world of 4, each
@@ -87,7 +89,27 @@ prints no result line):
    checked in over (a)'s exports, the four step times at Kendall tau 1.0
    against the golden's; (d) ``python -m repro_torch.campaign`` in
    subprocesses: ``validate`` and ``list``, and fig10's ``run`` and
-   ``report --check`` against its golden.
+   ``report --check`` against its golden;
+12. profiling on the card: (a) llama3-1b's train step (4 x 2048, AdamW,
+   the card's configuration with a barrier after each layer, so that the
+   linear slicer cuts it a layer at a time) exported on fake ``cuda``
+   tensors, every region re-emitted and run by the port's executor,
+   captured into a CUDA graph and timed (the ``profiling`` estimator on
+   ``host``, the card): the region count, the sum beside phase 6's
+   measured median step, the largest region, the sum projected onto
+   ``h100`` and ``a100``, ``emit_failures`` (held at 0) and the launches
+   of K1, K1b, K2 and K2b that the regions' eager runs made (each held
+   above 0 and equal to phase 6's launches a step; a graph's capture and
+   replays are not wrapper launches);
+   (b) resnet18's train step (16 x 224, f16, a barrier after each block)
+   the same way, beside phase 11's one-card step; (c) fig10's GEMMs with a
+   ``profiling`` estimator on ``host`` and ``h100`` through ``python -m
+   repro_torch.campaign run --device cuda --cache``, twice: the rerun has
+   100% cache hits and the first run's step times; (d) fig6's llama3-1b
+   workload as checked in, profiled on ``host`` through the same CLI: the
+   campaign's per-rank text, whose attention is the reference's chunked
+   text (no K1 or K1b), its compute beside phase 10's measured per-rank
+   step.
 
 The last lines are one JSON object ``{"kernels": [...]}``, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -103,6 +125,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import torch
@@ -118,12 +141,14 @@ from repro_torch.campaign.builders import (build_estimator,  # noqa: E402
                                            build_topology, build_workload)
 from repro_torch.campaign.report import kendall_tau, load_json  # noqa: E402
 from repro_torch.campaign.spec import (EstimatorSpec,  # noqa: E402
-                                      TopologySpec, WorkloadSpec)
+                                      TopologySpec)
 from repro_torch.core import ir  # noqa: E402
 from repro_torch.core.catalog import default_registry  # noqa: E402
+from repro_torch.core.estimators.profiling import (  # noqa: E402
+    ProfilingEstimator)
 from repro_torch.core.ir.collectives import collect_collectives  # noqa: E402
 from repro_torch.core.pipeline import (PredictionJob,  # noqa: E402
-                                       export_workload)
+                                       build_plan, export_workload)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as k1_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -145,7 +170,8 @@ from repro_torch.models.attention import gqa_forward  # noqa: E402
 from repro_torch.models.common import embed_lookup, rms_norm  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
 from repro_torch.models.resnet import (make_resnet_train_step,  # noqa: E402
-                                       resnet_arch_config, resnet_specs)
+                                       resnet_arch_config, resnet_specs,
+                                       resnet_train_exports)
 from repro_torch.models.ssm import mamba2_forward  # noqa: E402
 from repro_torch.models.transformer import (TransformerLM, _embed,  # noqa: E402
                                             decode_step, init_cache_specs,
@@ -1150,11 +1176,10 @@ PREDICT_ESTIMATORS = {
 FIG6_WORKLOADS = ("llama3-100m", "llama3-500m", "llama3-1b")
 
 
-def predict_on_the_card(workload, step_s: float):
+def predict_on_the_card(workload, step_s: float) -> None:
     """Predict phase 8's train step (one card: ``a2a`` over 1 device, no
-    mesh) beside phase 6's measured median; then fig6 and fig10 through
-    the port's campaign runner, held against their goldens (fig6's raw
-    rows here, its optimized rows in phase 10).  Returns fig6's result."""
+    mesh) beside phase 6's measured median; then fig10 through the port's
+    campaign runner, held against its golden (fig6 runs in phase 10)."""
     system = default_registry().get("h100")
     topology = build_topology(TopologySpec.from_dict(
         {"kind": "a2a", "params": {"num_devices": 1}}), system)
@@ -1176,33 +1201,6 @@ def predict_on_the_card(workload, step_s: float):
             f"prediction {secs:.2f} s")
 
     t0 = time.perf_counter()
-    fig6 = run_campaign(CampaignSpec.from_json(
-        str(ROOT / "specs" / "fig6_gpu.json")), device="cuda")
-    fig6_s = time.perf_counter() - t0
-    errors = [r for r in fig6.rows if "error" in r]
-    if errors or len(fig6.rows) != 24:
-        raise AssertionError(f"fig6: {len(fig6.rows)} rows, expected 24 "
-                             f"without error: {errors[:2]}")
-    raw = [r for r in fig6.rows if r["fidelity"] == "raw"]
-    golden = {(r["workload"], r["system"]): r["step_time_s"]
-              for r in load_json(str(ROOT / "specs" / "golden" /
-                                     "fig6-gpu.json"))["rows"]
-              if r["fidelity"] == "raw"}
-    for name in FIG6_WORKLOADS:
-        rows = [r for r in raw if r["workload"] == name]
-        ours = [r["step_time_s"] for r in rows]
-        theirs = [golden[(name, r["system"])] for r in rows]
-        tau = kendall_tau(ours, theirs)
-        log(f"  fig6 {name} raw, per-op roofline: " + "; ".join(
-            f"{r['system']} {a * 1e3:.2f} ms ({a / b:.4f} of golden)"
-            for r, a, b in zip(rows, ours, theirs)) + f"; tau {tau}")
-        if tau != 1.0:
-            raise AssertionError(f"fig6 {name}: Kendall tau {tau} against "
-                                 "the golden raw rows")
-    log(f"  fig6: {len(raw)} raw rows (its 12 optimized rows: phase 10), "
-        f"{fig6_s:.2f} s for the campaign (both texts of each workload)")
-
-    t0 = time.perf_counter()
     result = run_campaign(CampaignSpec.from_json(
         str(ROOT / "specs" / "fig10_gemm.json")))
     check = check_rows(load_json(str(ROOT / "specs" / "golden" /
@@ -1212,7 +1210,6 @@ def predict_on_the_card(workload, step_s: float):
                              f"{check['failures']}")
     log(f"  fig10: {check['rows_checked']} rows equal to the golden (max "
         f"drift {check['max_drift']}), {time.perf_counter() - t0:.2f} s")
-    return fig6
 
 
 # --------------------------------------------------------------------------
@@ -1223,7 +1220,6 @@ MESH = (4, 1)
 # each rank takes one row of phase 6's 4 x 2048 batch: phase 8's kernel
 # text's dot_general FLOPs over the mesh's 4 ranks, 14,705,968,021,504
 RANK_FLOPS = EXPORT_FLOPS["kernel"] // MESH[0]
-FIG_GRIDS = {"fig11": "fig11_tpu.json", "fig9": "fig9_scaleout.json"}
 
 
 def allocations() -> int:
@@ -1233,20 +1229,24 @@ def allocations() -> int:
 
 
 def mesh_export():
-    """(a) fig6's llama3-1b cell (4 x 2048 on [4, 1]) through the
-    campaign's export on fake ``cuda`` tensors: the global step's raw text
-    and the per-rank text, traced in a fake world of 4.  Holds the
-    per-rank text: 4 partitions, both front ends equal, the FLOPs, every
-    collective typed by its payload (the gathers move the sharded leaves'
-    bf16 bytes, the reduce-scatters their bf16 gradients'), no launch and
-    no device memory."""
-    spec = WorkloadSpec.from_dict({
-        "name": "llama3-1b", "arch": "llama3-1b", "mode": "train",
-        "seq": TRAIN_S, "batch": TRAIN_B, "mesh": list(MESH)})
+    """(a) fig6's llama3-1b cell (4 x 2048 on [4, 1]) exported on fake
+    ``cuda`` tensors with the card's configuration (the kernels, as the
+    rank's step runs them; the campaign's builder exports the reference's
+    chunked attention instead): the global step's raw text and the
+    per-rank text, traced in a fake world of 4.  Holds the per-rank text:
+    4 partitions, both front ends equal, the FLOPs, every collective typed
+    by its payload (the gathers move the sharded leaves' bf16 bytes, the
+    reduce-scatters their bf16 gradients'), no launch and no device
+    memory."""
+    cfg = get_config("llama3-1b")
+    step, args = train_step_exports(cfg, TRAIN_S, TRAIN_B)
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in COUNTERS.items()}
     allocs = allocations()
-    w = build_workload(spec, device="cuda")
+    with traced_mesh(MESH, "cuda") as mesh:
+        w = export_workload(step, *args, name="llama3-1b", device="cuda",
+                            per_rank=(*train_step_exports(
+                                cfg, TRAIN_S, TRAIN_B, mesh), mesh))
     if allocations() != allocs:
         raise AssertionError(f"mesh export: {allocations() - allocs} "
                              "device allocations")
@@ -1323,11 +1323,11 @@ def mesh_predict(w) -> dict:
     return out
 
 
-def rank_step(gen, predicted: dict) -> dict:
+def rank_step(gen, predicted: dict) -> tuple[dict, float]:
     """(c) one rank's step of llama3-1b on [4, 1], eagerly on the card in
     a fake world of 4 (1 x 2048 a rank; AdamW on the shards), with the
     launch counts set to 0 after the warm-up and read after the last
-    step.  Returns the launch counts."""
+    step.  Returns the launch counts and the median step."""
     cfg = get_config("llama3-1b")
     specs = model_specs(cfg)
     opt_cfg = OptimizerConfig(warmup_steps=1)
@@ -1377,23 +1377,30 @@ def rank_step(gen, predicted: dict) -> dict:
         log(f"  predicted compute / measured median, {label}: "
             f"{p.compute_s * 1e3:.2f} / {step_s * 1e3:.2f} = "
             f"{p.compute_s / step_s:.4f} (a finding, not held)")
-    return launches
+    return launches, step_s
 
 
-def mesh_campaigns(fig6) -> None:
-    """(d) fig6's optimized rows (phase 9's campaign), fig11 and fig9 as
-    checked in, exported on fake ``cuda`` tensors: per fig6 workload the
-    four systems, and per fig11 estimator the four workloads, rank as the
-    golden's optimized rows do; fig9's two optimized rows are printed
-    beside the golden's."""
+CLI_GRIDS = ("fig6_gpu.json", "fig9_scaleout.json")
+
+
+def mesh_campaigns() -> None:
+    """(d) fig6, fig11 and fig9 as checked in, exported by the campaign on
+    fake ``cuda`` tensors: per fig6 workload and fidelity the four
+    systems, and per fig11 estimator the four workloads, rank as the
+    golden's rows of that fidelity do, and each fig11 mixed row lies below
+    its roofline row; fig9's rows are printed beside the golden's.  fig6
+    and fig9 run through the CLI in subprocesses while fig11 runs here:
+    each is its exports' host work (llama2-7b's four traces take about
+    four minutes), and nothing in any of them is timed."""
     def golden(name):
-        return {(r["workload"], r["system"], r["estimator"]): r for r in
-                load_json(str(ROOT / "specs" / "golden" / name))["rows"]}
+        return {(r["workload"], r["system"], r["estimator"], r["fidelity"]):
+                r for r in load_json(str(ROOT / "specs" / "golden" /
+                                         name.replace("_", "-")))["rows"]}
 
     def held(rows, gold, label):
         ours = [r["step_time_s"] for r in rows]
-        theirs = [gold[(r["workload"], r["system"], r["estimator"])]
-                  ["step_time_s"] for r in rows]
+        theirs = [gold[(r["workload"], r["system"], r["estimator"],
+                        r["fidelity"])]["step_time_s"] for r in rows]
         tau = kendall_tau(ours, theirs)
         log(f"  {label}: " + "; ".join(
             f"{r['workload']}/{r['system']} {a * 1e3:.2f} ms "
@@ -1402,46 +1409,76 @@ def mesh_campaigns(fig6) -> None:
         if tau != 1.0:
             raise AssertionError(f"{label}: Kendall tau {tau}")
 
-    gold = golden("fig6-gpu.json")
-    for name in FIG6_WORKLOADS:
-        held([r for r in fig6.rows if r["workload"] == name
-              and r["fidelity"] == "optimized"], gold,
-             f"fig6 {name} optimized, roofline")
-    for fig, path in FIG_GRIDS.items():
+    grids = {}
+    with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        result = run_campaign(CampaignSpec.from_json(
-            str(ROOT / "specs" / path)), device="cuda")
-        secs = time.perf_counter() - t0
-        errors = [r for r in result.rows if "error" in r]
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.campaign", "run",
+             str(ROOT / "specs" / name), "--device", "cuda", "--executor",
+             "serial", "--out", os.path.join(tmp, name), "--quiet"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name in CLI_GRIDS}
+        try:
+            grids["fig11_tpu.json"] = run_campaign(CampaignSpec.from_json(
+                str(ROOT / "specs" / "fig11_tpu.json")), device="cuda").rows
+            log(f"  fig11: {time.perf_counter() - t0:.2f} s")
+            for name, proc in procs.items():
+                out, _ = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise AssertionError(f"{name} CLI: rc "
+                                         f"{proc.returncode}\n{out}")
+                grids[name] = [json.loads(line) for line in Path(
+                    tmp, name, "results.jsonl").read_text().splitlines()]
+                log(f"  {name} through the CLI: "
+                    f"{time.perf_counter() - t0:.2f} s")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    for name, rows in grids.items():
+        errors = [r for r in rows if "error" in r]
         if errors:
-            raise AssertionError(f"{fig}: error rows {errors[:2]}")
-        gold = golden(path.replace("_", "-"))
-        if fig == "fig11":
-            by_est = {}
-            for est in sorted({r["estimator"] for r in result.rows}):
-                by_est[est] = [r for r in result.rows if r["estimator"] == est]
-                held(by_est[est], gold, f"fig11 {est}")
-            steps = {tuple(r["step_time_s"] for r in rows)
-                     for rows in by_est.values()}
-            if len(steps) == 1:
-                log("  fig11: the mixed rows equal the roofline rows, so "
-                    "their tau is no second witness: systolic's matmul "
-                    "share does not follow `call` callees (K1's and K1b's "
-                    "products), no region reaches its 90%, and each falls "
-                    "back to roofline (ROADMAP Queue 3; "
-                    "tools/systolic_share.py)")
-        else:
-            for r in result.rows:
-                g = gold[(r["workload"], r["system"], r["estimator"])]
-                log(f"  fig9 {r['workload']} {r['estimator']} "
-                    f"({r['fidelity']}): {r['step_time_s']:.4f} s (compute "
-                    f"{r['compute_s']:.4f}, communication "
-                    f"{r['comm_s']:.4f}, {r['num_segments']} segments); "
-                    f"golden {g['step_time_s']:.4f} s (compute "
-                    f"{g['compute_s']:.4f}, communication "
-                    f"{g['comm_s']:.4f}, {g['num_segments']} segments); "
-                    f"{r['step_time_s'] / g['step_time_s']:.4f}")
-        log(f"  {fig}: {len(result.rows)} rows, {secs:.2f} s")
+            raise AssertionError(f"{name}: error rows {errors[:2]}")
+    fig6 = grids["fig6_gpu.json"]
+    if len(fig6) != 24:
+        raise AssertionError(f"fig6: {len(fig6)} rows, expected 24")
+    gold = golden("fig6_gpu.json")
+    for fidelity in ("raw", "optimized"):
+        for name in FIG6_WORKLOADS:
+            held(sorted((r for r in fig6 if r["workload"] == name
+                         and r["fidelity"] == fidelity),
+                        key=lambda r: r["job_id"]), gold,
+                 f"fig6 {name} {fidelity}")
+    gold = golden("fig11_tpu.json")
+    by_est = {}
+    fig11 = grids["fig11_tpu.json"]
+    for est in sorted({r["estimator"] for r in fig11}):
+        by_est[est] = [r for r in fig11 if r["estimator"] == est]
+        held(by_est[est], gold, f"fig11 {est}")
+    # the campaign's chunked text keeps the attention's products inline,
+    # where the systolic model sees them: each mixed row lies below its
+    # roofline row (a second witness to the ranks)
+    roof = {r["workload"]: r["step_time_s"] for r in by_est["roofline"]}
+    for r in by_est["mixed-cocossim"]:
+        ratio = r["step_time_s"] / roof[r["workload"]]
+        log(f"  fig11 {r['workload']}: mixed / roofline {ratio:.4f}")
+        if not ratio < 1.0:
+            raise AssertionError(f"fig11 {r['workload']}: mixed "
+                                 f"{ratio:.4f} of roofline")
+    gold = golden("fig9_scaleout.json")
+    for r in sorted(grids["fig9_scaleout.json"], key=lambda r: r["job_id"]):
+        g = gold[(r["workload"], r["system"], r["estimator"],
+                  r["fidelity"])]
+        log(f"  fig9 {r['workload']} {r['estimator']} "
+            f"({r['fidelity']}): {r['step_time_s']:.4f} s (compute "
+            f"{r['compute_s']:.4f}, communication "
+            f"{r['comm_s']:.4f}, {r['num_segments']} segments); "
+            f"golden {g['step_time_s']:.4f} s (compute "
+            f"{g['compute_s']:.4f}, communication "
+            f"{g['comm_s']:.4f}, {g['num_segments']} segments); "
+            f"{r['step_time_s'] / g['step_time_s']:.4f}")
 
 
 # --------------------------------------------------------------------------
@@ -1556,11 +1593,13 @@ def fig7_rank_steps(gen, workloads: dict) -> dict:
     and the values are not the point.  Then the same model trains on the
     rank's 16 images as one card's step (no mesh), each step on the last
     one's parameters.  Both hold a finite loss on every step.  Returns the
-    launch counts of the port's kernels (neither path runs one)."""
+    launch counts of the port's kernels (neither path runs one) and each
+    model's one-card median step."""
     system = default_registry().get("h100")
     topology = build_topology(TopologySpec.from_dict(
         {"kind": "auto", "params": {"num_devices": MESH[0]}}), system)
     launches = {k: 0 for k in COUNTERS}
+    one_card = {}
     for name, w in workloads.items():
         cfg = resnet_arch_config(name)
         specs = resnet_specs(cfg)
@@ -1596,6 +1635,8 @@ def fig7_rank_steps(gen, workloads: dict) -> dict:
                 + f" ms), {RESNET_RANK_B / step_s:.1f} images/s, peak "
                 f"memory {peak / 2**30:.2f} GiB; losses "
                 + ", ".join(f"{x:.4f}" for x in losses))
+        one_card[name] = statistics.median(runs["one card"][0][
+            RESNET_WARMUP:])
         step_s = statistics.median(runs["rank"][0][RESNET_WARMUP:])
         program = w.program("optimized")
         for label, est in PREDICT_ESTIMATORS.items():
@@ -1611,7 +1652,7 @@ def fig7_rank_steps(gen, workloads: dict) -> dict:
     if any(launches.values()):
         raise AssertionError(f"fig7 rank steps launched {launches}: no "
                              "kernel of the port lies on this path")
-    return launches
+    return launches, one_card
 
 
 def fig7_campaign(workloads: dict) -> None:
@@ -1672,15 +1713,194 @@ def campaign_cli() -> None:
             raise AssertionError(f"fig10 report: {proc.stdout}")
 
 
-def fig7_phase(gen) -> dict:
-    """Phase 11, (a) to (d).  Returns (b)'s launch counts."""
+def fig7_phase(gen) -> tuple[dict, dict]:
+    """Phase 11, (a) to (d).  Returns (b)'s launch counts and one-card
+    median steps."""
     t0 = time.perf_counter()
     workloads = fig7_export()
     log(f"  (a) {time.perf_counter() - t0:.1f} s")
-    launches = fig7_rank_steps(gen, workloads)
+    launches, one_card = fig7_rank_steps(gen, workloads)
     fig7_campaign(workloads)
     campaign_cli()
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    return launches, one_card
+
+
+# --------------------------------------------------------------------------
+# phase 12: profiling on the card
+# --------------------------------------------------------------------------
+
+PROFILE_RUNS = 3
+PROFILE_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                   "rmsnorm_bwd")
+# fig10's GEMMs, profiled on the card (host) and projected onto h100
+PROFILE_FIG10 = {"name": "fig10-profiling", "systems": ["host", "h100"],
+                 "estimators": [{"kind": "profiling"}]}
+# fig6's llama3-1b workload as checked in, profiled on the card (host)
+PROFILE_FIG6 = {"name": "fig6-profiling", "systems": ["host"],
+                "estimators": [{"kind": "profiling"}]}
+
+
+def profile_regions(label: str, w, measured_s: float, smi: str) -> tuple:
+    """Profile every compute region of ``w``'s raw text on ``host`` (the
+    card) with the port's profiling estimator: each region re-emitted,
+    run by the port's executor, captured into a CUDA graph and timed over
+    PROFILE_RUNS replays.  Prints the region count, the sum beside
+    ``measured_s`` (the same run's measured step), the largest region, the
+    sum projected onto ``h100`` and ``a100``, and the kernels' launches
+    (those of each region's eager run: a capture records the kernels
+    uncounted, and a replay relaunches them without the wrappers).  Holds
+    ``emit_failures == 0``.  Returns the launch counts and the sum."""
+    plan = build_plan(w.program("raw"), name=label, calls=w.calls("raw"))
+    regions = plan.compute_regions
+    est = ProfilingEstimator(program=plan.program, calls=plan.calls,
+                             runs=PROFILE_RUNS, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # ---- the main path: counts at 0 just before, read after ----
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    times = est.get_run_time_estimates(regions)
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    # ---- end of the main path ----
+    secs = time.perf_counter() - t0
+    if est.emit_failures:
+        raise AssertionError(f"profile {label}: {est.emit_failures} "
+                             "regions fell back to roofline")
+    total = sum(times)
+    big = max(range(len(times)), key=times.__getitem__)
+    log(f"  {label}: {len(regions)} regions profiled on {est.system.name} "
+        f"({smi}) in {secs:.1f} s, emit_failures {est.emit_failures}; sum "
+        f"{total * 1e3:.3f} ms beside the measured step "
+        f"{measured_s * 1e3:.3f} ms: {total / measured_s:.4f} (a finding, "
+        f"not held); largest region {big} {times[big] * 1e3:.3f} ms "
+        f"({len(regions[big].ops)} ops); launches {launches}")
+    log(f"  {label} regions, ms in order: "
+        + ", ".join(f"{t * 1e3:.3f}" for t in times))
+    for sid in ("h100", "a100"):
+        target = ProfilingEstimator(system=est.system, program=plan.program,
+                                    target_system=default_registry().get(sid),
+                                    device="cuda")
+        projected = sum(target._project(r, t) for r, t in zip(regions, times))
+        log(f"  {label} projected onto {sid}: {projected * 1e3:.3f} ms")
+    return launches, total
+
+
+def campaign_profiling(spec: dict, tmp: str, out: str,
+                       cache: str | None = None) -> tuple[dict, dict]:
+    """Run ``spec`` through ``python -m repro_torch.campaign run --device
+    cuda`` (with ``--cache`` when given) into ``out``; returns its rows by
+    job id and its summary, and raises on a non-zero exit or an error
+    row."""
+    path = os.path.join(tmp, f"{spec['name']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    args = [sys.executable, "-m", "repro_torch.campaign", "run", path,
+            "--device", "cuda", "--executor", "serial", "--out", out,
+            "--quiet"]
+    if cache:
+        args += ["--cache", cache]
+    proc = subprocess.run(
+        args, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"{spec['name']}: rc {proc.returncode}\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    rows = {r["job_id"]: r for r in map(
+        json.loads, Path(out, "results.jsonl").read_text().splitlines())}
+    if any("error" in r for r in rows.values()):
+        raise AssertionError(f"{spec['name']}: error rows {rows}")
+    return rows, json.loads(Path(out, "summary.json").read_text())
+
+
+def profile_fig10(smi: str) -> None:
+    """(c) fig10's GEMMs with a ``profiling`` estimator on ``host`` and
+    ``h100`` through ``python -m repro_torch.campaign run --device cuda
+    --cache``, twice: the second run reads every latency from the cache
+    (100% hits, no miss) and gives identical step times."""
+    spec = json.loads((ROOT / "specs" / "fig10_gemm.json").read_text())
+    spec.update(PROFILE_FIG10)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            rows, summary = campaign_profiling(
+                spec, tmp, os.path.join(tmp, f"run{i}"),
+                os.path.join(tmp, "hcr.jsonl"))
+            cache = summary["cache"]
+            runs.append(rows)
+            log(f"  fig10 profiling run {i}: rc 0, "
+                f"{time.perf_counter() - t0:.1f} s, {len(rows)} rows, cache "
+                f"{cache['hits']} hits, {cache['misses']} misses; " + "; ".join(
+                    f"{r['workload']}/{r['system']} "
+                    f"{r['step_time_s'] * 1e3:.4f} ms"
+                    for r in sorted(rows.values(),
+                                    key=lambda r: r["job_id"])))
+        if not (cache["misses"] == 0 and cache["hit_rate"] == 1.0):
+            raise AssertionError(f"fig10 profiling rerun: cache {cache}")
+        if {k: r["step_time_s"] for k, r in runs[0].items()} != \
+                {k: r["step_time_s"] for k, r in runs[1].items()}:
+            raise AssertionError("fig10 profiling rerun: step times differ")
+    log(f"  fig10 profiling on {smi}: the rerun's rows are the first run's")
+
+
+def profile_fig6(rank_s: float, kernel_ratio: float, smi: str) -> None:
+    """(d) fig6's llama3-1b workload as checked in, with a ``profiling``
+    estimator on ``host`` through ``python -m repro_torch.campaign run
+    --device cuda``: the campaign's own export, at its default fidelity
+    the per-rank text of [4, 1] (1 x 2048 a rank), whose attention is the
+    reference's chunked text, with no K1 or K1b call.  Prints its profiled
+    compute beside phase 10's measured per-rank step (which runs K1 and
+    K1b) and beside (a)'s ratio for the kernel text."""
+    spec = json.loads((ROOT / "specs" / "fig6_gpu.json").read_text())
+    spec.update(PROFILE_FIG6)
+    spec["workloads"] = [w for w in spec["workloads"]
+                         if w["name"] == "llama3-1b"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rows, _ = campaign_profiling(spec, tmp, os.path.join(tmp, "out"))
+    (row,) = rows.values()
+    log(f"  fig6 llama3-1b profiled through the campaign on {smi} "
+        f"({row['fidelity']} text, {row['toolchain']}, chunked attention): "
+        f"{time.perf_counter() - t0:.1f} s, compute "
+        f"{row['compute_s'] * 1e3:.3f} ms over {row['num_segments']} "
+        f"segments, step {row['step_time_s'] * 1e3:.3f} ms; compute beside "
+        f"phase 10's measured per-rank step {rank_s * 1e3:.3f} ms: "
+        f"{row['compute_s'] / rank_s:.4f}, where (a)'s kernel text gave "
+        f"{kernel_ratio:.4f} of phase 6's step (findings, not held)")
+
+
+def profiling_phase(train_launches: dict, step_s: float, rank_s: float,
+                    resnet_s: float, smi: str) -> dict:
+    """Phase 12, (a) to (d).  Returns (a)'s launch counts, held equal to
+    phase 6's launches a step: each region's eager run launches each
+    operator of the text once."""
+    t0 = time.perf_counter()
+    cfg = get_config("llama3-1b").scaled(scan_layers=False,
+                                         layer_barriers=True)
+    step, args = train_step_exports(cfg, TRAIN_S, TRAIN_B)
+    w = export_workload(step, *args, name="llama3-1b-barriers",
+                        device="cuda")
+    log(f"  (a) llama3-1b 4x2048 with a barrier after each layer: trace "
+        f"{w.meta['trace_s']:.2f} s, operator nodes {w.meta['kernel_ops']}")
+    launches, total = profile_regions("llama3-1b train step", w, step_s,
+                                      smi)
+    missing = [k for k in PROFILE_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"profile: the executor launched no {missing}")
+    per_step = {k: n / TRAIN_STEPS for k, n in train_launches.items()}
+    if launches != per_step:
+        raise AssertionError(f"profile: launches {launches}, expected "
+                             f"phase 6's a step {per_step}")
+    rcfg = replace(resnet_arch_config("resnet18"), block_barriers=True)
+    step, args = resnet_train_exports(rcfg, RESNET_RANK_B, RESNET_IMG)
+    w = export_workload(step, *args, name="resnet18-barriers", device="cuda")
+    log(f"  (b) resnet18 16x224 f16 with a barrier after each block: "
+        f"trace {w.meta['trace_s']:.2f} s")
+    profile_regions("resnet18 train step", w, resnet_s, smi)
+    profile_fig10(smi)
+    profile_fig6(rank_s, total / step_s, smi)
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1808,13 +2028,18 @@ def main() -> int:
     log("[8] export on the card")
     exported = export_on_the_card(train_launches)
     log("[9] predict on the card")
-    fig6 = predict_on_the_card(exported, step_s)
+    predict_on_the_card(exported, step_s)
     log("[10] the per-rank step of a [4, 1] data mesh")
     predicted = mesh_predict(mesh_export())
-    runs.append(rank_step(gen, predicted))
-    mesh_campaigns(fig6)
+    rank_launches, rank_s = rank_step(gen, predicted)
+    runs.append(rank_launches)
+    mesh_campaigns()
     log("[11] fig7: the data-parallel ResNet step")
-    runs.append(fig7_phase(gen))
+    launches, one_card = fig7_phase(gen)
+    runs.append(launches)
+    log("[12] profiling on the card")
+    runs.append(profiling_phase(train_launches, step_s, rank_s,
+                                one_card["resnet18"], smi))
     # launches on the main paths: K1 and K2 run on two, three or four
     for entry in (k1, k2, k3, k1b, k2b):
         key = entry["name"]

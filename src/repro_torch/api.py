@@ -30,8 +30,11 @@ Where the port differs from the reference's facade:
   per-rank step as the optimized text;
 * :meth:`Session.search` raises ``NotImplementedError``: the what-if search
   is not ported yet;
-* ``host_system`` is not exported, and the catalog id ``host`` raises
-  (:data:`repro_torch.core.systems.HOST_PENDING`).
+* the catalog id ``host`` (:func:`host_system`) is the calibrated card
+  that the ``profiling`` estimator measures on, not the host CPU; the
+  verbs that measure (:meth:`Session.predict`, :meth:`Session.campaign`,
+  :meth:`Session.get_system` for ``host``) take a ``device``, the CPU only
+  when asked.
 
 This module imports only the registries and the catalog at load time;
 numpy and torch are pulled in by the methods that need them.
@@ -43,11 +46,11 @@ import os
 from .core.catalog import SystemRegistry, default_registry
 from .core.registry import (ESTIMATORS, TOPOLOGIES, BuildContext, Registry,
                             register_estimator, register_topology)
-from .core.systems import Interconnect, System
+from .core.systems import Interconnect, System, host_system
 
 __all__ = [
     "Session", "System", "Interconnect", "SystemRegistry", "Registry",
-    "register_estimator", "register_topology", "load_spec",
+    "register_estimator", "register_topology", "host_system", "load_spec",
 ]
 
 #: why :meth:`Session.search` raises
@@ -96,8 +99,10 @@ class Session:
         """Load a catalog file or directory; returns the new ids."""
         return self.systems.load_path(path)
 
-    def get_system(self, name: str) -> System:
-        return self.systems.get(name)
+    def get_system(self, name: str, device=None) -> System:
+        """A catalog system, or for ``host`` the calibrated host on
+        ``device`` (None: the card)."""
+        return self.systems.get(name, device)
 
     # --------------------------- cache store ---------------------------
 
@@ -162,17 +167,20 @@ class Session:
         fidelity = fidelity or (
             "optimized" if workload.hlo_text else "raw")
         return build_plan(workload.program(fidelity), slicer=slicer,
-                          name=workload.name, fidelity=fidelity)
+                          name=workload.name, fidelity=fidelity,
+                          calls=workload.calls(fidelity))
 
     def predict(self, workload, *, system="a100", estimator="roofline",
                 options: dict | None = None, fidelity: str | None = None,
                 slicer: str = "linear", topology="auto",
                 topology_params: dict | None = None, overlap: bool = False,
                 straggler_factor: float = 1.0, compression: float = 1.0,
-                use_cache: bool = True):
+                use_cache: bool = True, device=None):
         """One grid point: cost ``workload`` (a Workload or a prebuilt
         PredictionPlan) on ``system`` with ``estimator`` over
-        ``topology``, all resolved through the session's registries.
+        ``topology``, all resolved through the session's registries;
+        ``device`` is where a ``profiling`` estimator runs and what
+        ``host`` is (None: the card).
 
         ``system`` is a catalog id or a :class:`System`; ``estimator`` a
         registered kind name (with ``options``), an EstimatorSpec, or a
@@ -187,7 +195,7 @@ class Session:
         if isinstance(system, System):
             sysm, system_name = system, system.name
         else:
-            sysm, system_name = self.systems.get(system), system
+            sysm, system_name = self.get_system(system, device), system
 
         if isinstance(workload, PredictionPlan):
             plan = workload
@@ -195,9 +203,9 @@ class Session:
             plan = self.plan(workload, slicer=slicer, fidelity=fidelity)
 
         context = BuildContext(
-            system_name=system_name, program=plan.program,
-            estimators=self.estimators, topologies=self.topologies,
-            systems=self.systems)
+            system_name=system_name, program=plan.program, calls=plan.calls,
+            device=device, estimators=self.estimators,
+            topologies=self.topologies, systems=self.systems)
         if isinstance(estimator, str):
             estimator = EstimatorSpec(
                 kind=estimator,
@@ -241,7 +249,9 @@ class Session:
         ``spec`` is a CampaignSpec, a spec dict, or a path to a spec JSON;
         everything else mirrors
         :func:`repro_torch.campaign.runner.run_campaign`, whose arch
-        workloads are traced on ``device`` (None: the card).  The session's
+        workloads are traced, and whose ``profiling`` estimators and
+        ``host`` system measure, on ``device`` (None: the card).  The
+        session's
         :attr:`cache_store` and :attr:`plan_store` back the run unless
         ``cache_path`` redirects it to another store file."""
         from .campaign.runner import run_campaign

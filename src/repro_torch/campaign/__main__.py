@@ -26,10 +26,12 @@ references, Kendall-tau/Spearman rank preservation, fidelity tables);
 Where the port differs from the reference's CLI:
 
 * an ``arch`` workload is traced on fake tensors on ``--device`` (default:
-  the card), resolved only when a workload is exported: ``validate``,
-  ``list`` and framework-free grids (fig10's GEMMs) run without a card, and
-  an arch export without a card and without ``--device cpu`` raises.  No
-  device count is preset: a mesh's fake world takes any size;
+  the card), resolved only when a workload is exported or measured:
+  ``validate``, ``list`` and framework-free grids (fig10's GEMMs) run
+  without a card, and an arch export without a card and without
+  ``--device cpu`` raises.  The ``profiling`` estimator runs each region,
+  and the ``host`` system is calibrated, on the same device.  No device
+  count is preset: a mesh's fake world takes any size;
 * ``--server`` (the ``serve`` daemon) and search specs (``ladder`` or
   ``objectives``) raise ``NotImplementedError``: neither is ported yet;
 * ``report --update-golden`` writes the new golden snapshot (and, when the
@@ -292,8 +294,9 @@ def main(argv: list[str] | None = None) -> int:
                         help="suppress per-job progress lines")
         ap.add_argument("--device", default=None,
                         help="device whose fake tensors an arch workload "
-                             "is traced on (default: the card; 'cpu' "
-                             "only when asked)")
+                             "is traced on, and that the profiling "
+                             "estimator and the 'host' system measure "
+                             "(default: the card; 'cpu' only when asked)")
     if command == "run":
         ap.add_argument("--out", default="artifacts/campaign",
                         help="output directory for results.jsonl/csv + "

@@ -20,7 +20,12 @@ export: :func:`repro_torch.train.loop.train_step_exports` (or
 :func:`repro_torch.models.resnet.resnet_train_exports`) traced by
 :func:`repro_torch.core.pipeline.export_workload` on fake tensors on
 ``device`` (None: the card), with the arch's config as the port registers
-it (``attn_impl="kernel"``, what the card runs).  The
+it but for its attention: ``attn_impl="chunked"``, the reference's default
+and what its campaign exports, so that the attention's products are in
+the text itself, where the systolic model and per-op roofline see them.
+(The card's configuration, ``"kernel"``, writes K1 and K1b as ``call``s
+of private functions, which neither estimator follows; K2 and K2b are
+``call``s in both, since their operator is always used.)  The
 raw text is the global step, which is what the reference's raw text of a
 sharded ``jit`` computes.  With a mesh (recorded in
 ``Workload.meta["mesh"]``) the optimized text is the per-rank program of
@@ -64,9 +69,11 @@ def build_topology(spec: TopologySpec, system: System, *,
     return reg.get(spec.kind).from_spec(spec.params_dict, system, context)
 
 
-def build_system(name: str,
-                 registry: SystemRegistry | None = None) -> System:
-    return (registry or default_registry()).get(name)
+def build_system(name: str, registry: SystemRegistry | None = None, *,
+                 device=None) -> System:
+    """A catalog system, or for ``host`` the calibrated host on
+    ``device`` (None: the card)."""
+    return (registry or default_registry()).get(name, device)
 
 
 def build_workload(spec: WorkloadSpec, *, device=None) -> Workload:
@@ -371,7 +378,7 @@ def _export_from_arch(spec: WorkloadSpec, device=None) -> Workload:
         from ..models.registry import get_config
         from ..train.loop import forward_exports, train_step_exports
 
-        cfg = get_config(spec.arch)
+        cfg = get_config(spec.arch).scaled(attn_impl="chunked")
         if spec.mesh is not None and spec.mode != "train":
             raise NotImplementedError(
                 f"workload {spec.name!r}: a {spec.mode!r} workload with a "

@@ -33,7 +33,10 @@ PlanKey = tuple
 class PlanStore:
     """Memoizing plan builder for one campaign's workload texts.
 
-    ``texts`` maps workload name -> ``{"raw": ..., "optimized": ...}``.
+    ``texts`` maps workload name -> ``{"raw": ..., "optimized": ...}``,
+    and optionally ``"calls": {"raw": ..., "optimized": ...}``, each text's
+    ``call`` table (:meth:`~repro_torch.core.pipeline.Workload.calls`),
+    which its plans carry.
     ``get`` parses at most once per (workload, fidelity) and slices at
     most once per full key, under a lock so concurrent first jobs of a
     thread campaign cannot duplicate the work.  ``parse_count`` /
@@ -84,9 +87,10 @@ class PlanStore:
         with self._lock:
             plan = self._plans.get(key)
             if plan is None:
-                plan = build_plan(self._program_locked(workload, fidelity),
-                                  slicer=slicer, name=workload,
-                                  fidelity=fidelity)
+                plan = build_plan(
+                    self._program_locked(workload, fidelity), slicer=slicer,
+                    name=workload, fidelity=fidelity,
+                    calls=self.texts[workload].get("calls", {}).get(fidelity))
                 self.plans_built += 1
                 self._plans[key] = plan
         return plan

@@ -38,9 +38,11 @@ campaign keeps everything completed so far), then consolidate into
 
 The port's copy of the reference's ``campaign/runner.py``.  Its
 differences: workloads that need an export are traced on fake tensors on
-``run_campaign``'s ``device`` (None: the card), and a job whose fidelity
-the workload has no text for is a ``plan`` error row (the reference
-costs the raw text instead; see ``campaign/plans.py``).  ``session`` is
+``run_campaign``'s ``device`` (None: the card), which is also where the
+``profiling`` estimator runs each region (with each text's ``call``
+table, carried by its plan) and what the ``host`` system is; and a job
+whose fidelity the workload has no text for is a ``plan`` error row (the
+reference costs the raw text instead; see ``campaign/plans.py``).  ``session`` is
 a :class:`repro_torch.api.Session`, or any object with the same
 ``estimators``/``topologies``/``systems`` registries.
 """
@@ -58,7 +60,8 @@ from dataclasses import dataclass, field
 
 from ..core.catalog import SystemRegistry, default_registry
 from ..core.estimators.cache import PersistentCache
-from ..core.pipeline import PredictionJob, PredictionPlan, Workload
+from ..core.pipeline import (FIDELITIES, PredictionJob, PredictionPlan,
+                             Workload)
 from ..core.registry import ESTIMATORS, TOPOLOGIES, BuildContext
 from ..serve import faults
 from .builders import (build_estimator, build_system, build_topology,
@@ -77,21 +80,27 @@ SCHEDULES = ("locality", "grid")
 class _Registries:
     """The registry set one campaign's jobs build against — a session's
     scoped registries (plugin kinds, user catalogs) or the globals —
-    plus the spec file's base dir for backend-relative paths."""
+    plus the spec file's base dir for backend-relative paths and the
+    device a measuring backend (profiling, the ``host`` system) runs on
+    (None: the card)."""
     estimators: object = None           # core.registry.Registry
     topologies: object = None
     systems: SystemRegistry | None = None
     base_dir: str | None = None
+    device: str | None = None
 
     @classmethod
-    def for_session(cls, session, spec: CampaignSpec) -> "_Registries":
+    def for_session(cls, session, spec: CampaignSpec,
+                    device=None) -> "_Registries":
         return cls(
             estimators=getattr(session, "estimators", None),
             topologies=getattr(session, "topologies", None),
             systems=spec.system_registry(getattr(session, "systems", None)),
-            base_dir=spec.base_dir)
+            base_dir=spec.base_dir,
+            device=None if device is None else str(device))
 
-    def local_entries(self) -> tuple[dict, dict, dict, str | None]:
+    def local_entries(self) -> tuple[dict, dict, dict, str | None,
+                                     str | None]:
         """The non-global registrations, as picklable maps — what ships
         to process-pool workers so they can rebuild the same scope.
         (Classes pickle by reference: a plugin class must be importable
@@ -116,16 +125,17 @@ class _Registries:
             reg = reg.parent
         for r in reversed(chain):       # outermost scope wins
             sysd.update(r.local_systems())
-        return est, topo, sysd, self.base_dir
+        return est, topo, sysd, self.base_dir, self.device
 
     @classmethod
     def from_local_entries(cls, est: dict, topo: dict, sysd: dict,
-                           base_dir: str | None = None) -> "_Registries":
+                           base_dir: str | None = None,
+                           device: str | None = None) -> "_Registries":
         """Rebuild a worker-side scope from shipped maps."""
         regs = cls(estimators=ESTIMATORS.scope(),
                    topologies=TOPOLOGIES.scope(),
                    systems=default_registry().scope(),
-                   base_dir=base_dir)
+                   base_dir=base_dir, device=device)
         for kind, c in est.items():
             regs.estimators.register(kind, c, replace=True)
         for kind, c in topo.items():
@@ -134,12 +144,13 @@ class _Registries:
             regs.systems.register(sid, s, source="<session>", replace=True)
         return regs
 
-    def context(self, *, system_name: str = "",
-                program=None) -> "BuildContext":
+    def context(self, *, system_name: str = "", program=None,
+                calls=None) -> "BuildContext":
         return BuildContext(
-            system_name=system_name, program=program,
-            estimators=self.estimators, topologies=self.topologies,
-            systems=self.systems, base_dir=self.base_dir)
+            system_name=system_name, program=program, calls=calls,
+            device=self.device, estimators=self.estimators,
+            topologies=self.topologies, systems=self.systems,
+            base_dir=self.base_dir)
 
 
 #: stable error-row classification (satellite: error taxonomy).
@@ -170,8 +181,10 @@ def _execute(job: JobSpec, plan: PredictionPlan, store,
         faults.trip("evaluate", workload=job.workload, system=job.system,
                     estimator=job.estimator.kind)
     regs = regs or _Registries()
-    system = build_system(job.system, registry=regs.systems)
-    ctx = regs.context(system_name=job.system, program=plan.program)
+    system = build_system(job.system, registry=regs.systems,
+                          device=regs.device)
+    ctx = regs.context(system_name=job.system, program=plan.program,
+                       calls=plan.calls)
     estimator = build_estimator(job.estimator, system,
                                 registry=regs.estimators, context=ctx)
     topology = build_topology(job.topology, system,
@@ -338,7 +351,8 @@ def _match_resume_rows(jobs: list[JobSpec], resume_rows: list[dict]
 def _workload_texts(spec: CampaignSpec,
                     workloads: dict[str, Workload] | None,
                     only: set[str] | None = None, device=None) -> dict:
-    """name -> {"raw": stablehlo, "optimized": hlo} for every grid workload.
+    """name -> {"raw": stablehlo, "optimized": hlo, "calls": {fidelity:
+    call table}} for every grid workload.
 
     In-memory ``workloads`` take precedence; anything else is materialized
     from its spec (file read, synthesis, or the port's export on fake
@@ -354,7 +368,8 @@ def _workload_texts(spec: CampaignSpec,
         if w is None:
             w = build_workload(wspec, device=device)
         texts[wspec.name] = {"raw": w.stablehlo_text,
-                             "optimized": w.hlo_text}
+                             "optimized": w.hlo_text,
+                             "calls": {f: w.calls(f) for f in FIDELITIES}}
     return texts
 
 
@@ -427,7 +442,8 @@ def run_campaign(spec: CampaignSpec, *,
     ``workloads`` supplies in-memory :class:`Workload` objects by name
     (anything else is materialized from its spec — file read, synthesis,
     or the port's export traced on fake tensors on ``device``, None for
-    the card).  Every ``(workload, fidelity, slicer)``
+    the card; the ``profiling`` estimator and the ``host`` system measure
+    on ``device`` too).  Every ``(workload, fidelity, slicer)``
     is parsed + sliced once into a shared plan; ``schedule`` orders the
     jobs over those plans (``locality`` default, ``grid`` legacy).
     ``cache_path`` points every job — and, under the process executor,
@@ -465,7 +481,7 @@ def run_campaign(spec: CampaignSpec, *,
         raise ValueError(f"schedule {schedule!r} not in {SCHEDULES}")
     t0 = time.perf_counter()
     spec.validate(provided=set(workloads or {}), session=session)
-    regs = _Registries.for_session(session, spec)
+    regs = _Registries.for_session(session, spec, device)
     jobs = spec.expand()
     resumed: dict[int, dict] = {}
     resume_report: dict | None = None

@@ -10,7 +10,7 @@ verbatim into result rows.
 
 The port's copy of the reference's ``campaign/spec.py``.  Its one
 difference: a spec that names an estimator kind the port has not ported
-yet (``profiling``, ``learned``) fails validation with
+yet (``learned``) fails validation with
 ``NotImplementedError`` naming the slice that brings it.
 """
 from __future__ import annotations
@@ -142,8 +142,9 @@ class EstimatorSpec:
 
     kinds: ``roofline`` (options: mode, include_overheads), ``systolic``
     (options: preset), ``mixed`` (systolic primary + roofline fallback;
-    options: preset), ``profiling`` (host execution, roofline-projected
-    onto the grid system; options: runs).
+    options: preset), ``profiling`` (each region run on the calibrated
+    host, the card, and roofline-projected onto the grid system unless
+    that is ``host``; options: runs).
     """
     kind: str = "roofline"
     options: tuple = ()              # sorted (key, value) pairs — hashable

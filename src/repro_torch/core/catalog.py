@@ -6,8 +6,10 @@ record in a catalog file — the shipped ones live in ``specs/systems/``
 :class:`SystemRegistry` (or a spec's ``system_catalog``) at their own.  A
 :class:`SystemRegistry` merges catalogs with later paths (and API
 registrations) taking precedence, and remembers each entry's source file.
-The special id ``host`` is reserved, as in the reference, but resolving
-it raises ``NotImplementedError`` (:data:`~repro_torch.core.systems.HOST_PENDING`).
+The special id ``host`` is reserved, as in the reference, and resolves
+to the calibrated host (:func:`~repro_torch.core.systems.host_system`):
+the card, where the reference's is the host CPU, unless
+:meth:`SystemRegistry.get` is given ``device="cpu"``.
 
 The port's copy of the reference's ``core/catalog.py``: it reads the
 same ``specs/systems/*.json`` records by the same relative path (or
@@ -20,7 +22,7 @@ import difflib
 import json
 import os
 
-from .systems import HOST_PENDING, System
+from .systems import System, host_system
 
 #: the shipped catalog, relative to the repo root (editable install /
 #: PYTHONPATH=src layouts); resolved lazily so a relocated package
@@ -119,7 +121,8 @@ class SystemRegistry:
                 "replace=True to override it")
         if sid == "host":
             raise ValueError(
-                "system id 'host' is reserved for the calibrated host CPU")
+                "system id 'host' is reserved for the calibrated host (the "
+                "card, or the CPU when asked)")
         self._systems[sid] = system
         self._sources[sid] = source
         return system
@@ -164,13 +167,14 @@ class SystemRegistry:
         return (n == "host" or n in self._systems
                 or (self.parent is not None and name in self.parent))
 
-    def get(self, name: str) -> System:
-        """The system for a catalog id (``host`` raises
-        ``NotImplementedError``: not ported yet); unknown ids raise with
-        the live catalog and a did-you-mean."""
+    def get(self, name: str, device=None) -> System:
+        """The system for a catalog id (``host`` -> the calibrated host on
+        ``device``, :func:`~repro_torch.core.systems.host_system`; None:
+        the card); unknown ids raise with the live catalog and a
+        did-you-mean."""
         n = name.lower()
         if n == "host":
-            raise NotImplementedError(HOST_PENDING)
+            return host_system(device)
         if n in self._systems:
             return self._systems[n]
         if self.parent is not None and name in self.parent:

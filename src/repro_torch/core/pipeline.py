@@ -74,6 +74,15 @@ class Workload:
             raise ValueError(missing_text(self.name, fidelity))
         return parse(text)
 
+    def calls(self, fidelity: str = "optimized") -> dict:
+        """The ``call`` table of the text of ``fidelity``: each private
+        function that stands for an operator of the port's library, by
+        name -> its :class:`~repro_torch.core.stablehlo.OperatorCall` (empty
+        for a text the port did not export)."""
+        meta = self.meta.get("optimized", {}) if fidelity == "optimized" \
+            else self.meta
+        return dict(meta.get("calls", {}))
+
 
 def missing_text(name: str, fidelity: str) -> str:
     """Why workload ``name`` cannot be costed at ``fidelity``."""
@@ -111,11 +120,12 @@ def export_workload(fn, *specs, name: str = "workload", device=None,
 def _export(fn, specs, name: str, device, mesh=None) -> tuple[str, dict]:
     traced = trace(fn, *specs, device=device, mesh=mesh)
     t0 = time.perf_counter()
-    text = emit(traced, name)
+    calls: dict = {}
+    text = emit(traced, name, calls)
     return text, {"trace_s": traced.seconds,
                   "emit_s": time.perf_counter() - t0,
                   "text_bytes": len(text.encode()),
-                  "kernel_ops": traced.op_counts}
+                  "kernel_ops": traced.op_counts, "calls": calls}
 
 
 @dataclass
@@ -140,6 +150,9 @@ class PredictionPlan:
     #: segment order (built once at plan time; numpy + interned tables,
     #: picklable like the rest of the plan)
     arrays: RegionArrays | None = None
+    #: the text's ``call`` table (:meth:`Workload.calls`): what the
+    #: profiling estimator's executor runs each operator's ``call`` with
+    calls: dict = field(default_factory=dict)
 
     @property
     def key(self) -> tuple[str, str, str]:
@@ -159,10 +172,11 @@ class PredictionPlan:
 
 
 def build_plan(program: Program, *, slicer: str = "linear",
-               name: str = "workload",
-               fidelity: str = "raw") -> PredictionPlan:
+               name: str = "workload", fidelity: str = "raw",
+               calls: dict | None = None) -> PredictionPlan:
     """Run the plan phase: slice ``program`` once into a reusable plan
-    (segments plus the evaluation-ready :class:`RegionArrays`)."""
+    (segments plus the evaluation-ready :class:`RegionArrays`); ``calls``
+    is the text's ``call`` table, carried along."""
     if slicer == "linear":
         segments, dep_map = linear_split(program), None
     elif slicer in ("dep", "dependency-aware"):
@@ -173,7 +187,8 @@ def build_plan(program: Program, *, slicer: str = "linear",
         [s.region for s in segments if s.kind == "COMP"])
     return PredictionPlan(name=name, fidelity=fidelity, slicer=slicer,
                           program=program, segments=segments,
-                          dep_map=dep_map, arrays=arrays)
+                          dep_map=dep_map, arrays=arrays,
+                          calls=dict(calls or {}))
 
 
 @dataclass

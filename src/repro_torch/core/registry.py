@@ -14,10 +14,10 @@ Built-in kinds are registered *lazily*: the registry knows their names
 and home modules up front (so a spec validates without numpy), but only
 imports the module — whose ``@register_estimator`` /
 ``@register_topology`` decorators then fire — when a class is actually
-requested.  Two builtin kinds of the reference, ``profiling`` and
-``learned``, stay in the vocabulary but are not ported yet (*pending*):
-resolving one raises ``NotImplementedError`` naming the slice that
-brings it, and ``CampaignSpec.validate`` refuses a spec that names one.
+requested.  One builtin kind of the reference, ``learned``, stays in
+the vocabulary but is not ported yet (*pending*): resolving it raises
+``NotImplementedError`` naming the slice that brings it, and
+``CampaignSpec.validate`` refuses a spec that names it.
 
 Third-party backends register through the same decorators::
 
@@ -65,11 +65,16 @@ class BuildContext:
     ``system_name`` is the campaign-spec system id (``"host"`` is how the
     profiling estimator detects ground-truth mode); ``program`` is the
     parsed source program when the caller has one (profiling re-emits
-    regions from it); the three registries let composite backends build
-    sub-backends through the same open vocabulary that built them.
+    regions from it), and ``calls`` its text's ``call`` table (the
+    operator each private function stands for, which the profiling
+    estimator's executor runs); ``device`` is where a measuring backend
+    runs (None: the card); the three registries let composite backends
+    build sub-backends through the same open vocabulary that built them.
     """
     system_name: str = ""
     program: object | None = None
+    calls: dict | None = None
+    device: object | None = None
     estimators: "Registry | None" = None
     topologies: "Registry | None" = None
     systems: object | None = None   # repro_torch.core.catalog.SystemRegistry
@@ -359,15 +364,10 @@ class Registry:
 #: the builtin estimator kinds of the reference that the port has not
 #: ported yet, and the slice of ROADMAP Queue 1 that brings each
 PENDING_ESTIMATORS = {
-    "profiling": (
-        "estimator kind 'profiling' is not ported to repro_torch yet: it "
-        "waits for the profiling slice (ROADMAP, Queue 1: regions re-emitted "
-        "by slicing/emit.py and timed on the card, with a 'host' system "
-        "calibrated by a bf16 GEMM)"),
     "learned": (
         "estimator kind 'learned' is not ported to repro_torch yet: it "
-        "waits for the learned-estimator slice (ROADMAP, Queue 1), which "
-        "follows the profiling slice whose measurements it fits"),
+        "waits for the learned-estimator slice (ROADMAP, Queue 1 item 7), "
+        "which can fit the profiling estimator's measurements"),
 }
 
 #: the global estimator vocabulary; builtin kinds resolve lazily from

@@ -1,12 +1,13 @@
 """The port's copy of the reference's slicers (``repro.core.slicing``):
-linear and dependency-aware compute/communication splitting.  The region
-re-emitter (``emit.py``) waits for the profiling estimator, its only user
-(ROADMAP, Queue 1)."""
+linear and dependency-aware compute/communication splitting, and the
+region re-emitter (``emit.py``) that the profiling estimator runs."""
 from .regions import ComputeRegion, Segment, region_fingerprint
 from .linear import linear_split
 from .depaware import dependency_aware_split
+from .emit import RegionEmitError, region_to_module
 
 __all__ = [
     "ComputeRegion", "Segment", "region_fingerprint",
-    "linear_split", "dependency_aware_split",
+    "linear_split", "dependency_aware_split", "RegionEmitError",
+    "region_to_module",
 ]

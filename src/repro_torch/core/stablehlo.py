@@ -9,7 +9,11 @@ max, ``broadcast_in_dim`` for implicit broadcasting, ``gather``/``scatter``
 for indexing, and so on.  An operator of the port's library becomes a
 ``call`` of a private function holding its plain version's ops (one
 function per distinct call), and the layer barrier an
-``optimization_barrier``.  A per-rank step's collectives
+``optimization_barrier``.  The operator's other arguments (a flag, a
+window, an epsilon) are in no line of the text: :func:`emit` records them
+beside it, in a table from each such function's name to the
+:class:`OperatorCall` it stands for, so that an executor of the text runs
+the operator itself (``core/executor.py``).  A per-rank step's collectives
 (``_c10d_functional``) become ``all_gather``, ``reduce_scatter`` and
 ``all_reduce`` over their group's ranks, each with a channel of its own and
 each printed on one line, reduction region included (the reference's front
@@ -35,6 +39,7 @@ int64 indices are written as ``i32``, as JAX writes them without x64.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import operator
 import re
@@ -61,6 +66,33 @@ def _element(dtype: torch.dtype) -> str:
         return _ELEMENT[dtype]
     except KeyError:
         raise NotImplementedError(f"no StableHLO element type for {dtype}")
+
+
+@dataclass(frozen=True)
+class Operand:
+    """A tensor argument of an operator call: the ``index``-th operand of
+    its ``call`` line."""
+    index: int
+
+
+@dataclass(frozen=True)
+class OperatorCall:
+    """What a private function of the text stands for: the operator
+    ``op`` (its qualified name, e.g. ``"repro_torch::rmsnorm"``, so that
+    the table pickles) called with ``args`` in its schema's order, each
+    tensor an :class:`Operand` of the ``call``."""
+    op: str
+    args: tuple
+
+    @property
+    def overload(self) -> torch._ops.OpOverload:
+        ns, name = self.op.split("::")
+        return getattr(getattr(torch.ops, ns), name).default
+
+    def bind(self, tensors) -> list:
+        """The operator's arguments for a call on ``tensors``."""
+        return [tensors[a.index] if isinstance(a, Operand) else a
+                for a in self.args]
 
 
 @dataclass(frozen=True)
@@ -448,8 +480,9 @@ def _flat_outputs(out):
 
 
 class _Module:
-    def __init__(self, traced: Traced):
+    def __init__(self, traced: Traced, calls: dict | None = None):
         self.traced = traced
+        self.calls = {} if calls is None else calls
         self.names: dict[str, str] = {}
         self.functions: list[str] = []
         self.channels = 0
@@ -473,13 +506,21 @@ class _Module:
             if fn.result_types != types:
                 raise ValueError(f"{op}: the plain version returns "
                                  f"{fn.result_types}, the fake {types}")
+            tensors = itertools.count()
+            self.calls[name] = OperatorCall(
+                node.target._schema.name, tuple(
+                    Operand(next(tensors)) if isinstance(a, torch.fx.Node)
+                    else a for a in node.args))
         return self.names[key]
 
 
-def emit(traced: Traced, name: str = "workload") -> str:
+def emit(traced: Traced, name: str = "workload",
+         calls: dict | None = None) -> str:
     """The StableHLO module of a traced step: ``@main`` takes the flattened
-    arguments in order and returns the flattened outputs."""
-    module = _Module(traced)
+    arguments in order and returns the flattened outputs.  ``calls``, when
+    given, is filled with the text's ``call`` table: each private function
+    of an operator's plain version by name -> its :class:`OperatorCall`."""
+    module = _Module(traced, calls)
     main = _Function(module).text("main", "public", traced.graph.graph)
     sym = re.sub(r"[^A-Za-z0-9_]", "_", name)
     return (f"module @jit_{sym} attributes {{mhlo.num_partitions = "

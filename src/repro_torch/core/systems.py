@@ -1,6 +1,7 @@
 """Hardware system descriptions (paper Table IV + Fig 5, extended): the
-port's copy of the reference's ``core/systems.py``, without the
-calibrated host-CPU system (``HOST_PENDING`` says why).
+port's copy of the reference's ``core/systems.py``.  Its calibrated host
+(:func:`host_system`, the catalog id ``host``) is the machine the
+profiling estimator measures on: the card, or the host CPU when asked.
 
 Every estimator and the network simulator read from these records, so a
 workload can be re-costed on a different system by swapping one object —
@@ -16,6 +17,8 @@ shim — the historical module-level names (``A100`` … ``TPU_V5E``,
 """
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import asdict, dataclass, field
 
 
@@ -98,16 +101,114 @@ class System:
         return cls(**d)
 
 
-#: why the special catalog id ``host`` does not resolve in the port: the
-#: reference calibrates it with a JAX matmul
-HOST_PENDING = (
-    "system 'host' is not ported to repro_torch yet: the reference "
-    "calibrates it with a JAX matmul, and its torch analog (calibrated by "
-    "a bf16 GEMM) comes with the profiling slice (ROADMAP, Queue 1)")
+_G = 1e9
+
+# ---- the calibrated host (ground-truth platform for profiling) ----
+_HOST_CACHE: dict[str, System] = {}
+#: held while the host is calibrated or a region profiled: one
+#: measurement at a time in a process
+MEASURE = threading.RLock()
+
+
+def _best_rate(fn, work: float, reps: int, sync) -> float:
+    """``work`` units a second over the best of three bursts of ``reps``
+    calls of ``fn`` (after one warm call); ``sync`` waits for the device
+    and returns the host's clock."""
+    fn()
+    best = float("inf")
+    for _ in range(3):
+        t0 = sync()
+        for _ in range(reps):
+            fn()
+        best = min(best, sync() - t0)
+    return work * reps / best
+
+
+def _calibrate_cpu() -> float:
+    """Host peak FLOP/s from a bf16 GEMM burst (the reference's JAX
+    calibration, in torch): bf16 is what the workloads run in, and on a CPU
+    it is emulated, so an f32 calibration would overstate the rate."""
+    import torch
+    n = 512
+    a = torch.ones(n, n, dtype=torch.bfloat16)
+    return _best_rate(lambda: a @ a, 2 * n ** 3, 1, time.perf_counter)
+
+
+def _calibrate_card(device) -> tuple[float, float, float]:
+    """The card's bf16 and f32 GEMM rates (FLOP/s; f32 with TF32 off, as
+    the port's f32 products run) and its memory rate (bytes/s) from a
+    device-to-device copy, each the best of three timed bursts."""
+    import torch
+
+    def sync():
+        torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    n = 8192
+    a = torch.randn(n, n, device=device, dtype=torch.bfloat16)
+    bf16 = _best_rate(lambda: a @ a, 2 * n ** 3, 10, sync)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        n = 4096
+        a = torch.randn(n, n, device=device)
+        f32 = _best_rate(lambda: a @ a, 2 * n ** 3, 5, sync)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    src = torch.empty(2 ** 28, device=device)      # 1 GiB of f32
+    dst = torch.empty_like(src)
+    bw = _best_rate(lambda: dst.copy_(src), 2 * src.nbytes, 10, sync)
+    del a, src, dst
+    torch.cuda.empty_cache()
+    return bf16, f32, bw
+
+
+def host_system(device=None) -> System:
+    """The platform the profiling estimator measures on, as a System: the
+    card (``device`` None or a CUDA device), or the host CPU when
+    ``device="cpu"`` (the reference's ``host-cpu``).
+
+    The card takes the name CUDA reports for it; its bf16 (and f16) peak is a
+    bf16 GEMM burst's rate, its f32 peak an f32 GEMM's with TF32 off, its
+    memory rate a device-to-device copy's and its capacity the device's
+    memory.  Its interconnect and systolic geometry are not measured (the
+    dataclass's defaults; the profiling estimator reads neither).  The
+    CPU is calibrated as the reference calibrates it, by a bf16 GEMM, with
+    the reference's constants for the rest.  Measured once a process and
+    device."""
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    with MEASURE:
+        if str(dev) not in _HOST_CACHE:
+            _HOST_CACHE[str(dev)] = _host(dev)
+    return _HOST_CACHE[str(dev)]
+
+
+def _host(dev) -> System:
+    if dev.type == "cuda":
+        import torch
+        props = torch.cuda.get_device_properties(dev)
+        bf16, f32, bw = _calibrate_card(dev)
+        return System(
+            name=props.name,
+            peak_flops={"f32": f32, "bf16": bf16, "f16": bf16},
+            mem_bw=bw, mem_capacity=float(props.total_memory),
+            interconnect=Interconnect("host", link_bw=10e9))
+    if dev.type == "cpu":
+        f = _calibrate_cpu()
+        return System(
+            name="host-cpu",
+            peak_flops={"f32": f, "bf16": f, "f16": f, "f64": f / 2},
+            mem_bw=20e9, mem_capacity=16 * _G,
+            interconnect=Interconnect("host", link_bw=10e9),
+            mxu_rows=8, mxu_cols=8, n_mxu=1, clock_hz=3e9,
+            vmem_bytes=32 * 2**20, kernel_overhead_s=5e-6)
+    raise ValueError(f"no host system for device {dev}")
 
 
 def get_system(name: str) -> System:
-    """Resolve a catalog id from the default catalog.
+    """Resolve a catalog id (or ``host``: the card) from the default
+    catalog.
 
     Back-compat shim over
     :meth:`repro_torch.core.catalog.SystemRegistry.get`; sessions with their

@@ -122,3 +122,14 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch "
                            "(cudaGetLastError)")
+
+
+def count_launch(op) -> None:
+    """Add one to ``op.launches``: the wrapper ``op`` launched its kernel.
+    A call while the stream is captured into a CUDA graph only records the
+    kernel, and the graph's replays launch it without the wrapper, so a
+    capture is not counted."""
+    import torch
+
+    if not torch.cuda.is_current_stream_capturing():
+        op.launches += 1

@@ -10,7 +10,8 @@ backward launches K1b (``csrc/flash_attention_bwd.cu``), or the call raises.
 A trace on fake tensors records one node per call and launches nothing.
 ``flash_attention.launches`` counts K1's launches and
 ``flash_attention_bwd.launches`` K1b's (each of which runs its three
-kernels: delta, dK/dV and dQ), and nothing else.
+kernels: delta, dK/dV and dQ), and nothing else: a call captured into a
+CUDA graph records the kernel and is not counted.
 """
 from __future__ import annotations
 
@@ -85,7 +86,7 @@ def _forward(q, k, v, causal, window, logit_cap, q_offset, with_lse):
              int(q_offset), _DTYPE_CODES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "repro_flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return o, lse
 
 
@@ -125,7 +126,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              float(logit_cap), int(q_offset), _DTYPE_CODES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "repro_flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    _build.count_launch(flash_attention_bwd)
     return dq, dk, dv
 
 

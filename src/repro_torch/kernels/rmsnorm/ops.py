@@ -8,7 +8,8 @@ launches the hand-written kernel (``csrc/rmsnorm.cu``) and the backward K2b
 records one node per call and runs only the operators' fakes, which
 allocate the outputs and launch nothing.  ``rmsnorm.launches`` counts K2's
 launches and ``rmsnorm_bwd.launches`` K2b's (each of which runs its two
-kernels: the rows and the dw reduction), and nothing else.
+kernels: the rows and the dw reduction), and nothing else: a call
+captured into a CUDA graph records the kernel and is not counted.
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ def _forward(x, w, eps, offset):
              float(eps), float(offset), _DTYPE_CODES[x.dtype], _vec(x, w),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "repro_rmsnorm")
-    rmsnorm.launches += 1
+    _build.count_launch(rmsnorm)
     return y
 
 
@@ -84,7 +85,7 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
              _vec(x, w, dy, dx),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "repro_rmsnorm_bwd")
-    rmsnorm_bwd.launches += 1
+    _build.count_launch(rmsnorm_bwd)
     return dx, dw
 
 

@@ -5,9 +5,9 @@ The counterparts of ``tests/test_api.py``: the session's vocabularies,
 ``workload``/``plan``/``predict`` on a framework-free text with rows equal
 to ``repro.api.Session``'s bit for bit (wall-clock fields left out),
 campaigns from a dict and from a path, scoped registries that do not leak,
-a session-registered system and estimator in a campaign, and the parts
-that are not ported (``search``, the ``host`` system, ``--server``, search
-specs), which raise.  The CLI validates, lists, runs and reports
+a session-registered system and estimator in a campaign, the ``host``
+system (the card, the CPU only when asked), and the parts that are not
+ported (``search``, ``--server``, search specs), which raise.  The CLI validates, lists, runs and reports
 ``specs/fig10_gemm.json`` to the reference CLI's rows; an arch workload
 exports only on the card or with ``--device cpu``; ``report
 --update-golden`` writes its snapshot into ``--out``, never under
@@ -211,12 +211,16 @@ def test_session_system_and_estimator_in_a_campaign():
 
 
 def test_search_and_the_host_system_raise():
+    """Search is not ported; ``host`` is the card, so without one it
+    raises unless the CPU is asked for."""
     s = api.Session()
     with pytest.raises(NotImplementedError, match="item 8"):
         s.search(str(SPECS / "search_gemm.json"))
-    with pytest.raises(NotImplementedError, match="host"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         s.get_system("host")
-    assert not hasattr(api, "host_system")
+    assert s.get_system("host", device="cpu") is api.host_system("cpu")
+    assert s.get_system("host", device="cpu").name == \
+        ref_api.host_system(calibrate=False).name
 
 
 def test_export_traces_on_the_card_unless_asked_for_the_cpu(monkeypatch):

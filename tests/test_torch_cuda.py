@@ -128,6 +128,26 @@ def test_rmsnorm_kernel_on_card(cuda, dtype, rows, d, offset):
 
 
 @pytest.mark.cuda
+def test_a_graph_capture_is_not_a_counted_launch(cuda):
+    """A call captured into a CUDA graph records K2 and is not counted, and
+    the graph's replays launch it without the wrapper; the replay's output
+    is the eager call's."""
+    x, w = _normal(9, (64, 2048), (2048,))
+    x, w = (t.to(cuda) for t in _torch([x, 1.0 + 0.1 * w], torch.float32))
+    want = rmsnorm(x, w)
+    before = rmsnorm.launches
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = rmsnorm(x, w)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk,strided,init", [
     (2, 512, 8, 64, 1, 128, 256, False, False),

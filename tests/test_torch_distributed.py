@@ -455,16 +455,21 @@ def test_port_ir_copies_equal_the_reference_on_the_per_rank_text(exported):
 # (e) fig11's optimized rows in the golden's order
 # --------------------------------------------------------------------------
 
-def test_fig11_small_rows_keep_the_goldens_order():
+@pytest.fixture(scope="module")
+def fig11_small():
     """fig11 as checked in, cut to llama3-100m and llama3-500m for the
-    CPU's time (the card runs it whole, ``chip_smoke.py`` phase 10): per
-    estimator the two workloads rank as the golden's."""
+    CPU's time (the card runs it whole, ``chip_smoke.py`` phase 10)."""
     spec = campaign.CampaignSpec.from_json(str(ROOT / "specs" /
                                                "fig11_tpu.json")).to_dict()
     spec["workloads"] = [w for w in spec["workloads"]
                          if w["arch"] in ("llama3-100m", "llama3-500m")]
-    result = campaign.run_campaign(campaign.CampaignSpec.from_dict(spec),
-                                   device="cpu")
+    return campaign.run_campaign(campaign.CampaignSpec.from_dict(spec),
+                                 device="cpu")
+
+
+def test_fig11_small_rows_keep_the_goldens_order(fig11_small):
+    """Per estimator the two workloads rank as the golden's."""
+    result = fig11_small
     assert len(result.rows) == 4 and not [r for r in result.rows
                                           if "error" in r]
     golden = {(r["workload"], r["estimator"]): r["step_time_s"]
@@ -476,3 +481,74 @@ def test_fig11_small_rows_keep_the_goldens_order():
         ours = [r["step_time_s"] for r in rows]
         theirs = [golden[(r["workload"], est)] for r in rows]
         assert kendall_tau(ours, theirs) == 1.0, (est, ours, theirs)
+
+
+def test_fig11_mixed_rows_lie_below_the_roofline_rows(fig11_small):
+    """The campaign exports the reference's attention (``chunked``), so
+    the attention's products are in the text and the systolic model sees
+    them: each workload's mixed-cocossim row lies below its roofline row
+    (with the kernel text, whose products sit in ``call``ed functions,
+    the two were equal to the digit), and each estimator keeps the
+    golden's order (the test above)."""
+    rows = {(r["workload"], r["estimator"]): r for r in fig11_small.rows}
+    for workload in ("llama3-100m", "llama3-500m"):
+        mixed = rows[(workload, "mixed-cocossim")]["step_time_s"]
+        roof = rows[(workload, "roofline")]["step_time_s"]
+        print(workload, "mixed / roofline", mixed / roof)
+        assert mixed < roof, workload
+
+
+def test_the_campaign_exports_the_references_attention():
+    """An arch workload is traced with ``attn_impl="chunked"``: its text
+    calls no attention operator (K2 and K2b stay calls), and its FLOPs
+    are the chunked export's."""
+    spec = campaign.WorkloadSpec(name="w", arch="llama3-100m", mode="train",
+                                 seq=SEQ, batch=BATCH)
+    w = build_workload(spec, device="cpu")
+    assert set(w.meta["kernel_ops"]) == {"rmsnorm", "rmsnorm_bwd"}
+    assert {e.op for e in w.calls("raw").values()} == {
+        "repro_torch::rmsnorm", "repro_torch::rmsnorm_bwd"}
+    cfg = get_config("llama3-100m").scaled(attn_impl="chunked")
+    step, args = loop.train_step_exports(cfg, SEQ, BATCH)
+    assert w.stablehlo_text == export_workload(
+        step, *args, name="w", device="cpu").stablehlo_text
+
+
+def test_a_profiling_rerun_hits_the_cache_and_is_faster(tmp_path):
+    """The counterpart of the reference's
+    ``TestPersistentCache.test_second_run_hits_and_is_faster`` with a
+    ``profiling`` estimator on the CPU: the port's smoke kernel text (its
+    K1, K1b, K2 and K2b ``call``s run through the text's ``call`` table)
+    on ``host`` (the CPU, measured) and ``h100`` (projected), both
+    slicers.  A second run against the warm cache pays no estimator cost:
+    every lookup hits, the rows are equal, and it is faster."""
+    cfg = get_smoke_config("llama3-1b").scaled(
+        dtype="float32", scan_layers=False, layer_barriers=True)
+    step, args = loop.train_step_exports(cfg, SEQ, 2)
+    w = export_workload(step, *args, name="toy", device="cpu")
+    assert w.calls("raw")
+    d = {"name": "t", "workloads": [{"name": "toy", "fidelity": "raw"}],
+         "systems": ["host", "h100"], "slicers": ["linear", "dep"],
+         "estimators": [{"kind": "profiling", "fidelity": "raw",
+                         "options": {"runs": 1}}]}
+    cache = str(tmp_path / "hcr.json")
+
+    def run():
+        return campaign.run_campaign(
+            campaign.CampaignSpec.from_dict(d, provided={"toy"}),
+            workloads={"toy": w}, executor="serial", cache_path=cache,
+            device="cpu")
+    r1 = run()
+    assert r1.summary["num_failed"] == 0
+    assert r1.cache["misses"] > 0 and r1.cache["new_entries"] > 0
+    assert os.path.exists(cache)
+    r2 = run()
+    assert r2.summary["num_failed"] == 0
+    assert r2.cache["loaded_entries"] == r1.cache["new_entries"]
+    assert r2.cache["hits"] > 0 and r2.cache["misses"] == 0
+    assert r2.cache["hit_rate"] == 1.0
+    assert r2.wall_s < r1.wall_s
+    t1 = {r["job_id"]: r["step_time_s"] for r in r1.ok_rows}
+    t2 = {r["job_id"]: r["step_time_s"] for r in r2.ok_rows}
+    assert t1 == t2 and len(t1) == 4
+    assert {r["toolchain"] for r in r1.ok_rows} == {"torch-eager"}

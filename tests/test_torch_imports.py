@@ -30,7 +30,7 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -44,11 +44,14 @@ def test_every_module_and_chip_smoke_import_without_jax_or_repro():
     # resnet), serve (3: the package, decode, faults), train (6), launch
     # (3: the package, train, mesh), distributed (3: the package,
     # sharding, data_parallel), campaign (8: the package, spec, builders,
-    # plans, summary, report, runner, __main__), core (7: the package,
-    # export, stablehlo, pipeline, registry, systems, catalog) with its ir
-    # (10), slicing (4), estimators (6), network (4) and trace (2)
-    # subpackages
-    assert int(proc.stdout.split()[-1]) >= 88
+    # plans, summary, report, runner, __main__), core (8: the package,
+    # export, stablehlo, executor, pipeline, registry, systems, catalog)
+    # with its ir (10), slicing (5: with emit), estimators (7: with
+    # profiling), network (4) and trace (2) subpackages
+    names = proc.stdout.split()
+    assert len(names) >= 91
+    assert {"repro_torch.core.executor", "repro_torch.core.slicing.emit",
+            "repro_torch.core.estimators.profiling"} <= set(names)
 
 
 @pytest.fixture
@@ -61,11 +64,21 @@ def _tiny() -> ModelConfig:
 
 
 @pytest.mark.parametrize("entry", [
-    "resolve_device", "init_params", "params_from_jax", "TransformerLM"])
+    "resolve_device", "init_params", "params_from_jax", "TransformerLM",
+    "Executor", "ProfilingEstimator", "host_system"])
 def test_entry_points_need_a_card_unless_asked_for_cpu(no_cuda, entry):
+    from repro_torch.core.estimators.profiling import ProfilingEstimator
+    from repro_torch.core.executor import Executor
+    from repro_torch.core.systems import host_system
     cfg = _tiny()
     specs = transformer.model_specs(cfg)
+    module = ("module @m {\n  func.func public @main(%arg0: tensor<2xf32>) "
+              "-> tensor<2xf32> {\n    return %arg0 : tensor<2xf32>\n  }\n"
+              "}\n")
     calls = {
+        "Executor": lambda **kw: Executor(module, **kw),
+        "ProfilingEstimator": lambda **kw: ProfilingEstimator(**kw),
+        "host_system": lambda **kw: host_system(**kw),
         "resolve_device": lambda **kw: resolve_device(**kw),
         "init_params": lambda **kw: params.init_params(
             specs, torch.Generator(), **kw),

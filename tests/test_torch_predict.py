@@ -410,7 +410,7 @@ def test_every_paper_grid_validates(path):
 
 
 @pytest.mark.parametrize("kind,slice_name", [
-    ("profiling", "profiling slice"), ("learned", "learned-estimator slice")])
+    ("learned", "learned-estimator slice")])
 def test_unported_estimator_kinds_fail_naming_their_slice(kind, slice_name):
     assert registry.ESTIMATORS.kinds() == ref_registry.ESTIMATORS.kinds()
     assert kind in registry.ESTIMATORS
@@ -420,10 +420,24 @@ def test_unported_estimator_kinds_fail_naming_their_slice(kind, slice_name):
         "m": 64, "n": 64, "k": 64}}], "estimators": [{"kind": kind}]}
     with pytest.raises(NotImplementedError, match=slice_name):
         campaign.CampaignSpec.from_dict(d)
-    if kind == "learned":   # the checked-in grid of the learned tier
-        with pytest.raises(NotImplementedError, match=slice_name):
-            campaign.CampaignSpec.from_json(
-                str(SPECS / "learned_fidelity.json"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        registry.ESTIMATORS.get(kind)
+    # the checked-in grid of the learned tier
+    with pytest.raises(NotImplementedError, match=slice_name):
+        campaign.CampaignSpec.from_json(str(SPECS / "learned_fidelity.json"))
+
+
+def test_the_profiling_kind_resolves_and_a_spec_naming_it_validates():
+    """The profiling slice is ported: its kind resolves to the port's own
+    estimator, and a spec that names it validates."""
+    from repro_torch.core.estimators.profiling import ProfilingEstimator
+    assert registry.ESTIMATORS.get("profiling") is ProfilingEstimator
+    assert registry.ESTIMATORS.pending_message("profiling") is None
+    d = {"name": "x", "workloads": [{"name": "g", "gemm": {
+        "m": 64, "n": 64, "k": 64}}], "systems": ["host", "h100"],
+        "estimators": [{"kind": "profiling", "options": {"runs": 1}}]}
+    spec = campaign.CampaignSpec.from_dict(d)
+    assert [j.system for j in spec.expand()] == ["host", "h100"]
 
 
 def test_topology_vocabulary_and_plugin_group():
@@ -445,8 +459,18 @@ def test_catalog_systems_equal_the_reference(path):
 
 
 def test_host_system_raises():
+    """``host`` is the calibrated card: without one, resolving it raises
+    and says how to ask for the CPU, which it then is (the reference's
+    ``host-cpu``, calibrated by a bf16 GEMM)."""
     assert catalog.default_registry().names() == \
         ref_catalog.default_registry().names()
     assert "host" in catalog.default_registry()
-    with pytest.raises(NotImplementedError, match="profiling slice"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         catalog.default_registry().get("host")
+    from repro_torch.core.systems import host_system
+    cpu = host_system("cpu")
+    assert cpu.name == "host-cpu" and cpu is host_system("cpu")
+    assert catalog.default_registry().get("host", device="cpu") is cpu
+    assert catalog.SystemRegistry(
+        parent=catalog.default_registry()).get("HOST", "cpu") is cpu
+    assert cpu.flops_for("bf16") > 0 and cpu.mem_bw == 20e9
