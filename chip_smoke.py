@@ -109,7 +109,29 @@ prints no result line):
    workload as checked in, profiled on ``host`` through the same CLI: the
    campaign's per-rank text, whose attention is the reference's chunked
    text (no K1 or K1b), its compute beside phase 10's measured per-rank
-   step.
+   step;
+13. the learned estimator and the what-if search on the card: (a) the three
+   checked-in grids through the port's CLIs in subprocesses started
+   together (``python -m repro_torch.search run --check`` on
+   ``specs/search_gemm.json`` and ``specs/search_serving.json``, ``python
+   -m repro_torch.campaign report --check`` on
+   ``specs/learned_fidelity.json``): each one's rc, seconds, frontier size
+   and counters; then in this process, for each search spec, a brute-force
+   run whose frontier equals the ladder's and a warm re-search through one
+   ``Session`` with no cold miss and at least one hit; (b) a learned model
+   fitted from the card: the reference tool's training GEMMs (256 to 4096,
+   square, bf16) profiled on ``host`` with the profiling estimator (3
+   runs), fitted, saved and loaded to the same digest, each family's
+   coefficients, residual spread and samples; the held-out 8192 GEMM
+   profiled and predicted (relative error, ``extrapolated`` held True);
+   the six GEMMs' learned sum transferred to the catalog's ``h100`` beside
+   the profiling estimator's projection of their measured times; no kernel
+   launch (held); (c) (b)'s model on phase 12 (a)'s llama3-1b regions: the
+   regions by family, the learned sum of those it supports beside their
+   profiled times, and how many it does not (a finding, not held); (d) a
+   model fitted on phase 12 (a)'s region times (which launched K1, K1b, K2
+   and K2b): its families, the in-sample sum beside the profiled sum, and
+   the sum transferred to ``h100`` beside phase 12 (a)'s projection.
 
 The last lines are one JSON object ``{"kernels": [...]}``, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -135,17 +157,24 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import api  # noqa: E402
 from repro_torch.campaign import (CampaignSpec, check_rows,  # noqa: E402
                                   run_campaign)
-from repro_torch.campaign.builders import (build_estimator,  # noqa: E402
-                                           build_topology, build_workload)
+from repro_torch.campaign.builders import (  # noqa: E402
+    _synthesize_gemm, build_estimator, build_topology, build_workload)
 from repro_torch.campaign.report import kendall_tau, load_json  # noqa: E402
 from repro_torch.campaign.spec import (EstimatorSpec,  # noqa: E402
-                                      TopologySpec)
+                                      TopologySpec, WorkloadSpec)
 from repro_torch.core import ir  # noqa: E402
 from repro_torch.core.catalog import default_registry  # noqa: E402
+from repro_torch.core.estimators import (  # noqa: E402
+    LearnedEstimator, fit_model, load_model, record_profile, region_family,
+    save_model)
+from repro_torch.core.estimators.learned import (  # noqa: E402
+    _dominant_dtype as learned_dominant_dtype)
 from repro_torch.core.estimators.profiling import (  # noqa: E402
     ProfilingEstimator)
+from repro_torch.core.systems import host_system  # noqa: E402
 from repro_torch.core.ir.collectives import collect_collectives  # noqa: E402
 from repro_torch.core.pipeline import (PredictionJob,  # noqa: E402
                                        build_plan, export_workload)
@@ -1750,7 +1779,8 @@ def profile_regions(label: str, w, measured_s: float, smi: str) -> tuple:
     sum projected onto ``h100`` and ``a100``, and the kernels' launches
     (those of each region's eager run: a capture records the kernels
     uncounted, and a replay relaunches them without the wrappers).  Holds
-    ``emit_failures == 0``.  Returns the launch counts and the sum."""
+    ``emit_failures == 0``.  Returns the launch counts, the sum, the
+    regions, their times and the sum projected onto ``h100``."""
     plan = build_plan(w.program("raw"), name=label, calls=w.calls("raw"))
     regions = plan.compute_regions
     est = ProfilingEstimator(program=plan.program, calls=plan.calls,
@@ -1777,13 +1807,16 @@ def profile_regions(label: str, w, measured_s: float, smi: str) -> tuple:
         f"({len(regions[big].ops)} ops); launches {launches}")
     log(f"  {label} regions, ms in order: "
         + ", ".join(f"{t * 1e3:.3f}" for t in times))
+    projected = {}
     for sid in ("h100", "a100"):
         target = ProfilingEstimator(system=est.system, program=plan.program,
                                     target_system=default_registry().get(sid),
                                     device="cuda")
-        projected = sum(target._project(r, t) for r, t in zip(regions, times))
-        log(f"  {label} projected onto {sid}: {projected * 1e3:.3f} ms")
-    return launches, total
+        projected[sid] = sum(target._project(r, t)
+                             for r, t in zip(regions, times))
+        log(f"  {label} projected onto {sid}: "
+            f"{projected[sid] * 1e3:.3f} ms")
+    return launches, total, regions, times, projected["h100"]
 
 
 def campaign_profiling(spec: dict, tmp: str, out: str,
@@ -1871,10 +1904,11 @@ def profile_fig6(rank_s: float, kernel_ratio: float, smi: str) -> None:
 
 
 def profiling_phase(train_launches: dict, step_s: float, rank_s: float,
-                    resnet_s: float, smi: str) -> dict:
+                    resnet_s: float, smi: str) -> tuple[dict, tuple]:
     """Phase 12, (a) to (d).  Returns (a)'s launch counts, held equal to
-    phase 6's launches a step: each region's eager run launches each
-    operator of the text once."""
+    phase 6's launches a step (each region's eager run launches each
+    operator of the text once), and (a)'s regions, their times and their
+    sum projected onto ``h100``, which phase 13 fits on."""
     t0 = time.perf_counter()
     cfg = get_config("llama3-1b").scaled(scan_layers=False,
                                          layer_barriers=True)
@@ -1883,8 +1917,8 @@ def profiling_phase(train_launches: dict, step_s: float, rank_s: float,
                         device="cuda")
     log(f"  (a) llama3-1b 4x2048 with a barrier after each layer: trace "
         f"{w.meta['trace_s']:.2f} s, operator nodes {w.meta['kernel_ops']}")
-    launches, total = profile_regions("llama3-1b train step", w, step_s,
-                                      smi)
+    launches, total, *profiled = profile_regions("llama3-1b train step", w,
+                                                 step_s, smi)
     missing = [k for k in PROFILE_KERNELS if not launches[k]]
     if missing:
         raise AssertionError(f"profile: the executor launched no {missing}")
@@ -1901,7 +1935,235 @@ def profiling_phase(train_launches: dict, step_s: float, rank_s: float,
     profile_fig10(smi)
     profile_fig6(rank_s, total / step_s, smi)
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, tuple(profiled)
+
+
+# --------------------------------------------------------------------------
+# phase 13: the learned estimator and the what-if search on the card
+# --------------------------------------------------------------------------
+
+# the reference tool's training GEMMs (square, bf16), and one held out
+# above their range
+LEARNED_GEMMS = (256, 512, 1024, 2048, 4096)
+LEARNED_HELD_OUT = 8192
+LEARNED_RUNS = 3
+SEARCH_SPECS = ("search_gemm.json", "search_serving.json")
+
+
+def grids_through_the_clis(tmp: str, smi: str) -> None:
+    """(a) The three checked-in grids through the port's CLIs, in
+    subprocesses started together, each held at rc 0 and ``golden OK``;
+    then, in this process, each search spec's brute-force frontier against
+    the ladder's and a warm re-search through one ``Session``."""
+    commands = {name: ["repro_torch.search", "run", f"specs/{name}",
+                       "--check", "--quiet"] for name in SEARCH_SPECS}
+    commands["learned_fidelity.json"] = [
+        "repro_torch.campaign", "report", "specs/learned_fidelity.json",
+        "--check", "--quiet"]
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", *args, "--out", os.path.join(tmp, name)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in commands.items()}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0 or "golden OK" not in out:
+                raise AssertionError(f"{name}: rc {proc.returncode}\n{out}\n"
+                                     f"{err}")
+            if name in SEARCH_SPECS:
+                c = json.loads(Path(tmp, name, "frontier.json").read_text())[
+                    "counters"]
+                log(f"  {name}: rc 0 in {secs:.1f} s, golden OK, frontier "
+                    f"{c['frontier_size']}, counters "
+                    + json.dumps({k: v for k, v in c.items()
+                                  if k != "evaluations"}))
+            else:
+                line = next(ln for ln in out.splitlines()
+                            if ln.startswith("report "))
+                log(f"  {name}: rc 0 in {secs:.1f} s, {line}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name in SEARCH_SPECS:
+        spec = str(ROOT / "specs" / name)
+        session = api.Session()
+        ladder = session.search(spec)
+        brute = api.Session().search(spec, brute_force=True)
+        if brute.frontier != ladder.frontier:
+            raise AssertionError(f"{name}: ladder frontier {ladder.frontier}"
+                                 f" != brute force {brute.frontier}")
+        warm = session.search(spec)
+        c = warm.counters
+        if c["cache_misses"] != 0 or c["cache_hits"] < 1:
+            raise AssertionError(f"{name}: warm re-search {c}")
+        log(f"  {name} on {smi}: brute force scored "
+            f"{brute.counters['top_rung_evaluations']} at the top rung, the "
+            f"ladder {ladder.counters['top_rung_evaluations']}: frontiers "
+            f"equal ({len(ladder.frontier)}); warm re-search "
+            f"{c['cache_hits']} hits, 0 misses")
+
+
+def profiled_gemms(sizes, device) -> tuple[list, dict]:
+    """Each square bf16 GEMM of ``sizes`` synthesized as the reference tool
+    does and profiled on ``host`` (``device``) with the profiling
+    estimator: (its regions, their fingerprints' measured seconds).  Holds
+    ``emit_failures == 0`` (a roofline fallback would not be a
+    measurement)."""
+    regions, profile = [], {}
+    for m in sizes:
+        w = _synthesize_gemm(WorkloadSpec(
+            name=f"gemm-{m}", fidelity="raw",
+            gemm={"m": m, "n": m, "k": m, "dtype": "bf16"}))
+        plan = build_plan(w.program("raw"), name=w.name)
+        est = ProfilingEstimator(program=plan.program, runs=LEARNED_RUNS,
+                                 device=device)
+        profile.update(record_profile(plan.compute_regions, est))
+        if est.emit_failures:
+            raise AssertionError(f"gemm-{m}: {est.emit_failures} regions "
+                                 "fell back to roofline")
+        regions += plan.compute_regions
+    return regions, profile
+
+
+def log_model(label: str, model) -> None:
+    for fam, fm in sorted(model.families.items()):
+        coef = ", ".join(f"{n} {c:.6g}" for n, c in
+                         zip(("overhead", "compute", "bytes", "boundary",
+                              "n_matmul", "n_elementwise", "n_movement"),
+                             fm.coef))
+        log(f"  {label} {fam}: n_samples {fm.n_samples}, rel_residual_std "
+            f"{fm.rel_residual_std:.6g}, coefficients {coef}")
+
+
+def fitted_on_the_card(device, smi: str):
+    """(b) A learned model fitted from the card's own profile of the
+    reference tool's training GEMMs; returns it and the host system."""
+    host = host_system(device)
+    regions, profile = profiled_gemms(LEARNED_GEMMS, device)
+    model = fit_model(regions, profile, host, meta={
+        "source_system": "host", "recorded_with": "profiling",
+        "workloads": [f"gemm-{m}" for m in LEARNED_GEMMS]})
+    with tempfile.TemporaryDirectory() as tmp:
+        loaded = load_model(save_model(os.path.join(tmp, "m.json"), model))
+    if loaded.digest() != model.digest():
+        raise AssertionError(f"saved model {loaded.digest()} != fitted "
+                             f"{model.digest()}")
+    log(f"  GEMM model fitted on {host.name} ({smi}): digest "
+        f"{model.digest()} (saved and loaded equal), measured ms "
+        + ", ".join(f"{m} {profile[r.fingerprint] * 1e3:.6g}"
+                    for m, r in zip(LEARNED_GEMMS, regions)))
+    log_model("GEMM model", model)
+    held, held_profile = profiled_gemms((LEARNED_HELD_OUT,), device)
+    measured = held_profile[held[0].fingerprint]
+    p = LearnedEstimator(host, model).predict_with_uncertainty(held[0])
+    if p["extrapolated"] is not True:
+        raise AssertionError(f"gemm-{LEARNED_HELD_OUT} lies outside the "
+                             f"fitted flops, yet {p}")
+    log(f"  held-out gemm-{LEARNED_HELD_OUT} on {host.name}: learned "
+        f"{p['seconds'] * 1e3:.6g} ms [{p['low'] * 1e3:.6g}, "
+        f"{p['high'] * 1e3:.6g}] beside measured {measured * 1e3:.6g} ms: "
+        f"relative error {(p['seconds'] - measured) / measured:+.4f}, "
+        f"extrapolated {p['extrapolated']}")
+    six = regions + held
+    times = [profile[r.fingerprint] for r in regions] + [measured]
+    h100 = default_registry().get("h100")
+    learned = sum(LearnedEstimator(h100, model).get_run_time_estimate(r)
+                  for r in six)
+    project = ProfilingEstimator(system=host, target_system=h100,
+                                 device=device)
+    projected = sum(project._project(r, t) for r, t in zip(six, times))
+    log(f"  six GEMMs on the catalog's h100: learned (transferred) "
+        f"{learned * 1e3:.6g} ms beside the profiling estimator's "
+        f"projection {projected * 1e3:.6g} ms: {learned / projected:.4f}")
+    return model, host
+
+
+def gemm_model_on_a_train_step(model, host, regions, times) -> None:
+    """(c) The GEMM model on phase 12 (a)'s llama3-1b regions (a finding,
+    not held)."""
+    fams = {}
+    for r, t in zip(regions, times):
+        fams.setdefault(region_family(r), []).append((r, t))
+    est = LearnedEstimator(host, model)
+    dtypes = {}
+    for r in regions:
+        dt = learned_dominant_dtype(r)
+        dtypes[dt] = dtypes.get(dt, 0) + 1
+    log("  llama3-1b regions by family: " + ", ".join(
+        f"{f} {len(v)}" for f, v in sorted(fams.items()))
+        + "; by the dtype whose peak the compute feature uses: " + ", ".join(
+            f"{d} {n}" for d, n in sorted(dtypes.items()))
+        + f"; host peaks bf16 {host.flops_for('bf16') / 1e12:.1f}, f32 "
+        f"{host.flops_for('f32') / 1e12:.1f} TFLOP/s, memory "
+        f"{host.mem_bw / 1e12:.3f} TB/s, kernel_overhead_s "
+        f"{host.kernel_overhead_s:g}")
+    unsupported = 0
+    for fam, pairs in sorted(fams.items()):
+        if not est.supports(pairs[0][0]):
+            unsupported += len(pairs)
+            continue
+        learned = [est.get_run_time_estimate(r) for r, _ in pairs]
+        profiled = sum(t for _, t in pairs)
+        log(f"  GEMM model on the {fam} regions: learned "
+            f"{sum(learned) * 1e3:.3f} ms beside profiled "
+            f"{profiled * 1e3:.3f} ms: {sum(learned) / profiled:.4f}; "
+            "learned over profiled by region: " + ", ".join(
+                f"{lt / t:.3f}" for lt, (_, t) in zip(learned, pairs)))
+    log(f"  regions the GEMM model does not support: {unsupported}")
+
+
+def fitted_on_a_train_step(host, regions, times, projected_h100) -> None:
+    """(d) A model fitted on phase 12 (a)'s region times: each distinct
+    fingerprint's first region and time is one sample."""
+    samples, count = {}, {}
+    for r, t in zip(regions, times):
+        samples.setdefault(r.fingerprint, (r, t))
+        count[r.fingerprint] = count.get(r.fingerprint, 0) + 1
+    model = fit_model(regions, {f: t for f, (_, t) in samples.items()}, host,
+                      meta={"recorded_with": "profiling"})
+    log(f"  train-step model on {host.name}: {len(regions)} regions, "
+        f"{len(samples)} distinct fingerprints, digest {model.digest()}")
+    log_model("train-step model", model)
+    est = LearnedEstimator(host, model)
+    in_sample = sum(est.get_run_time_estimate(r) for r in regions)
+    total = sum(times)
+    log(f"  in-sample sum {in_sample * 1e3:.3f} ms beside profiled "
+        f"{total * 1e3:.3f} ms: {in_sample / total:.4f}; by sample "
+        "(regions sharing it x learned ms / its time ms): " + ", ".join(
+            f"{count[f]} x {est.get_run_time_estimate(r) * 1e3:.3f}/"
+            f"{t * 1e3:.3f}" for f, (r, t) in samples.items()))
+    h100 = default_registry().get("h100")
+    learned = sum(LearnedEstimator(h100, model).get_run_time_estimate(r)
+                  for r in regions)
+    log(f"  on the catalog's h100: learned (transferred) "
+        f"{learned * 1e3:.3f} ms beside phase 12 (a)'s projection "
+        f"{projected_h100 * 1e3:.3f} ms: {learned / projected_h100:.4f}")
+
+
+def learned_phase(profiled: tuple, smi: str) -> None:
+    """Phase 13, (a) to (d); ``profiled`` is phase 12 (a)'s regions, their
+    times and their sum projected onto ``h100``.  Launches no kernel of
+    the port: (b)'s GEMMs are ``dot_general``s, which the executor runs
+    with ``torch.matmul`` (held across (b))."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        grids_through_the_clis(tmp, smi)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    model, host = fitted_on_the_card("cuda", smi)
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    if any(launches.values()):
+        raise AssertionError(f"(b) launched kernels: {launches}")
+    regions, times, projected_h100 = profiled
+    gemm_model_on_a_train_step(model, host, regions, times)
+    fitted_on_a_train_step(host, regions, times, projected_h100)
+    log(f"  phase 13: {time.perf_counter() - t0:.1f} s, launches across "
+        f"(b) {launches}")
 
 
 # --------------------------------------------------------------------------
@@ -2038,8 +2300,11 @@ def main() -> int:
     launches, one_card = fig7_phase(gen)
     runs.append(launches)
     log("[12] profiling on the card")
-    runs.append(profiling_phase(train_launches, step_s, rank_s,
-                                one_card["resnet18"], smi))
+    launches, profiled = profiling_phase(train_launches, step_s, rank_s,
+                                         one_card["resnet18"], smi)
+    runs.append(launches)
+    log("[13] the learned estimator and the what-if search on the card")
+    learned_phase(profiled, smi)
     # launches on the main paths: K1 and K2 run on two, three or four
     for entry in (k1, k2, k3, k1b, k2b):
         key = entry["name"]

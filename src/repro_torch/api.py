@@ -28,13 +28,12 @@ Where the port differs from the reference's facade:
   :func:`repro_torch.core.pipeline.export_workload`; ``device=None`` means
   the card (the CPU only when asked), and ``per_rank`` gives a data mesh's
   per-rank step as the optimized text;
-* :meth:`Session.search` raises ``NotImplementedError``: the what-if search
-  is not ported yet;
 * the catalog id ``host`` (:func:`host_system`) is the calibrated card
   that the ``profiling`` estimator measures on, not the host CPU; the
   verbs that measure (:meth:`Session.predict`, :meth:`Session.campaign`,
   :meth:`Session.get_system` for ``host``) take a ``device``, the CPU only
-  when asked.
+  when asked; :meth:`Session.search` takes none, as the reference's, and
+  measures (if its ladder does) on the card.
 
 This module imports only the registries and the catalog at load time;
 numpy and torch are pulled in by the methods that need them.
@@ -52,12 +51,6 @@ __all__ = [
     "Session", "System", "Interconnect", "SystemRegistry", "Registry",
     "register_estimator", "register_topology", "host_system", "load_spec",
 ]
-
-#: why :meth:`Session.search` raises
-SEARCH_PENDING = (
-    "the what-if search (search/: spec, engine, pareto, report) is not "
-    "ported to repro_torch yet (ROADMAP, Queue 1 item 8: search)")
-
 
 class Session:
     """Registries + cache store + the pipeline verbs that use them.
@@ -273,9 +266,26 @@ class Session:
             schedule=schedule, progress=progress, session=self,
             device=device)
 
-    def search(self, spec, **kw):
-        """The reference's multi-fidelity what-if search: not ported."""
-        raise NotImplementedError(SEARCH_PENDING)
+    def search(self, spec, *, cache_path: str | None = None,
+               brute_force: bool = False, progress: bool = False):
+        """Run a multi-fidelity what-if search (see ``docs/search.md``).
+
+        ``spec`` is a SearchSpec, a spec dict, or a path to a spec JSON.
+        Like :meth:`campaign`, the session's live stores back the run —
+        a search after a campaign (or another search) over the same
+        workloads re-parses nothing and re-pays no cold miss."""
+        from .core.estimators.cache import PersistentCache
+        from .search.engine import run_search
+        from .search.spec import SearchSpec
+        if isinstance(spec, str):
+            spec = SearchSpec.from_json(spec, session=self)
+        elif isinstance(spec, dict):
+            spec = SearchSpec.from_dict(spec, session=self)
+        warm = cache_path is None or cache_path == self.cache_path
+        cache = self.cache_store if warm else PersistentCache(cache_path)
+        return run_search(spec, session=self, cache=cache,
+                          plan_store=self.plan_store,
+                          brute_force=brute_force, progress=progress)
 
     # ----------------------------- listing -----------------------------
 

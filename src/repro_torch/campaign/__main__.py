@@ -32,8 +32,8 @@ Where the port differs from the reference's CLI:
   ``--device cpu`` raises.  The ``profiling`` estimator runs each region,
   and the ``host`` system is calibrated, on the same device.  No device
   count is preset: a mesh's fake world takes any size;
-* ``--server`` (the ``serve`` daemon) and search specs (``ladder`` or
-  ``objectives``) raise ``NotImplementedError``: neither is ported yet;
+* ``--server`` (the ``serve`` daemon) raises ``NotImplementedError``: it
+  is not ported yet;
 * ``report --update-golden`` writes the new golden snapshot (and, when the
   spec has none, the reference rows) into the ``--out`` directory: the
   files under ``specs/`` are the reference's, and the port never writes
@@ -46,9 +46,8 @@ import json
 import os
 import sys
 
-# only spec.py and the facade at module load: `validate` and `list` need
-# neither numpy nor torch; the runner loads lazily in `run` and `report`
-from ..api import SEARCH_PENDING
+# only spec.py at module load: `validate` and `list` need neither numpy
+# nor torch; the runner loads lazily in `run` and `report`
 from .spec import CampaignSpec
 
 SERVER_PENDING = (
@@ -62,14 +61,10 @@ def load_specs(path: str,
     """Load a spec file into ``[(campaign_name, CampaignSpec), ...]``.
 
     A plain campaign yields one entry; a suite file yields one per
-    sub-campaign (path entries resolved relative to the suite file).  A
-    search spec raises ``NotImplementedError``.  ``session`` scopes spec
-    validation to its registries and catalogs."""
+    sub-campaign (path entries resolved relative to the suite file).
+    ``session`` scopes spec validation to its registries and catalogs."""
     with open(path) as f:
         raw = json.load(f)
-    if "ladder" in raw or "objectives" in raw:
-        raise NotImplementedError(f"{path} is a search spec, and "
-                                  f"{SEARCH_PENDING}")
     if "suite" not in raw:
         spec = CampaignSpec.from_file_dict(raw, path, session=session)
         return [(spec.name, spec)]
@@ -362,6 +357,20 @@ def main(argv: list[str] | None = None) -> int:
         bad = 0
         for path in args.spec:
             try:
+                with open(path) as f:
+                    raw = json.load(f)
+                if "ladder" in raw or "objectives" in raw:
+                    # search specs live beside the campaign grids, so
+                    # `validate specs/*.json` covers both kinds
+                    from ..search.spec import SearchSpec
+                    sspec = SearchSpec.from_file_dict(raw, path,
+                                                      session=session)
+                    n = len(sspec.campaign_for_rung(0).expand())
+                    print(f"search {sspec.name!r}: {n} candidates, "
+                          f"{len(sspec.ladder)}-rung ladder, objectives "
+                          f"{list(sspec.objectives)}")
+                    print(f"ok {path}")
+                    continue
                 for name, spec in load_specs(path, session=session):
                     spec.validate(session=session)
                     _print_grid(name, spec)

@@ -8,10 +8,7 @@ express that).  Expansion produces :class:`JobSpec` records made only of
 primitives, so they pickle cleanly into worker processes and serialize
 verbatim into result rows.
 
-The port's copy of the reference's ``campaign/spec.py``.  Its one
-difference: a spec that names an estimator kind the port has not ported
-yet (``learned``) fails validation with
-``NotImplementedError`` naming the slice that brings it.
+The port's copy of the reference's ``campaign/spec.py``.
 """
 from __future__ import annotations
 
@@ -423,8 +420,7 @@ class CampaignSpec:
         (registered estimator/topology kinds, slicer names, catalog
         system ids) — so validation catches typos that would otherwise
         only surface as all-error rows at run time.  Unknown kinds report
-        the registry's did-you-mean; a kind the port has not ported yet
-        raises ``NotImplementedError`` naming the slice that brings it.
+        the registry's did-you-mean.
 
         ``provided``: workload names supplied in-memory to the runner —
         those need no on-disk/arch source in the spec.  ``session``: an
@@ -447,9 +443,6 @@ class CampaignSpec:
             if e.kind not in estimators:
                 raise ValueError(
                     f"campaign spec: {estimators.unknown_message(e.kind)}")
-            pending = estimators.pending_message(e.kind)
-            if pending is not None:
-                raise NotImplementedError(f"campaign spec: {pending}")
         for t in self.topologies:
             if t.kind not in topologies:
                 raise ValueError(

@@ -14,10 +14,7 @@ Built-in kinds are registered *lazily*: the registry knows their names
 and home modules up front (so a spec validates without numpy), but only
 imports the module — whose ``@register_estimator`` /
 ``@register_topology`` decorators then fire — when a class is actually
-requested.  One builtin kind of the reference, ``learned``, stays in
-the vocabulary but is not ported yet (*pending*): resolving it raises
-``NotImplementedError`` naming the slice that brings it, and
-``CampaignSpec.validate`` refuses a spec that names it.
+requested.
 
 Third-party backends register through the same decorators::
 
@@ -164,14 +161,11 @@ class Registry:
     """
 
     def __init__(self, label: str, builtins: dict[str, str] | None = None,
-                 parent: "Registry | None" = None,
-                 pending: dict[str, str] | None = None):
+                 parent: "Registry | None" = None):
         self.label = label
         self.parent = parent
         self._entries: dict[str, type] = {}
         self._builtins: dict[str, str] = dict(builtins or {})
-        #: builtin kinds whose home module is not ported yet -> why
-        self._pending: dict[str, str] = dict(pending or {})
 
     # ------------------------------ queries ------------------------------
 
@@ -205,19 +199,6 @@ class Registry:
         discover_plugins()
         return (kind in self._entries or kind in self._builtins
                 or (self.parent is not None and kind in self.parent))
-
-    def pending_message(self, kind: str) -> str | None:
-        """Why ``kind`` cannot be built yet (a builtin kind whose module
-        is not ported), or None; a registration under the kind in this
-        scope or a parent's overrides the pending entry."""
-        reg: Registry | None = self
-        while reg is not None:
-            if kind in reg._entries:
-                return None
-            if kind in reg._pending:
-                return reg._pending[kind]
-            reg = reg.parent
-        return None
 
     def unknown_message(self, kind) -> str:
         """The error text for an unknown kind: live vocabulary plus a
@@ -298,8 +279,6 @@ class Registry:
         cls = self._entries.get(kind)
         if cls is not None:
             return cls
-        if kind in self._pending:
-            raise NotImplementedError(self._pending[kind])
         module = self._builtins.get(kind)
         if module is not None:
             importlib.import_module(module)
@@ -361,15 +340,6 @@ class Registry:
         return errs
 
 
-#: the builtin estimator kinds of the reference that the port has not
-#: ported yet, and the slice of ROADMAP Queue 1 that brings each
-PENDING_ESTIMATORS = {
-    "learned": (
-        "estimator kind 'learned' is not ported to repro_torch yet: it "
-        "waits for the learned-estimator slice (ROADMAP, Queue 1 item 7), "
-        "which can fit the profiling estimator's measurements"),
-}
-
 #: the global estimator vocabulary; builtin kinds resolve lazily from
 #: their home modules (each module self-registers via the decorator)
 ESTIMATORS = Registry("estimator", builtins={
@@ -379,7 +349,7 @@ ESTIMATORS = Registry("estimator", builtins={
     "profiling": "repro_torch.core.estimators.profiling",
     "table": "repro_torch.core.estimators.table",
     "learned": "repro_torch.core.estimators.learned",
-}, pending=PENDING_ESTIMATORS)
+})
 
 #: the global topology vocabulary
 TOPOLOGIES = Registry("topology", builtins={

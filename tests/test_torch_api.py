@@ -6,8 +6,9 @@ The counterparts of ``tests/test_api.py``: the session's vocabularies,
 to ``repro.api.Session``'s bit for bit (wall-clock fields left out),
 campaigns from a dict and from a path, scoped registries that do not leak,
 a session-registered system and estimator in a campaign, the ``host``
-system (the card, the CPU only when asked), and the parts that are not
-ported (``search``, ``--server``, search specs), which raise.  The CLI validates, lists, runs and reports
+system (the card, the CPU only when asked), ``search`` against the
+reference's, and ``--server``, which is not ported and raises.  The CLI
+validates campaign and search specs, lists, runs and reports
 ``specs/fig10_gemm.json`` to the reference CLI's rows; an arch workload
 exports only on the card or with ``--device cpu``; ``report
 --update-golden`` writes its snapshot into ``--out``, never under
@@ -211,11 +212,19 @@ def test_session_system_and_estimator_in_a_campaign():
 
 
 def test_search_and_the_host_system_raise():
-    """Search is not ported; ``host`` is the card, so without one it
-    raises unless the CPU is asked for."""
+    """Search runs and its frontier, counters and calibration equal the
+    reference's (objective values to 1e-9 relative); ``host`` is the card,
+    so without one it raises unless the CPU is asked for."""
     s = api.Session()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        s.search(str(SPECS / "search_gemm.json"))
+    ours = s.search(str(SPECS / "search_gemm.json"))
+    ref = ref_api.Session().search(str(SPECS / "search_gemm.json"))
+    assert ours.frontier == ref.frontier and len(ours.frontier) == 11
+    assert ours.counters == ref.counters
+    assert ours.calibration == ref.calibration
+    for k in ours.frontier:
+        for o, v in ref.candidates[k]["values"].items():
+            assert ours.candidates[k]["values"][o] == pytest.approx(
+                v, rel=1e-9, abs=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         s.get_system("host")
     assert s.get_system("host", device="cpu") is api.host_system("cpu")
@@ -283,15 +292,23 @@ def test_cli_update_golden_writes_into_out_and_not_specs(tmp_path):
     assert written["rows"] == json.loads(before)["rows"]
 
 
-def test_cli_server_and_search_specs_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="serve daemon"):
+def test_cli_server_and_search_specs_raise(tmp_path, capsys):
+    """``--server`` still raises, naming its slice; a search spec validates
+    as the reference's CLI validates it, and ``run`` on one fails as the
+    reference's does (it is not a campaign)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         main(["run", str(SPECS / "fig10_gemm.json"), "--server",
               "http://127.0.0.1:8733", "--out", str(tmp_path)])
-    for command in ("validate", "run"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            main([command, str(SPECS / "search_gemm.json"), "--out",
-                  str(tmp_path)] if command == "run"
-                 else [command, str(SPECS / "search_gemm.json")])
+    paths = [str(SPECS / "search_gemm.json"),
+             str(SPECS / "search_serving.json")]
+    assert main(["validate", *paths]) == 0
+    ours = capsys.readouterr().out
+    assert ref_main(["validate", *paths]) == 0
+    assert ours == capsys.readouterr().out
+    assert "search 'search-gemm': 42 candidates, 2-rung ladder" in ours
+    for cli in (main, ref_main):
+        with pytest.raises(ValueError, match="unknown campaign spec keys"):
+            cli(["run", paths[0], "--out", str(tmp_path)])
 
 
 def _arch_spec(tmp_path) -> str:

@@ -46,12 +46,19 @@ def test_every_module_and_chip_smoke_import_without_jax_or_repro():
     # sharding, data_parallel), campaign (8: the package, spec, builders,
     # plans, summary, report, runner, __main__), core (8: the package,
     # export, stablehlo, executor, pipeline, registry, systems, catalog)
-    # with its ir (10), slicing (5: with emit), estimators (7: with
-    # profiling), network (4) and trace (2) subpackages
+    # with its ir (10), slicing (5: with emit), estimators (8: with
+    # profiling and learned), network (4) and trace (2) subpackages,
+    # search (6: the package, pareto, spec, engine, report, __main__) and
+    # tools (2: the package, fit_learned_model)
     names = proc.stdout.split()
-    assert len(names) >= 91
+    assert len(names) >= 99
     assert {"repro_torch.core.executor", "repro_torch.core.slicing.emit",
-            "repro_torch.core.estimators.profiling"} <= set(names)
+            "repro_torch.core.estimators.profiling",
+            "repro_torch.core.estimators.learned",
+            "repro_torch.search", "repro_torch.search.pareto",
+            "repro_torch.search.spec", "repro_torch.search.engine",
+            "repro_torch.search.report", "repro_torch.search.__main__",
+            "repro_torch.tools.fit_learned_model"} <= set(names)
 
 
 @pytest.fixture

@@ -409,22 +409,22 @@ def test_every_paper_grid_validates(path):
             == [j.to_row() for j in theirs.expand()])
 
 
-@pytest.mark.parametrize("kind,slice_name", [
-    ("learned", "learned-estimator slice")])
-def test_unported_estimator_kinds_fail_naming_their_slice(kind, slice_name):
+@pytest.mark.parametrize("kind,module", [
+    ("learned", "repro_torch.core.estimators.learned")])
+def test_unported_estimator_kinds_fail_naming_their_slice(kind, module):
+    """Every estimator kind of the reference is ported now: each resolves
+    to the port's own class, and the checked-in grid naming it loads."""
     assert registry.ESTIMATORS.kinds() == ref_registry.ESTIMATORS.kinds()
     assert kind in registry.ESTIMATORS
-    with pytest.raises(NotImplementedError, match=slice_name):
-        registry.ESTIMATORS.get(kind)
+    cls = registry.ESTIMATORS.get(kind)
+    assert cls.__module__ == module
     d = {"name": "x", "workloads": [{"name": "g", "gemm": {
         "m": 64, "n": 64, "k": 64}}], "estimators": [{"kind": kind}]}
-    with pytest.raises(NotImplementedError, match=slice_name):
-        campaign.CampaignSpec.from_dict(d)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        registry.ESTIMATORS.get(kind)
+    assert [j.estimator.kind for j in
+            campaign.CampaignSpec.from_dict(d).expand()] == [kind]
     # the checked-in grid of the learned tier
-    with pytest.raises(NotImplementedError, match=slice_name):
-        campaign.CampaignSpec.from_json(str(SPECS / "learned_fidelity.json"))
+    spec = campaign.CampaignSpec.from_json(str(SPECS / "learned_fidelity.json"))
+    assert len(spec.expand()) == 16
 
 
 def test_the_profiling_kind_resolves_and_a_spec_naming_it_validates():
@@ -432,7 +432,7 @@ def test_the_profiling_kind_resolves_and_a_spec_naming_it_validates():
     estimator, and a spec that names it validates."""
     from repro_torch.core.estimators.profiling import ProfilingEstimator
     assert registry.ESTIMATORS.get("profiling") is ProfilingEstimator
-    assert registry.ESTIMATORS.pending_message("profiling") is None
+    assert not hasattr(registry.ESTIMATORS, "pending_message")
     d = {"name": "x", "workloads": [{"name": "g", "gemm": {
         "m": 64, "n": 64, "k": 64}}], "systems": ["host", "h100"],
         "estimators": [{"kind": "profiling", "options": {"runs": 1}}]}
