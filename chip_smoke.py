@@ -131,7 +131,22 @@ prints no result line):
    profiled times, and how many it does not (a finding, not held); (d) a
    model fitted on phase 12 (a)'s region times (which launched K1, K1b, K2
    and K2b): its families, the in-sample sum beside the profiled sum, and
-   the sum transferred to ``h100`` beside phase 12 (a)'s projection.
+   the sum transferred to ``h100`` beside phase 12 (a)'s projection;
+14. other families serving, at their published widths with depth cut:
+   mixtral-8x22b (4 of 56 layers; the sparse MoE, window 4096), gemma2-27b
+   (8 of 46; local and global layers, tanh caps), qwen2.5-32b and
+   deepseek-67b (2 layers each): ``prefill`` on 2 prompts of 8192 tokens
+   (K1 once a layer, K2 2L+1), and for mixtral and gemma2 ``generate`` on 8
+   prompts of 64 tokens (32 new, max_len 128; K2 2L+1 a step), with the
+   launch counts read around them, peak memory, the logits finite and
+   shaped; each checked layer's attention output (K1 against the plain
+   path on the same input) and, at each MoE layer, the share of tokens
+   whose experts differ between the two (at most 1%); the logits gate of
+   phase 4 on the last 64 positions of each prompt and on
+   prefill-by-decode, an MoE's only on the rows that the K1, plain and f32
+   runs routed alike at every layer; a profile of the prefill by kernel
+   and by op (expert GEMMs, other GEMMs, the MoE's data movement, K1, K2).
+   Phase 3 holds K1 at these prefills' shapes and K2 at their widths.
 
 The last lines are one JSON object ``{"kernels": [...]}``, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -183,7 +198,7 @@ from repro_torch.kernels.flash_attention import ops as k1_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, flash_attention_bwd)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    bwd_kernel_error as k1b_error, flash_attention_bwd_ref,
+    bwd_kernel_error as k1b_error, by_kv_head, flash_attention_bwd_ref,
     flash_attention_fwd_ref, flash_attention_ref, kernel_error, lse_error)
 from repro_torch.kernels.rmsnorm import ops as k2_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd  # noqa: E402
@@ -195,13 +210,18 @@ from repro_torch.launch.mesh import traced_mesh  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     kernel_error as ssd_error, ssd_scan_ref)
 from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import mlp as model_mlp  # noqa: E402
+from repro_torch.models.mlp import (_capacity as moe_capacity,  # noqa: E402
+                                    moe_dispatch)
 from repro_torch.models.attention import gqa_forward  # noqa: E402
-from repro_torch.models.common import embed_lookup, rms_norm  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
 from repro_torch.models.resnet import (make_resnet_train_step,  # noqa: E402
                                        resnet_arch_config, resnet_specs,
                                        resnet_train_exports)
 from repro_torch.models.ssm import mamba2_forward  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    _layer_window, _logits, _positions, _unstack, attn_block, ffn)
 from repro_torch.models.transformer import (TransformerLM, _embed,  # noqa: E402
                                             decode_step, init_cache_specs,
                                             model_specs, prefill)
@@ -307,7 +327,17 @@ K1_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, q_offset
     # d=128 (two swizzled column blocks) in the strided layout, ragged
     # across 128-row and 128-key tiles, Sq < Skv
     ("d128_bshd", 1, 8, 2, 1000, 1111, 128, True, 0, 0.0, 111),
+    # phase 14's prefills (one of their two prompts) at 8192 tokens and
+    # D 128 in the strided layout: mixtral's window of 4096 (48/8 heads),
+    # gemma2's local layer (window 4096) and global layer, both with the
+    # tanh cap of 50 (32/16 heads)
+    ("mixtral_bshd", 1, 48, 8, 8192, 8192, 128, True, 4096, 0.0, 0),
+    ("gemma2_local_bshd", 1, 32, 16, 8192, 8192, 128, True, 4096, 50.0, 0),
+    ("gemma2_global_bshd", 1, 32, 16, 8192, 8192, 128, True, 0, 50.0, 0),
 ]
+# the rows timed beside their bound (bf16; "prefill" in f32 too)
+K1_TIMED = ("prefill", "mixtral_bshd", "gemma2_local_bshd",
+            "gemma2_global_bshd")
 
 
 def k1_inputs(gen, name, b, hq, hkv, sq, skv, d, dtype):
@@ -317,6 +347,28 @@ def k1_inputs(gen, name, b, hq, hkv, sq, skv, d, dtype):
                                ).to(dtype).transpose(1, 2)
         return torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
     return randn(hq, sq), randn(hkv, skv), randn(hkv, skv)
+
+
+def k1_library_ms(q, k, v, causal, window, cap, q_offset):
+    """One SDPA call computing what K1 computes, timed (a yardstick the
+    port never calls): causal, or a boolean mask for a window (with K and
+    V repeated over the query heads, outside the timing, so that the
+    memory-efficient kernel takes the mask); None with a tanh cap, which
+    no PyTorch call applies."""
+    if cap > 0 or q_offset or not causal:
+        return None
+    if not window:
+        return device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    g = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    diff = (torch.arange(q.shape[2], device=q.device)[:, None]
+            - torch.arange(k.shape[2], device=q.device)[None, :])
+    mask = (diff >= 0) & (diff < window)
+    ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, kr, vr, attn_mask=mask))
+    del kr, vr, mask
+    return ms
 
 
 def k1_visible_pairs(sq, skv, causal, window, q_offset) -> int:
@@ -356,28 +408,34 @@ def check_k1(gen) -> dict:
                 raise AssertionError(f"K1 {name} {dtype}: max abs err {err}, "
                                      f"element {elem}, row {row} of tol, lse "
                                      f"{lse_ratio} of tol, same {same}")
-            if name != "prefill":
+            if name not in K1_TIMED or (name != "prefill"
+                                        and dtype != torch.bfloat16):
                 continue
             # null lse: the serving path's launch
             ms = device_ms(lambda: flash_attention(q, k, v, **kw))
             lse_ms = device_ms(lambda: k1_ops._forward(q, k, v, with_lse=True,
                                                        **kw))
-            plain_ms = device_ms(lambda: flash_attention_ref(q, k, v, **kw),
+            # the plain version; at 8192 tokens a KV head's group at a time
+            # (the f32 scores of all heads at once would not fit)
+            plain_ms = device_ms((lambda: flash_attention_ref(q, k, v, **kw))
+                                 if name == "prefill" else (lambda: [
+                                     flash_attention_ref(qh, kh, vh, **kw)
+                                     for _, qh, kh, vh in by_kv_head(q, k, v)]),
                                  batches=3, per_batch=2)
-            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
+            lib_ms = k1_library_ms(q, k, v, causal, window, cap, off)
             scores = k1_visible_pairs(sq, skv, causal, window, off) * b * hq
             flops = 4 * d * scores
             nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            log(f"  K1 prefill {str(dtype)[6:]}: kernel {ms:.4f} ms "
+            log(f"  K1 {name} {str(dtype)[6:]}: kernel {ms:.4f} ms "
                 f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-                f"SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                f"SDPA {'none (a tanh cap)' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+                f"bound {bound_ms:.4f} ms ({bound_by}; "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
                 f"exponential floor {scores / EXP_RATE * 1e3:.4f} ms "
                 f"({scores / 1e6:.1f} M visible scores); writing lse "
                 f"{lse_ms:.4f} ms")
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and name == "prefill":
                 entry = {"name": "flash_attention", "route": "cuda",
                          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                          "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
@@ -392,6 +450,13 @@ K2_CASES = [  # name, rows, d, offset
     ("decode", 8, 2048, 0.0),
     ("rank", 2048, 2048, 0.0),       # phase 10's per-rank step
     ("mamba_ln", 8192, 1024, 0.0),   # mamba2-370m's ln and final_norm
+    # phase 14's prefills (2 x 8192 tokens) and decode steps (8 rows)
+    ("mixtral", 16384, 6144, 0.0),
+    ("mixtral_decode", 8, 6144, 0.0),
+    ("gemma2", 16384, 4608, 0.0),
+    ("gemma2_decode", 8, 4608, 0.0),
+    ("qwen2.5", 16384, 5120, 0.0),
+    ("deepseek", 16384, 8192, 0.0),
     ("scalar_path", 37, 1001, 1.0),
 ]
 
@@ -796,7 +861,7 @@ def check_logits(cfg, params, logits, prompts, dprompts) -> None:
     if cfg.family == "ssm":
         check_ssm_layer(cfg, chunked, params, prompts)
     else:
-        check_layer(cfg, chunked, params, prompts)
+        check_family_layers(cfg, chunked, params, prompts)
     kernel = "K3" if cfg.family == "ssm" else "K1"
     ref32 = prefill(cfg32, params32, {"tokens": prompts})
     hold(f"prefill 4x2048 ({kernel} path)", logits,
@@ -830,25 +895,6 @@ def decode_logits(cfg, params, prompts):
         logits, cache = decode_step(cfg, params, cache,
                                     {"tokens": prompts[:, i:i + 1]})
     return logits
-
-
-def check_layer(cfg, chunked, params, prompts) -> None:
-    """The first layer's attention output (``gqa_forward``, which hands K1
-    transposed views of its projections) from the K1 path against the plain
-    chunked path on the same bf16 inputs, held row by row."""
-    attn = {k: t[0] for k, t in params["layers"]["attn"].items()}
-    x = rms_norm(embed_lookup(prompts, params["embed"]),
-                 params["layers"]["ln1"][0], cfg.rms_eps)
-    pos = torch.arange(prompts.shape[1], dtype=torch.int32,
-                       device=prompts.device).expand(prompts.shape)
-    out = gqa_forward(cfg, attn, x, pos).float()
-    plain = gqa_forward(chunked, attn, x, pos).float()
-    row = ((out - plain).norm(dim=-1) / plain.norm(dim=-1)).max().item()
-    log(f"  layer 0 attention output 4x2048, K1 path against the plain "
-        f"path: largest row error {row:.3e} of the row's norm "
-        f"(tol {LAYER_ROW_TOL:g})")
-    if not row <= LAYER_ROW_TOL:
-        raise AssertionError(f"layer 0 attention: row error {row}")
 
 
 def check_ssm_layer(cfg, chunked, params, prompts) -> None:
@@ -2167,6 +2213,310 @@ def learned_phase(profiled: tuple, smi: str) -> None:
 
 
 # --------------------------------------------------------------------------
+# phase 14: the other families' serving paths at full width
+# --------------------------------------------------------------------------
+
+# (id, layers kept of the published depth, whether the run decodes too):
+# each at its published width with random weights from the seed, its depth
+# cut so that the phase fits the script's time (PERF.md section 4)
+FAMILIES = [("mixtral-8x22b", 4, True), ("gemma2-27b", 8, True),
+            ("qwen2.5-32b", 2, False), ("deepseek-67b", 2, False)]
+# prefill: 2 prompts of 8192 tokens, longer than the 4096-token windows
+FAMILY_B, FAMILY_S = 2, 8192
+# greedy decode: 8 prompts of 64 tokens, 32 new tokens, max_len 128
+DECODE_B, DECODE_S, DECODE_NEW, DECODE_MAX = 8, 64, 32, 128
+# the logits gate holds the last FAMILY_ROWS positions of each prompt
+FAMILY_ROWS = 64
+# the share of tokens whose experts (after the capacity drops) may differ
+# between the K1 path and the plain path at one MoE layer, both fed the
+# same layer input: K1's bf16 rounding moves the router's input, and a
+# token within that of a top-k tie flips
+ROUTING_FLIP_TOL = 0.01
+# device time of the prefill: K1's and K2's kernels (launched outside any
+# PyTorch op), and by PyTorch op (the ops' own kernels) the MoE's grouped
+# GEMMs, the other GEMMs and the MoE's data movement
+FAMILY_KERNEL_GROUPS = {"K1": ["flash_fwd"], "K2": ["rmsnorm"]}
+FAMILY_OP_GROUPS = {
+    "expert GEMMs (bmm)": ["aten::bmm"],
+    "other GEMMs (projections, router, head)": ["aten::mm", "aten::addmm"],
+    "MoE dispatch (top-k, sort, cumsum, gathers, scatter-adds)": [
+        "aten::topk", "aten::sort", "aten::cumsum", "aten::index",
+        "aten::index_add", "aten::scatter_add", "aten::where",
+        "aten::gather"],
+}
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """Each ``moe_route`` call's top-k experts [T, k], in call order (layer
+    by layer; in a decode, step by step)."""
+    orig, seen = model_mlp.moe_route, []
+
+    def route(cfg, p, xf):
+        top_w, top_e = orig(cfg, p, xf)
+        seen.append(top_e)
+        return top_w, top_e
+    model_mlp.moe_route = route
+    try:
+        yield seen
+    finally:
+        model_mlp.moe_route = orig
+
+
+def routed(cfg, top_e) -> torch.Tensor:
+    """[T, E]: which experts take each token of one routing call, after
+    that call's capacity drops."""
+    t, k = top_e.shape
+    order, _, keep, _ = moe_dispatch(top_e, cfg.moe.num_experts,
+                                     moe_capacity(t, cfg.moe))
+    kept = torch.empty_like(keep).scatter_(0, order, keep).view(t, k)
+    return torch.zeros(t, cfg.moe.num_experts, dtype=torch.bool,
+                       device=top_e.device).scatter_(1, top_e, kept)
+
+
+def walk_logits(cfg, params, tokens, rows: int, f32: bool = False):
+    """``prefill``'s layers one by one, with the head on the last ``rows``
+    positions of each prompt: [B * rows, V] f32.  With ``f32`` on an f32
+    copy of the weights made a layer at a time (a copy of all of
+    mixtral's cut layers would take 42 GB)."""
+    cast = (lambda t: t.float()) if f32 else (lambda t: t)
+    if f32:
+        cfg = cfg.scaled(dtype="float32")
+    top = {k: cast(v) for k, v in params.items() if k != "layers"}
+    batch = {"tokens": tokens}
+    h, pos = _embed(cfg, top, batch), _positions(batch)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        h = attn_block(cfg, tree_map(lp, cast), h, pos, i)
+    return _logits(cfg, top, h[:, -rows:].contiguous()).flatten(0, 1)
+
+
+def check_family_layers(cfg, chunked, params, prompts) -> None:
+    """Each checked layer fed the K1 path's hidden state: its attention
+    output (K1 against the plain chunked path on the same input, row by
+    row), and with an MoE the share of tokens whose experts differ between
+    the two (held at ROUTING_FLIP_TOL) and the layer's output of the
+    tokens whose experts agree (measured).  gemma2's first local and global
+    layers; every layer of an MoE; the first layer otherwise."""
+    moe = cfg.moe is not None
+    last = (cfg.num_layers if moe else max(cfg.local_global_pattern, 1))
+    batch = {"tokens": prompts}
+    h, pos = _embed(cfg, params, batch), _positions(batch)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)[:last]):
+        x = rms_norm(h, lp["ln1"], cfg.rms_eps)
+        w = _layer_window(cfg, i)
+        a = gqa_forward(cfg, lp["attn"], x, pos, layer_window=w)
+        ap = gqa_forward(chunked, lp["attn"], x, pos, layer_window=w)
+        row = ((a.float() - ap.float()).norm(dim=-1)
+               / ap.float().norm(dim=-1)).max().item()
+        log(f"  layer {i} (window {w}) attention output "
+            f"{prompts.shape[0]}x{prompts.shape[1]}, K1 path against the "
+            f"plain path: largest row error {row:.3e} of the row's norm "
+            f"(tol {LAYER_ROW_TOL:g})")
+        if not row <= LAYER_ROW_TOL:
+            raise AssertionError(f"layer {i} attention: row error {row}")
+        if moe:
+            xs = [rms_norm(h + y, lp["ln2"], cfg.rms_eps) for y in (a, ap)]
+            with routes_recorded() as seen:
+                m, mp = (ffn(cfg, lp, x2) for x2 in xs)
+            flip = (routed(cfg, seen[0]) != routed(cfg, seen[1])).any(-1)
+            share = flip.float().mean().item()
+            agree = ~flip.view(m.shape[:2])
+            y, yp = (a + m).float()[agree], (ap + mp).float()[agree]
+            mrow = ((y - yp).norm(dim=-1) / yp.norm(dim=-1)).max().item()
+            # not held: under the reference's init the router's logits have
+            # a spread of about 40, so a token near a tie of its first two
+            # experts moves its two weights by up to a quarter of the change
+            # of its logits (the logits gate holds the end result)
+            log(f"  layer {i} MoE: experts differ between the K1 and the "
+                f"plain path for {int(flip.sum())} of {flip.numel()} tokens "
+                f"({share:.4%}, tol {ROUTING_FLIP_TOL:.0%}); the layer's "
+                f"output (attention + MoE) of the other tokens: largest row "
+                f"error {mrow:.3e} of the row's norm (measured, not held)")
+            if share > ROUTING_FLIP_TOL:
+                raise AssertionError(f"layer {i} MoE: {share:.4%} of tokens "
+                                     "flip")
+        h = attn_block(cfg, lp, h, pos, i)
+
+
+def agreeing_rows(name, per_layer, held=None) -> torch.Tensor:
+    """``per_layer``: for each MoE layer, the [T, E] routings of the K1,
+    plain and f32 runs.  Logs each layer's share of tokens routed otherwise
+    by the plain and the f32 run than by the K1 run (not held: whole paths
+    compound their rounding, and a flip moves the later layers' inputs);
+    returns which of the ``held`` tokens (None: all) all three routed alike
+    at every layer."""
+    agree = None
+    for layer, (r, rp, r32) in enumerate(per_layer):
+        to_plain, to_f32 = ((r != x).any(-1) for x in (rp, r32))
+        same = ~(to_plain | to_f32)
+        same = same if held is None else same[held]
+        agree = same if agree is None else agree & same
+        log(f"  {name}, MoE layer {layer}: tokens routed otherwise than on "
+            f"the K1 path: plain path {to_plain.float().mean().item():.4%}, "
+            f"f32 {to_f32.float().mean().item():.4%} of {r.shape[0]}")
+    log(f"  {name}: {int(agree.sum())} of {agree.numel()} held rows routed "
+        "alike at every layer")
+    if not agree.any():
+        raise AssertionError(f"{name}: no held row routed alike")
+    return agree
+
+
+def check_family_logits(cfg, params, prompts, dprompts, logits) -> None:
+    """The logits gate of phases 4 and 5: the K1 path's bf16 logits
+    against the plain chunked path's and an f32 run's (``hold``), on the
+    last FAMILY_ROWS positions of each 8192-token prompt (the walk of the
+    layers that ``prefill`` takes, whose last rows the main path's logits
+    must equal to f32 rounding) and, for a run that decodes, on
+    prefill-by-decode's last logits; with an MoE only on the rows that all
+    three routed alike at every layer."""
+    chunked = cfg.scaled(attn_impl="chunked")
+    check_family_layers(cfg, chunked, params, prompts)
+    runs, out = [], []
+    for c, f32 in ((cfg, False), (chunked, False), (chunked, True)):
+        with routes_recorded() as seen:
+            out.append(walk_logits(c, params, prompts, FAMILY_ROWS, f32))
+        runs.append(seen)
+    last = torch.arange(1, FAMILY_B + 1, device="cuda") * FAMILY_ROWS - 1
+    _, diff = max_rel_diff(logits, out[0][last])
+    log(f"  the main path's prefill logits against the walk's last rows: "
+        f"max |diff| / max |logit| {diff:.3e} (tol 2^-10)")
+    if not diff <= 2.0 ** -10:
+        raise AssertionError("the main path's prefill left the walk's path")
+    rows = slice(None)
+    if cfg.moe is not None:
+        held = (torch.arange(FAMILY_B, device="cuda")[:, None] * FAMILY_S
+                + torch.arange(FAMILY_S - FAMILY_ROWS, FAMILY_S,
+                               device="cuda")).flatten()
+        rows = agreeing_rows(
+            f"prefill {FAMILY_B}x{FAMILY_S}",
+            [[routed(cfg, run[i]) for run in runs]
+             for i in range(cfg.num_layers)], held)
+    hold(f"prefill {FAMILY_B}x{FAMILY_S}, last {FAMILY_ROWS} positions "
+         "(K1 path)", out[0][rows], out[1][rows], out[2][rows])
+    if dprompts is None:
+        return
+    runs, out = [], []
+    with routes_recorded() as seen:
+        out.append(decode_logits(cfg, params, dprompts))
+    runs.append(seen)
+    for f32 in (False, True):
+        with routes_recorded() as seen:
+            out.append(walk_logits(chunked, params, dprompts, 1, f32))
+        runs.append(seen)
+    rows = slice(None)
+    if cfg.moe is not None:
+        # the last prompt token: decode's last step, the walks' last rows
+        n, step = cfg.num_layers, DECODE_S - 1
+        rows = agreeing_rows(
+            f"prefill-by-decode {DECODE_B}x{DECODE_S}",
+            [[routed(cfg, runs[0][step * n + i]),
+              *(routed(cfg, run[i])[DECODE_S - 1::DECODE_S]
+                for run in runs[1:])] for i in range(n)])
+    hold(f"prefill-by-decode {DECODE_B}x{DECODE_S}", out[0][rows],
+         out[1][rows], out[2][rows])
+
+
+def serve_family(arch: str, layers: int, decodes: bool, gen) -> dict:
+    """One family's serving path at full width, ``layers`` deep: prefill of
+    2 x 8192 tokens and, for a run that decodes, ``generate`` 8 x (64 + 32)
+    with the launch counts read around them; then the checks, the logits
+    gate and the prefill's profile.  K1 runs once a layer in prefill and
+    never in decode; K2 twice a layer and once at the end, in prefill and
+    in each decode step."""
+    cfg = get_config(arch).scaled(num_layers=layers)
+    assert cfg.attn_impl == "kernel" and cfg.dtype == "bfloat16"
+    torch.cuda.empty_cache()
+    model = TransformerLM(cfg, generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {arch}: {layers} of {get_config(arch).num_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
+        f"{cfg.resolved_head_dim}, window {cfg.sliding_window}"
+        f"{' (even layers)' if cfg.local_global_pattern else ''}, cap "
+        f"{cfg.attn_logit_softcap}, vocab {cfg.vocab_size}"
+        f"{', experts %d top-%d' % (cfg.moe.num_experts, cfg.moe.top_k) if cfg.moe else ''}: "
+        f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}")
+    v = cfg.vocab_size
+    prompts = torch.randint(0, v, (FAMILY_B, FAMILY_S), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    dprompts = (torch.randint(0, v, (DECODE_B, DECODE_S), generator=gen,
+                              device="cuda", dtype=torch.int32)
+                if decodes else None)
+    with torch.inference_mode():
+        model.prefill({"tokens": prompts})   # warm-up: cuBLAS, caches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path: counts at 0 just before, read just after ----
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        logits = model.prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        in_prefill = {k: fn.launches for k, fn in COUNTERS.items()}
+        peak = torch.cuda.max_memory_allocated()
+        decode_s = 0.0
+        if decodes:
+            t0 = time.perf_counter()
+            res = model.generate(dprompts, max_new_tokens=DECODE_NEW,
+                                 max_len=DECODE_MAX)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in COUNTERS.items()}
+        # ---- end of the main path ----
+
+    steps = DECODE_S + DECODE_NEW if decodes else 0
+    expected = {k: 0 for k in COUNTERS}
+    expected.update({"flash_attention": layers, "rmsnorm": 2 * layers + 1})
+    tokens = FAMILY_B * FAMILY_S
+    log(f"  prefill {FAMILY_B}x{FAMILY_S}: {prefill_s * 1e3:.2f} ms, "
+        f"{tokens / prefill_s:.0f} tokens/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB ({card()})"
+        + (f"; greedy_decode {DECODE_B}x({DECODE_S}+{DECODE_NEW}): "
+           f"{decode_s * 1e3:.2f} ms, {decode_s / steps * 1e3:.3f} ms/step"
+           if decodes else ""))
+    log(f"  launches: prefill {in_prefill}; whole run {launches}")
+    if in_prefill != expected:
+        raise AssertionError(f"prefill launches {in_prefill}, expected "
+                             f"{expected}")
+    expected["rmsnorm"] *= 1 + steps
+    if launches != expected:
+        raise AssertionError(f"main-path launches {launches}, expected "
+                             f"{expected} ({2 * layers + 1} K2 and nothing "
+                             "else per decode step)")
+    if logits.shape != (FAMILY_B, v) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    if decodes:
+        toks = res.tokens
+        if (toks.shape != (DECODE_B, DECODE_NEW) or toks.dtype != torch.int32
+                or int(toks.min()) < 0 or int(toks.max()) >= v):
+            raise AssertionError(f"greedy tokens {tuple(toks.shape)} "
+                                 f"{toks.dtype} out of shape or range")
+    with torch.inference_mode():
+        check_family_logits(cfg, model.params, prompts, dprompts, logits)
+        profile_window(f"prefill {FAMILY_B}x{FAMILY_S}",
+                       lambda: model.prefill({"tokens": prompts}), top=8,
+                       groups=FAMILY_KERNEL_GROUPS,
+                       op_groups=FAMILY_OP_GROUPS)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def families_phase(gen) -> list:
+    """Phase 14: the four ids' serving paths; their launch counts."""
+    t0 = time.perf_counter()
+    runs = []
+    for arch, layers, decodes in FAMILIES:
+        t1 = time.perf_counter()
+        runs.append(serve_family(arch, layers, decodes, gen))
+        log(f"  {arch}: {time.perf_counter() - t1:.1f} s")
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# --------------------------------------------------------------------------
 # phase 5: where the time goes (torch.profiler)
 # --------------------------------------------------------------------------
 
@@ -2186,11 +2536,14 @@ def where_the_time_goes(model, prompts, dprompts) -> None:
         profile_window(name, fn)
 
 
-def profile_window(name: str, fn, top: int = 10, groups=None) -> None:
+def profile_window(name: str, fn, top: int = 10, groups=None,
+                   op_groups=None) -> None:
     """Device time by kernel (the ``top`` kernels) and the device's busy
     share over one call of ``fn``, from ``torch.profiler``; with ``groups``
     ({label: substrings of kernel names}) also the device time of each
-    group, the first matching label taking a kernel, the rest as
+    group, the first matching label taking a kernel, and with
+    ``op_groups`` ({label: PyTorch op names}) the device time of the
+    kernels those ops launched themselves (and the top ops), the rest as
     "other"."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2201,8 +2554,8 @@ def profile_window(name: str, fn, top: int = 10, groups=None) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA"
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"
                and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
@@ -2214,14 +2567,29 @@ def profile_window(name: str, fn, top: int = 10, groups=None) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<5} {e.key[:80]}")
-    if groups:
-        sums = dict.fromkeys([*groups, "other"], 0.0)
-        for e in kernels:
-            label = next((g for g, keys in groups.items()
-                          if any(k in e.key for k in keys)), "other")
-            sums[label] += e.self_device_time_total / 1e3
-        log("  by group: " + "; ".join(f"{g} {ms:.2f} ms"
-                                      for g, ms in sums.items()))
+    if not (groups or op_groups):
+        return
+    sums = {}
+    rest = list(kernels)
+    for g, keys in (groups or {}).items():
+        mine = [e for e in rest if any(k in e.key for k in keys)]
+        rest = [e for e in rest if e not in mine]
+        sums[g] = sum(e.self_device_time_total for e in mine) / 1e3
+    ops = [e for e in events if e.device_type.name == "CPU"
+           and e.self_device_time_total > 0]
+    for g, names in (op_groups or {}).items():
+        sums[g] = sum(e.self_device_time_total for e in ops
+                      if e.key in names or e.key.rstrip("_") in names) / 1e3
+    if op_groups:
+        sums["other"] = busy_ms - sum(sums.values())
+    else:
+        sums["other"] = sum(e.self_device_time_total for e in rest) / 1e3
+    log("  by group: " + "; ".join(f"{g} {ms:.2f} ms ({ms / busy_ms:.1%})"
+                                  for g, ms in sums.items()))
+    if op_groups:
+        for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+            log(f"    op {e.self_device_time_total / 1e3:9.3f} ms "
+                f"x{e.count:<5} {e.key}")
 
 
 def main() -> int:
@@ -2305,6 +2673,9 @@ def main() -> int:
     runs.append(launches)
     log("[13] the learned estimator and the what-if search on the card")
     learned_phase(profiled, smi)
+    log("[14] other families serving: mixtral-8x22b (sparse MoE), "
+        "gemma2-27b, qwen2.5-32b, deepseek-67b")
+    runs += families_phase(gen)
     # launches on the main paths: K1 and K2 run on two, three or four
     for entry in (k1, k2, k3, k1b, k2b):
         key = entry["name"]

@@ -228,8 +228,8 @@ def _list_command(args) -> int:
     info = session.describe()
     print("estimator kinds: " + ", ".join(info["estimators"]))
     print("topology kinds:  " + ", ".join(info["topologies"]))
-    print(f"systems ({len(info['systems'])} catalog entries; 'host' is not "
-          "ported yet):")
+    # 'host' is the card (core/systems.py::host_system), resolved at use
+    print(f"systems ({len(info['systems'])} catalog entries + 'host'):")
     width = max((len(s["id"]) for s in info["systems"]), default=0)
     for s in info["systems"]:
         print(f"  {s['id']:<{width}}  {s['name']:<18} {s['source']}")

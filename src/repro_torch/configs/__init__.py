@@ -1,2 +1,3 @@
-"""Copies of the JAX package's configuration dataclasses and of the Llama
-and mamba2-370m configs."""
+"""Copies of the JAX package's configuration dataclasses and of the configs
+of the ids the port serves: the Llama family, mamba2-370m, deepseek-67b,
+qwen2.5-32b, gemma2-27b and mixtral-8x22b."""

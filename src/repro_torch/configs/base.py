@@ -111,11 +111,67 @@ class ModelConfig:
         return self.d_model // self.num_heads if self.num_heads else 0
 
     @property
+    def is_encoder_only(self) -> bool:
+        return not self.causal
+
+    @property
     def attention_free(self) -> bool:
         return self.family == "ssm"
 
     def scaled(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+    # ---- analytical parameter counts (for 6·N·D model flops) ----
+    def param_count(self) -> tuple[int, int]:
+        """(total_params, active_params). Active differs for MoE."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        hd = self.resolved_head_dim
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        total = active = emb
+        if self.family in ("ssm", "hybrid"):
+            s = self.ssm or SSMConfig()
+            di = s.d_inner(d)
+            nh = s.n_heads(d)
+            per = (d * (2 * di + 2 * s.n_groups * s.d_state + nh)  # in_proj
+                   + s.d_conv * (di + 2 * s.n_groups * s.d_state)  # conv
+                   + di * d                                        # out_proj
+                   + 2 * nh + d)                                   # A, D, norm
+            n_ssm = L
+            attn_per = 0
+            if self.family == "hybrid" and self.hybrid_attn_every:
+                kvh = self.num_kv_heads
+                attn_per = (d * self.num_heads * hd + 2 * d * kvh * hd
+                            + self.num_heads * hd * d + d * self.d_ff * 3)
+                total += attn_per  # shared block counted once
+                active += attn_per
+            total += n_ssm * per
+            active += n_ssm * per
+            return total, active
+        kvh = self.num_kv_heads
+        if self.mla is not None:
+            m = self.mla
+            qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+            attn = (d * m.q_lora_rank + m.q_lora_rank * self.num_heads * qk_hd
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * self.num_heads
+                    * (m.qk_nope_head_dim + m.v_head_dim)
+                    + self.num_heads * m.v_head_dim * d)
+        else:
+            attn = (d * self.num_heads * hd + 2 * d * kvh * hd
+                    + self.num_heads * hd * d)
+        if self.moe is not None:
+            mo = self.moe
+            ff_dense = 3 * d * mo.d_ff_shared * mo.num_shared_experts
+            ff_all = 3 * d * mo.d_ff_expert * mo.num_experts + ff_dense
+            ff_active = 3 * d * mo.d_ff_expert * mo.top_k + ff_dense
+            router = d * mo.num_experts
+            total += L * (attn + ff_all + router + 2 * d)
+            active += L * (attn + ff_active + router + 2 * d)
+        else:
+            ff = 3 * d * self.d_ff
+            total += L * (attn + ff + 2 * d)
+            active += L * (attn + ff + 2 * d)
+        return total, active
 
 
 @dataclass(frozen=True)

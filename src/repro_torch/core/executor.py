@@ -19,8 +19,11 @@ that ``core/stablehlo.py`` writes into a compute region:
   and ``scatter_add`` along one dim, constant start indices); a gather
   clamps its indices and a scatter drops updates out of range, as XLA's do;
 * ``convolution`` in JAX's three forms (explicit ``dim_numbers``, padding,
-  lhs and rhs dilation, ``reverse``), ``reduce_window`` (a max pool) and
-  ``select_and_scatter`` (its gradient), ``optimization_barrier``;
+  lhs and rhs dilation, ``reverse``), ``reduce_window`` (a max pool, or a
+  cumulative sum) and ``select_and_scatter`` (the pool's gradient),
+  ``optimization_barrier``;
+* ``sort`` (a stable sort by the first operand, the emitter's
+  ``argsort``) and ``chlo.top_k`` (the MoE's routing);
 * ``call``.  A function in the text's ``call`` table
   (:meth:`repro_torch.core.pipeline.Workload.calls`) runs through its
   operator, ``torch.ops.repro_torch.*`` (on the card the kernel, on the CPU
@@ -718,7 +721,9 @@ def _convolution(ex, fn, op):
     return run
 
 
-def _window(raw: str, rank: int) -> tuple[list, list, list]:
+def _window_attrs(raw: str, rank: int) -> tuple[list, list, list]:
+    """A window's (dimensions, strides, padding) over every dim; dilations
+    other than 1 raise."""
     window = _array(raw, "window_dimensions")
     strides = _array(raw, "window_strides") or [1] * rank
     p = re.search(r"padding\s*=\s*dense<([^>]*)>", raw)
@@ -730,6 +735,12 @@ def _window(raw: str, rank: int) -> tuple[list, list, list]:
         v = _array(raw, name)
         if v is not None and any(x != 1 for x in v):
             raise NotImplementedError(f"a window with {name} {v}")
+    return window, strides, pads
+
+
+def _window(raw: str, rank: int) -> tuple[list, list, list]:
+    """A pool's window over NCHW's spatial dims."""
+    window, strides, pads = _window_attrs(raw, rank)
     if rank != 4 or window[:2] != [1, 1] or strides[:2] != [1, 1] or \
             pads[0] != [0, 0] or pads[1] != [0, 0]:
         raise NotImplementedError(f"a window {window} with strides "
@@ -738,9 +749,34 @@ def _window(raw: str, rank: int) -> tuple[list, list, list]:
     return window[2:], strides[2:], pads[2:]
 
 
+def _prefix_sum(ex, fn, op):
+    """A ``reduce_window`` of ``add`` whose window spans one dim, padded by
+    its length less one in front: a cumulative sum (JAX's ``cumsum``)."""
+    shape = _operand_types(op)[0].shape
+    window, strides, pads = _window_attrs(op.raw, len(shape))
+    spans = [d for d, (w, n, p) in enumerate(zip(window, shape, pads))
+             if w == n and p == [n - 1, 0] and n > 1]
+    if len(spans) != 1 or any(
+            (w, s, p) != (1, 1, [0, 0])
+            for d, (w, s, p) in enumerate(zip(window, strides, pads))
+            if d != spans[0]) or strides[spans[0]] != 1:
+        raise NotImplementedError(f"reduce_window of add with window "
+                                  f"{window}, strides {strides}, padding "
+                                  f"{pads} (only a cumulative sum is run)")
+    dim = spans[0]
+    init = _const(fn, op, 1, "initial value")
+
+    def run(xs):
+        y = torch.cumsum(xs[0], dim, dtype=xs[0].dtype)
+        return y if init == 0 else y + xs[1]
+    return run
+
+
 @_compiles("reduce_window")
 def _reduce_window(ex, fn, op):
     kinds = _region_ops(op)
+    if kinds == ["add"]:
+        return _prefix_sum(ex, fn, op)
     if kinds != ["maximum"]:
         raise NotImplementedError(f"reduce_window of {kinds}")
     kernel, stride, pads = _window(op.raw,
@@ -774,6 +810,41 @@ def _select_and_scatter(ex, fn, op):
         y = torch.ops.aten.max_pool2d_with_indices_backward(
             src, x, kernel, stride, [0, 0], [1, 1], False, idx)
         return y if init == 0 else y + xs[2]
+    return run
+
+
+@_compiles("sort")
+def _sort(ex, fn, op):
+    """A stable sort of every operand by the first, whose comparator is
+    ``LT`` or ``GT`` of the first pair of block arguments (the emitter's
+    ``argsort``)."""
+    dim = int(_field(op.raw, "dimension", r"(-?\d+)"))
+    kinds = _region_ops(op)
+    block = re.search(r"\^bb0\(([^)]*)\)", op.raw)
+    args = re.findall(r"(%[\w.\-]+)\s*:", block.group(1)) if block else []
+    cmp = re.search(r"compare\s+\w+,\s*(%[\w.\-]+),\s*(%[\w.\-]+)", op.raw)
+    if (kinds not in (["compare LT"], ["compare GT"]) or cmp is None
+            or list(cmp.groups()) != args[:2]):
+        raise NotImplementedError(f"sort with the comparator {kinds} (only "
+                                  "LT or GT of the first operand is run)")
+    descending = kinds == ["compare GT"]
+
+    def run(xs):
+        _, idx = torch.sort(xs[0], dim=dim, stable=True,
+                            descending=descending)
+        return [torch.gather(x, dim, idx) for x in xs]
+    return run
+
+
+@_compiles("top_k")
+def _top_k(ex, fn, op):
+    """``chlo.top_k``: the k largest along the last dim, descending, and
+    their indices."""
+    k = int(_field(op.raw, "k", r"(\d+)"))
+
+    def run(xs):
+        values, indices = torch.topk(xs[0], k, dim=-1)
+        return [values, indices.to(torch.int32)]
     return run
 
 

@@ -710,6 +710,75 @@ def _arange(f, node, start, end, step=1, **kw):
     return v
 
 
+@_lowers(aten.cumsum.default)
+def _cumsum(f, node, x, dim, dtype=None):
+    """A ``reduce_window`` of ``add`` whose window spans the dim, padded by
+    its length less one in front: JAX's ``cumsum`` on the CPU and the GPU."""
+    shape, dt = _out(node)
+    v = f.convert(f.value(x), dt)
+    rank = len(shape)
+    d = _norm_dim(dim, rank)
+    window, pads = [1] * rank, [[0, 0]] * rank
+    window[d], pads[d] = shape[d], [shape[d] - 1, 0]
+    ones = f"array<i64: {', '.join('1' * rank)}>"
+    return f.region_op(
+        "reduce_window", [v, f.constant(0, dt)],
+        f"base_dilations = {ones}, padding = dense<"
+        f"[{', '.join(_dims(p) for p in pads)}]> : tensor<{rank}x2xi64>, "
+        f"window_dilations = {ones}, window_dimensions = array<i64: "
+        f"{', '.join(map(str, window))}>, window_strides = {ones}",
+        ["add"], shape, dt)
+
+
+@_lowers(aten.sort.stable)
+def _sort(f, node, x, *, stable=None, dim=-1, descending=False):
+    """A stable ``sort`` of the keys with an ``iota`` beside them, the
+    second result the permutation: JAX's ``argsort``, its comparator
+    ``LT`` (``GT`` descending) on the keys alone.  Integer keys only: JAX's
+    comparator for floats also orders NaNs and signed zeros."""
+    v = f.value(x)
+    if v.dt in _FLOATS:
+        raise NotImplementedError(f"aten.sort.stable of {v.dt} keys (only "
+                                  "integer keys are lowered)")
+    d = _norm_dim(dim, len(v.shape))
+    iota = f._emit(f"stablehlo.iota dim = {d} : "
+                   f"{_tensor_type(v.shape, 'i32')}", v.shape, "i32")
+    name = f"%{f.count}"
+    f.count += 1
+    k, i = (_tensor_type((), dt) for dt in (v.dt, "i32"))
+    lhs, rhs, a, b, cmp = (f"%{p}{name[1:]}" for p in ("lhs", "rhs", "a",
+                                                        "b", "cmp"))
+    kind = "UNSIGNED" if v.dt == "i1" else "SIGNED"
+    f.lines += [
+        f'    {name}:2 = "stablehlo.sort"({v.name}, {iota.name}) <{{'
+        f"dimension = {d} : i64, is_stable = true}}> ({{",
+        f"    ^bb0({lhs}: {k}, {rhs}: {k}, {a}: {i}, {b}: {i}):",
+        f"      {cmp} = stablehlo.compare  {'GT' if descending else 'LT'}, "
+        f"{lhs}, {rhs},  {kind} : ({k}, {k}) -> tensor<i1>",
+        f"      stablehlo.return {cmp} : tensor<i1>",
+        f"    }}) : ({v.ty}, {iota.ty}) -> ({v.ty}, {iota.ty})"]
+    return [Value(f"{name}#0", v.shape, v.dt),
+            Value(f"{name}#1", v.shape, "i32")]
+
+
+@_lowers(aten.topk.default)
+def _topk(f, node, x, k, dim=-1, largest=True, sorted=True):
+    """``chlo.top_k`` over the last dim, as JAX's ``lax.top_k`` prints: the
+    k largest values, in descending order, and their indices."""
+    v = f.value(x)
+    if _norm_dim(dim, len(v.shape)) != len(v.shape) - 1 or not largest:
+        raise NotImplementedError(f"aten.topk.default over dim {dim}, "
+                                  f"largest={largest} (only the last dim's "
+                                  "largest are lowered)")
+    shape = (*v.shape[:-1], k)
+    name = f"%{f.count}"
+    f.count += 1
+    f.lines.append(f"    {name}:2 = chlo.top_k({v.name}, k = {k}) : {v.ty} "
+                   f"-> ({_tensor_type(shape, v.dt)}, "
+                   f"{_tensor_type(shape, 'i32')})")
+    return [Value(f"{name}#0", shape, v.dt), Value(f"{name}#1", shape, "i32")]
+
+
 def _reduce_dims(v: Value, dims) -> list[int]:
     if dims is None or (isinstance(dims, (list, tuple)) and not dims):
         return list(range(len(v.shape)))
@@ -901,6 +970,26 @@ def _slice_scatter(f, node, x, src, dim=0, start=None, end=None, step=1):
 def _relu(f, node, x):
     shape, dt = _out(node)
     return f.binary("maximum", f.value(x), f.full(0, shape, dt))
+
+
+@_lowers(aten.gelu.default)
+def _gelu(f, node, x, approximate="none"):
+    """The tanh approximation, in the ops and the order JAX's
+    ``jax.nn.gelu`` prints: x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))) / 2.
+    The exact (erf) form is not lowered."""
+    if approximate != "tanh":
+        raise NotImplementedError(f"aten.gelu.default with approximate="
+                                  f"{approximate!r} (only 'tanh' is lowered)")
+    shape, dt = _out(node)
+    v = f.value(x)
+    cube = f.binary("multiply", f.binary("multiply", v, v), v)
+    inner = f.binary("add", v, f.binary("multiply", f.full(0.044715, shape,
+                                                           dt), cube))
+    t = f.unary("tanh", f.binary("multiply", f.full(
+        math.sqrt(2 / math.pi), shape, dt), inner))
+    half = f.binary("multiply", f.full(0.5, shape, dt),
+                    f.binary("add", f.full(1, shape, dt), t))
+    return f.binary("multiply", v, half)
 
 
 @_lowers(aten.constant_pad_nd.default)

@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> config.
 
-The port serves the dense Llama family and the attention-free SSM family
-(mamba2-370m); the other ids of the JAX registry raise
-``NotImplementedError`` until their family is ported (ROADMAP, Queue 1:
-other families).
+The port serves the dense Llama family, the attention-free SSM family
+(mamba2-370m), the dense deepseek-67b, qwen2.5-32b and gemma2-27b, and the
+sparse MoE mixtral-8x22b; the other ids of the JAX registry raise
+``NotImplementedError`` naming the ROADMAP item that ports them (Queue 1,
+item 11: other families).
 """
 from __future__ import annotations
 
@@ -15,22 +16,32 @@ from ..configs.base import ModelConfig, ShapeConfig
 from .params import DTYPES
 from .transformer import cache_shapes
 
+# the JAX registry's ids that are not ported yet, each with what it waits
+# for
 ARCH_IDS = [
-    "deepseek-67b", "stablelm-12b", "qwen2.5-32b",
-    "gemma2-27b", "zamba2-2.7b", "deepseek-v3-671b", "mixtral-8x22b",
-    "hubert-xlarge", "qwen2-vl-7b",
+    "stablelm-12b", "zamba2-2.7b", "deepseek-v3-671b", "hubert-xlarge",
+    "qwen2-vl-7b",
 ]
-# the paper's dense Llama workloads and the SSM family: the ids the port
-# serves
+_WAITS_FOR = {
+    "stablelm-12b": "K1 at head_dim 160",
+    "zamba2-2.7b": "K1 at head_dim 80 and the hybrid super-block",
+    "deepseek-v3-671b": "MLA, K1 with dv != dqk",
+    "hubert-xlarge": "the stub front end",
+    "qwen2-vl-7b": "M-RoPE and the stub front end",
+}
+# the paper's dense Llama workloads, the SSM family, and the dense and MoE
+# families whose attention K1 takes: the ids the port serves
 PORTED_IDS = ["llama3-100m", "llama3-500m", "llama3-1b", "llama3-3b",
-              "llama2-7b", "mamba2-370m"]
+              "llama2-7b", "mamba2-370m", "deepseek-67b", "qwen2.5-32b",
+              "gemma2-27b", "mixtral-8x22b"]
 
 
 def _module(arch: str):
     if arch in ARCH_IDS:
         raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet (ROADMAP, Queue 1: "
-            "other families); ported ids: " + ", ".join(PORTED_IDS))
+            f"{arch} is not ported to repro_torch yet: it needs "
+            f"{_WAITS_FOR[arch]} (ROADMAP, Queue 1 item 11: other "
+            "families); ported ids: " + ", ".join(PORTED_IDS))
     if arch not in PORTED_IDS:
         raise KeyError(arch)
     name = arch.replace("-", "_").replace(".", "_")
@@ -43,6 +54,29 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def shape_cells(cfg: ModelConfig) -> list[str]:
+    """Which shape cells apply to this architecture (assignment rules)."""
+    cells = ["train_4k", "prefill_32k"]
+    if not cfg.is_encoder_only:
+        cells.append("decode_32k")
+        subquadratic = (cfg.family in ("ssm", "hybrid")
+                        or (cfg.sliding_window > 0
+                            and cfg.local_global_pattern == 0))
+        if subquadratic:
+            cells.append("long_500k")
+    return cells
+
+
+def skip_reason(cfg: ModelConfig, shape_name: str) -> str | None:
+    if shape_name in shape_cells(cfg):
+        return None
+    if cfg.is_encoder_only and shape_name in ("decode_32k", "long_500k"):
+        return "encoder-only: no autoregressive decode step"
+    if shape_name == "long_500k":
+        return "full-quadratic attention at 524288 tokens (see DESIGN.md)"
+    return "not applicable"
 
 
 def _no_seq_sharding(name: str, seq_sharded: bool) -> None:

@@ -1,5 +1,7 @@
 """LM assembly: the training and serving paths of the dense Llama family,
-and the serving path of the attention-free SSM family (Mamba2).
+the serving paths of the attention-free SSM family (Mamba2), of the other
+dense families (deepseek-67b, qwen2.5-32b, gemma2-27b) and of the sparse
+MoE family (mixtral-8x22b).
 
 Public entry points are plain functions of (cfg, params, batch), with the
 JAX package's names, signatures and layouts (layer-stacked weights [L, ...],
@@ -13,8 +15,10 @@ and ``conv_state`` [L, B, K-1, conv_ch]):
   init_cache_specs(cfg, batch, max_len)  -> cache ParamSpec tree
 
 :class:`TransformerLM` is the ``nn.Module`` that owns the parameters and
-calls these functions.  The MoE, MLA and hybrid branches raise
-``NotImplementedError`` until their families are ported.
+calls these functions.  The MLA and hybrid branches raise
+``NotImplementedError`` until their families are ported.  As in the
+reference, ``forward`` adds no router auxiliary loss for MoE
+(``moe_aux_loss`` is there for a caller that wants it).
 """
 from __future__ import annotations
 
@@ -29,16 +33,16 @@ from ..device import resolve_device
 from .attention import attention_specs, gqa_decode, gqa_forward
 from .common import (barrier, embed_lookup, embedding_spec, norm_spec,
                      rms_norm, softcap)
-from .mlp import mlp_forward, mlp_specs
+from .mlp import mlp_forward, mlp_specs, moe_forward, moe_specs
 from .params import DTYPES, ParamSpec, init_params
 from .ssm import mamba2_forward, ssm_specs
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "hybrid" or cfg.moe is not None or cfg.mla is not None:
+    if cfg.family == "hybrid" or cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (MoE/MLA/hybrid "
-            "branches) is not ported yet (ROADMAP, Queue 1: other families)")
+            f"{cfg.name}: the {cfg.family} family (MLA/hybrid branches) is "
+            "not ported yet (ROADMAP, Queue 1 item 11: other families)")
 
 
 # --------------------------------------------------------------------------
@@ -59,10 +63,14 @@ def _layer_specs(cfg: ModelConfig, stacked: int) -> dict:
     if cfg.family == "ssm":
         return {"ssm": ssm_specs(cfg, stacked),
                 "ln": n((cfg.d_model,), ("norm",))}
-    return {"ln1": n((cfg.d_model,), ("norm",)),
-            "ln2": n((cfg.d_model,), ("norm",)),
-            "attn": attention_specs(cfg, stacked),
-            "mlp": mlp_specs(cfg, stacked)}
+    specs = {"ln1": n((cfg.d_model,), ("norm",)),
+             "ln2": n((cfg.d_model,), ("norm",)),
+             "attn": attention_specs(cfg, stacked)}
+    if cfg.moe is not None:
+        specs["moe"] = moe_specs(cfg, stacked)
+    else:
+        specs["mlp"] = mlp_specs(cfg, stacked)
+    return specs
 
 
 def model_specs(cfg: ModelConfig) -> dict:
@@ -92,13 +100,20 @@ def _layer_window(cfg: ModelConfig, layer_idx: int) -> int:
     return cfg.sliding_window
 
 
+def ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward half: the sparse MoE or the dense MLP."""
+    if cfg.moe is not None:
+        return moe_forward(cfg, lp["moe"], x)
+    return mlp_forward(cfg, lp["mlp"], x)
+
+
 def attn_block(cfg: ModelConfig, lp: dict, h: torch.Tensor,
                positions: torch.Tensor, layer_idx: int) -> torch.Tensor:
     x = rms_norm(h, lp["ln1"], cfg.rms_eps)
     h = h + gqa_forward(cfg, lp["attn"], x, positions,
                         layer_window=_layer_window(cfg, layer_idx))
     x = rms_norm(h, lp["ln2"], cfg.rms_eps)
-    return h + mlp_forward(cfg, lp["mlp"], x)
+    return h + ffn(cfg, lp, x)
 
 
 def ssm_block(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
@@ -196,7 +211,11 @@ def forward(cfg: ModelConfig, params: dict, batch: dict):
                                      cfg.loss_vocab_chunk)
         return loss, None
     logits = _logits(cfg, params, h)
-    return cross_entropy(logits, batch["targets"]), logits
+    loss = cross_entropy(logits, batch["targets"])
+    if cfg.moe is not None:
+        # the reference's placeholder for a router aux loss: it adds none
+        loss = loss + 0.0
+    return loss, logits
 
 
 def chunked_cross_entropy(cfg: ModelConfig, params: dict, h: torch.Tensor,
@@ -311,7 +330,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
                              layer_window=_layer_window(cfg, i))
         h = h + y
         x = rms_norm(h, lp["ln2"], cfg.rms_eps)
-        h = h + mlp_forward(cfg, lp["mlp"], x)
+        h = h + ffn(cfg, lp, x)
     logits = _logits(cfg, params, h)
     return logits[:, -1], dict(cache, index=index + 1)
 
@@ -348,7 +367,7 @@ class _ParamTree(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Owns a dense or SSM LM's parameters and serves it.
+    """Owns a dense, MoE or SSM LM's parameters and serves it.
 
     ``params`` (e.g. from :func:`~repro_torch.models.params.params_from_jax`)
     is taken as is; without it the parameters are drawn from ``generator``

@@ -39,6 +39,19 @@ def greedy_decode(cfg: ModelConfig, params, prompt: torch.Tensor,
             f"greedy_decode: prompt length {s0} + max_new_tokens "
             f"{max_new_tokens} exceeds the KV cache (max_len={max_len}) "
             "— raise max_len or generate fewer tokens")
+    if cfg.local_global_pattern > 0 and cfg.sliding_window > 0:
+        cache_len = min(max_len, cfg.sliding_window)
+        if s0 + max_new_tokens > cache_len:
+            # every layer's cache has min(max_len, sliding_window) slots (the
+            # reference's cache_shapes); past them a global layer has no slot
+            # to write (the reference writes a clamped one and goes on, and
+            # stops being right), so refuse before any launch
+            raise ValueError(
+                f"greedy_decode: {cfg.name} alternates local and global "
+                f"layers; prompt length {s0} + max_new_tokens "
+                f"{max_new_tokens} exceeds its KV cache of {cache_len} slots "
+                f"(min(max_len={max_len}, sliding_window="
+                f"{cfg.sliding_window}))")
     # the cache is all zeros: the generator is never drawn from
     cache = init_params(init_cache_specs(cfg, b, max_len),
                         torch.Generator(device=prompt.device), prompt.device)

@@ -264,6 +264,20 @@ def test_cli_validate_and_list(capsys):
                  "--systems", str(SPECS / "systems")]) == 0
 
 
+def test_cli_list_names_host_as_the_reference_does(capsys):
+    """``host`` is a system of the port (the card, or the reference's
+    ``host-cpu`` on the CPU): ``list`` names it in the reference's words."""
+    def systems_line(run):
+        assert run(["list"]) == 0
+        out = capsys.readouterr().out
+        assert "not ported" not in out
+        return next(line for line in out.splitlines()
+                    if line.startswith("systems ("))
+    line = systems_line(main)
+    assert line == systems_line(ref_main)
+    assert line.endswith("catalog entries + 'host'):")
+
+
 def test_cli_run_and_report_equal_the_reference_cli(tmp_path, capsys):
     spec = str(SPECS / "fig10_gemm.json")
     ours, ref = tmp_path / "ours", tmp_path / "ref"

@@ -2,7 +2,8 @@
 (flash attention), K2 (RMSNorm) and K3 (the SSD scan), each at a few shapes
 and layouts of the serving paths, and K1's log-sum-exp, K1b and K2b (their
 backwards) and the gradients of a small model through them, in f32 and
-bf16, with the tolerances of each kernel's ``ref.py``.  Every test is marked ``cuda`` and skips
+bf16, with the tolerances of each kernel's ``ref.py``; and the sparse MoE
+layer on the card against its CPU run, and twice to equal bits.  Every test is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
 also runs on a machine with a card and no JAX:
 
@@ -426,3 +427,84 @@ def test_mesh_export_on_the_card_allocates_nothing(cuda):
         texts.append(w.hlo_text)
     assert "mhlo.num_partitions = 4 " in texts[0]
     assert texts[0] == texts[1]
+
+
+# --------------------------------------------------------------------------
+# the sparse MoE layer on the card
+# --------------------------------------------------------------------------
+
+def _moe(dtype, capacity_factor, seed=0):
+    """mixtral-smoke's MoE at a width and token count where experts overflow
+    their capacity: the config, its parameters and tokens [2, 256, d] as
+    f32 numpy-seeded CPU tensors (router of std 1/sqrt(d), so top-k
+    margins are of order 1)."""
+    from dataclasses import replace
+
+    from repro_torch.models.mlp import moe_specs
+    cfg = get_smoke_config("mixtral-8x22b")
+    cfg = cfg.scaled(d_model=256, dtype="float32",
+                     moe=replace(cfg.moe, num_experts=8, d_ff_expert=512,
+                                 capacity_factor=capacity_factor))
+    rng = np.random.default_rng(seed)
+    p = {k: torch.from_numpy((rng.standard_normal(s.shape)
+                              / np.sqrt(s.shape[-2])).astype(np.float32))
+         for k, s in moe_specs(cfg).items()}
+    x = torch.from_numpy(rng.standard_normal((2, 256, 256)).astype(np.float32))
+    return cfg.scaled(dtype={torch.float32: "float32",
+                             torch.bfloat16: "bfloat16"}[dtype]), p, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.25])
+def test_moe_layer_on_card_matches_its_plain_path(cuda, capacity_factor):
+    """The MoE layer on the card in f32 against the same layer on the CPU
+    (its plain path): the same experts for every token, capacity drops
+    included, and outputs within f32 rounding; in bf16 each token's row
+    within 2^-6 of the f32 row where its kept experts agree (and 0 where
+    every expert dropped it)."""
+    from repro_torch.models.mlp import (_capacity, moe_dispatch, moe_forward,
+                                        moe_route)
+    cfg, p, x = _moe(torch.float32, capacity_factor)
+    want = moe_forward(cfg, p, x)
+    got = moe_forward(cfg, {k: v.to(cuda) for k, v in p.items()}, x.to(cuda))
+    xf = x.reshape(-1, x.shape[-1])
+    _, top_e = moe_route(cfg, p, xf)
+    _, top_e_card = moe_route(cfg, {k: v.to(cuda) for k, v in p.items()},
+                              xf.to(cuda))
+    assert torch.equal(top_e_card.cpu(), top_e)
+    keep = moe_dispatch(top_e, 8, _capacity(xf.shape[0], cfg.moe))[2]
+    assert (not keep.all()) == (capacity_factor < 1)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    c16, _, _ = _moe(torch.bfloat16, capacity_factor)
+    p16 = {k: v.to(cuda, torch.bfloat16) for k, v in p.items()}
+    x16 = x.to(cuda, torch.bfloat16)
+    got16 = moe_forward(c16, p16, x16).float().cpu()
+    _, e16 = moe_route(c16, p16, x16.reshape(-1, x.shape[-1]))
+
+    def experts(top_e):       # [T, E]: the experts that keep each token
+        t, k = top_e.shape
+        order, _, keep, _ = moe_dispatch(top_e, 8, _capacity(t, cfg.moe))
+        kept = torch.empty_like(keep).scatter_(0, order, keep).view(t, k)
+        return torch.zeros(t, 8, dtype=torch.bool).scatter_(1, top_e, kept)
+    same = (experts(e16.cpu()) == experts(top_e)).all(-1)
+    assert same.float().mean() > 0.9
+    rows = same.view(x.shape[:2])
+    # a token every expert dropped is 0 in both (the residual carries it)
+    dropped = rows & (want.norm(dim=-1) == 0)
+    assert torch.equal(got16[dropped], want[dropped])
+    kept = rows & ~dropped
+    err = (got16 - want)[kept].norm(dim=-1) / want[kept].norm(dim=-1)
+    assert err.max() <= 2.0 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_on_card_gives_equal_bits_twice(cuda, dtype):
+    """The scatter-adds (``index_add``, atomics on the card) add one real
+    row and zeros to a buffer row, and a token's k rows to zeros: exact in
+    any order, so two runs give the same bits."""
+    from repro_torch.models.mlp import moe_forward
+    cfg, p, x = _moe(dtype, 0.25)
+    p = {k: v.to(cuda, dtype) for k, v in p.items()}
+    x = x.to(cuda, dtype)
+    assert torch.equal(moe_forward(cfg, p, x), moe_forward(cfg, p, x))

@@ -40,7 +40,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_repro():
         [sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT / "chip_smoke.py")],
         capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # configs (8), device, library, api, kernels (11), models (10: with
+    # configs (12: with deepseek-67b, qwen2.5-32b, gemma2-27b and
+    # mixtral-8x22b), device, library, api, kernels (11), models (10: with
     # resnet), serve (3: the package, decode, faults), train (6), launch
     # (3: the package, train, mesh), distributed (3: the package,
     # sharding, data_parallel), campaign (8: the package, spec, builders,
@@ -51,14 +52,18 @@ def test_every_module_and_chip_smoke_import_without_jax_or_repro():
     # search (6: the package, pareto, spec, engine, report, __main__) and
     # tools (2: the package, fit_learned_model)
     names = proc.stdout.split()
-    assert len(names) >= 99
+    assert len(names) >= 103
     assert {"repro_torch.core.executor", "repro_torch.core.slicing.emit",
             "repro_torch.core.estimators.profiling",
             "repro_torch.core.estimators.learned",
             "repro_torch.search", "repro_torch.search.pareto",
             "repro_torch.search.spec", "repro_torch.search.engine",
             "repro_torch.search.report", "repro_torch.search.__main__",
-            "repro_torch.tools.fit_learned_model"} <= set(names)
+            "repro_torch.tools.fit_learned_model",
+            "repro_torch.configs.deepseek_67b",
+            "repro_torch.configs.qwen2_5_32b",
+            "repro_torch.configs.gemma2_27b",
+            "repro_torch.configs.mixtral_8x22b"} <= set(names)
 
 
 @pytest.fixture

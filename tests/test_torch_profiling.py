@@ -3,10 +3,12 @@
 The port's profiling estimator re-emits each compute region with its copy
 of the reference's ``region_to_module`` and runs it with its own executor
 (``repro_torch.core.executor``) where the reference compiles it with XLA.
-Here, on four texts at smoke size in f32 (llama3-1b's train step with the
+Here, on five texts at smoke size in f32 (llama3-1b's train step with the
 kernels and with the chunked attention, a barrier after each layer; the
 compute regions of its per-rank step on a ``[4, 1]`` data mesh; resnet18's
-train step with a barrier after each block):
+train step with a barrier after each block; mixtral-smoke's forward pass,
+its sparse MoE's sort, top-k and cumulative sum included, a barrier after
+each layer):
 
 * (i) the port's ``region_to_module`` gives the reference's text byte for
   byte for every region;
@@ -55,13 +57,14 @@ from repro_torch.core.slicing.emit import RegionEmitError, region_to_module
 from repro_torch.core.systems import host_system
 from repro_torch.launch.mesh import traced_mesh
 from repro_torch.models import resnet as tr
-from repro_torch.train.loop import train_step_exports
+from repro_torch.models.registry import get_smoke_config
+from repro_torch.train.loop import forward_exports, train_step_exports
 from repro_torch.train.optimizer import OptimizerConfig
 from test_torch_export import XLA_RTOL, _run_xla, _smoke, _smoke_inputs
 
 SEQ, BATCH = 16, 2
 RANK_BATCH = 8
-TEXTS = ["kernel", "chunked", "per-rank", "resnet18"]
+TEXTS = ["kernel", "chunked", "per-rank", "resnet18", "moe"]
 _SSA = re.compile(r"%[\w.\-#]+")
 
 
@@ -95,6 +98,23 @@ def _text(source: str):
             w = export_workload(step, *args, name=source, device="cpu",
                                 per_rank=(rstep, rargs, mesh))
         return w, None, "optimized"
+    if source == "moe":
+        cfg = dataclasses.replace(get_smoke_config("mixtral-8x22b"),
+                                  dtype="float32", scan_layers=False,
+                                  layer_barriers=True)
+        step, args = forward_exports(cfg, SEQ, BATCH)
+        w = export_workload(step, *args, name=source, device="cpu")
+        rng = np.random.default_rng(0)
+        # weights of std 0.3: the router's top-k margins stay far above
+        # the rounding that separates the executor's products from XLA's
+        params = pytree.tree_map(
+            lambda t: (torch.from_numpy(rng.normal(0, 0.3, tuple(t.shape))
+                                        .astype(np.float32)) if t.dim() > 1
+                       else torch.ones(tuple(t.shape))), args[0])
+        batch = {k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (BATCH, SEQ), dtype=np.int32))
+            for k in ("tokens", "targets")}
+        return w, pytree.tree_leaves((params, batch)), "raw"
     assert source == "resnet18"
     cfg = tr.ResNetConfig(depth=18, width=8, dtype="float32",
                           num_classes=10, block_barriers=True)
@@ -275,7 +295,7 @@ def test_every_region_runs_to_xlas_outputs(source):
         _assert_close(got, want, (source, i), _largest(want))
 
 
-@pytest.mark.parametrize("source", ["kernel", "chunked", "resnet18"])
+@pytest.mark.parametrize("source", ["kernel", "chunked", "resnet18", "moe"])
 def test_the_whole_module_runs_to_xlas_outputs(source):
     w, leaves, fidelity = _text(source)
     got = Executor(w.stablehlo_text, calls=w.calls(fidelity),

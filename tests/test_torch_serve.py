@@ -118,9 +118,13 @@ def test_transformer_lm_module_serves_like_the_functions():
                                                    {"tokens": prompt}))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "zamba2-2.7b",
-                                  "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["stablelm-12b", "zamba2-2.7b",
+                                  "deepseek-v3-671b", "hubert-xlarge",
+                                  "qwen2-vl-7b"])
 def test_unported_families_raise(arch):
     from repro_torch.models.registry import get_config as tget
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tget(arch)
+    from repro_torch.models.registry import get_smoke_config as tsmoke
+    for get in (tget, tsmoke):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP, Queue 1 item 11"):
+            get(arch)
