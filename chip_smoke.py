@@ -12,14 +12,17 @@ prints no result line):
    each kernel's ptxas register and spill line and any ptxas warning that
    it serialised an entry's ``wgmma`` instructions;
 3. each kernel (K1 flash attention, with and without its log-sum-exp; K2
-   RMSNorm; K1b and K2b, their backwards; K3 the whole SSD scan) against
-   its plain PyTorch version at the serving and training paths' shapes and
-   in the layout the path hands it, in bf16 and f32, with its time, its
-   bound, the plain version's time and, where one exists, one PyTorch
-   library call's time as a yardstick (the port never calls that library
-   function); K2 also beside the time of one copy of its input, which the
-   card's memory sets; K1b and K2b also launched twice at the training
-   shape, their outputs bit-identical (they use no atomics);
+   RMSNorm; K1b and K2b, their backwards; K3 the whole SSD scan, with and
+   without the chunk states it writes for its backward; K3b the scan's
+   backward) against its plain PyTorch version at the serving and training
+   paths' shapes and in the layout the path hands it, in bf16 and f32,
+   with its time, its bound, the plain version's time and, where one
+   exists, one PyTorch library call's time as a yardstick (the port never
+   calls that library function); K2 also beside the time of one copy of
+   its input, which the card's memory sets; K1b, K2b and K3b also launched
+   twice at the training shapes, their outputs bit-identical (they use no
+   atomics); K1b at phase 15's shapes (D 128, windows, gemma2's cap, GQA
+   groups 2 to 8) and K2b at its widths;
 4. two serving paths at full width in bf16 with seeded random weights,
    llama3-1b (K1, K2) and mamba2-370m (K3, K2): ``prefill`` on 4 prompts of
    2048 tokens and ``greedy_decode`` on 8 prompts of 64 tokens (32 new
@@ -146,7 +149,22 @@ prints no result line):
    prefill-by-decode, an MoE's only on the rows that the K1, plain and f32
    runs routed alike at every layer; a profile of the prefill by kernel
    and by op (expert GEMMs, other GEMMs, the MoE's data movement, K1, K2).
-   Phase 3 holds K1 at these prefills' shapes and K2 at their widths.
+   Phase 3 holds K1 at these prefills' shapes and K2 at their widths;
+15. the families' training paths, each at its published width with its
+   depth cut for one card (AdamW, bf16 parameters, f32 moments, updated in
+   place as the reference's donated step, remat off, 2 warm-up steps and
+   3 counted ones on one repeated batch): mamba2-370m (48 of 48 layers,
+   4 x 2048, K3 and K3b), mixtral-8x22b (1 of 56, 1 x 8192), gemma2-27b (2
+   of 46, one local and one global layer, 1 x 6144), qwen2.5-32b and
+   deepseek-67b (1 layer each, 2 x 4096): step time, tokens/s, peak
+   memory, the launches a step (K1 and K1b, or K3 and K3b, once a layer;
+   K2 and K2b 2L + 1), a falling loss, a profile of one step by kernel
+   group; the step's export on fake ``cuda`` tensors (no launch, no
+   device memory, its operator nodes the launches a step) and its
+   roofline prediction on ``h100`` beside the measured step; the gradient
+   gate of phase 7 on the step's model (for mixtral after the share of
+   tokens routed otherwise by the K1 and the plain path, held at 1%, with
+   the loss over the tokens all three runs routed alike).
 
 The last lines are one JSON object ``{"kernels": [...]}``, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -205,10 +223,13 @@ from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
     bwd_kernel_error as k2b_error, kernel_error as rmsnorm_error,
     rmsnorm_bwd_ref, rmsnorm_ref)
-from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as k3_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
+    ssd_scan, ssd_scan_bwd)
 from repro_torch.launch.mesh import traced_mesh  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
-    kernel_error as ssd_error, ssd_scan_ref)
+    bwd_kernel_error as k3b_error, kernel_error as ssd_error,
+    ssd_scan_bwd_ref, ssd_scan_ref)
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import mlp as model_mlp  # noqa: E402
 from repro_torch.models.mlp import (_capacity as moe_capacity,  # noqa: E402
@@ -221,20 +242,22 @@ from repro_torch.models.resnet import (make_resnet_train_step,  # noqa: E402
                                        resnet_train_exports)
 from repro_torch.models.ssm import mamba2_forward  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    _layer_window, _logits, _positions, _unstack, attn_block, ffn)
+    _layer_window, _logits, _positions, _scan_layers, _unstack, attn_block,
+    ffn)
 from repro_torch.models.transformer import (TransformerLM, _embed,  # noqa: E402
                                             decode_step, init_cache_specs,
                                             model_specs, prefill)
 from repro_torch.models.params import (abstract_params,  # noqa: E402
                                        init_params, param_count,
-                                       shard_params, tree_paths)
+                                       shard_params, trainable, tree_paths)
 from repro_torch.train.checkpoint import _flatten as flatten  # noqa: E402
 from repro_torch.train.data import (DataConfig, ShardedLoader,  # noqa: E402
                                     SyntheticSource)
 from repro_torch.train.loop import (  # noqa: E402
     _value_and_grad as value_and_grad, make_train_step, train_step_exports)
 from repro_torch.train.optimizer import (  # noqa: E402
-    OptimizerConfig, adamw_init, adamw_update)
+    OptimizerConfig, adamw_init, adamw_update, tree_leaves)
+from repro_torch.train.optimizer import tree_map as map_leaves  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # f32 outside the tensor cores (the kernels here use f32 FMAs for f32 data),
@@ -595,6 +618,110 @@ def check_k1b(gen) -> dict:
     return entry
 
 
+K1B_FAMILY_CASES = [  # name, B, Hq, Hkv, S, window, cap
+    # phase 15's train steps, in the strided [B, S, H, D] layout the
+    # training path hands K1b, D = 128: mixtral-8x22b's window, gemma2-27b's
+    # local and global layers with its tanh cap of 50, qwen2.5-32b's and
+    # deepseek-67b's groups of 5 and 8
+    ("mixtral", 1, 48, 8, 8192, 4096, 0.0),
+    ("gemma2_local", 1, 32, 16, 8192, 4096, 50.0),
+    ("gemma2_global", 1, 32, 16, 8192, 0, 50.0),
+    ("qwen2.5", 2, 40, 8, 4096, 0, 0.0),
+    ("deepseek", 2, 64, 8, 4096, 0, 0.0),
+]
+
+
+def k1b_error_by_head(grads, q, k, v, o, lse, do, **kw):
+    """``k1b_error`` one KV head's group at a time: at 8192 tokens the
+    double scores of all heads at once would not fit."""
+    dq, dk, dv = grads
+    worst = [(0.0, 0.0, 0.0)] * 3
+    for heads, qh, kh, vh in by_kv_head(q, k, v):
+        h = heads.start // (heads.stop - heads.start)
+        errs = k1b_error((dq[:, heads], dk[:, h:h + 1], dv[:, h:h + 1]),
+                         qh, kh, vh, o[:, heads], lse[:, heads],
+                         do[:, heads], **kw)
+        worst = [tuple(max(a, b) for a, b in zip(w, e))
+                 for w, e in zip(worst, errs)]
+        torch.cuda.empty_cache()
+    return worst
+
+
+def k1b_library_ms(q, k, v, do, window, cap):
+    """One SDPA call's backward computing what K1b computes (causal, or a
+    boolean mask for a window with K and V repeated over the query heads),
+    timed; None with a tanh cap."""
+    if cap > 0:
+        return None
+    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    if window:
+        g = q.shape[1] // k.shape[1]
+        kr, vr = (t.repeat_interleave(g, dim=1) for t in (lk, lv))
+        diff = (torch.arange(q.shape[2], device=q.device)[:, None]
+                - torch.arange(k.shape[2], device=q.device)[None, :])
+        out = F.scaled_dot_product_attention(
+            lq, kr, vr, attn_mask=(diff >= 0) & (diff < window))
+    else:
+        out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                             enable_gqa=True)
+    ms = device_ms(lambda: torch.autograd.grad(out, (lq, lk, lv), do,
+                                               retain_graph=True),
+                   batches=3, per_batch=3)
+    del out, lq, lk, lv
+    torch.cuda.empty_cache()
+    return ms
+
+
+def check_k1b_families(gen) -> None:
+    """K1b at phase 15's shapes (bf16): against the plain backward in
+    double, a second launch's bits, its time beside its bound, the plain
+    backward's (a KV head's group at a time) and SDPA's backward."""
+    dtype = torch.bfloat16
+    for name, b, hq, hkv, s, window, cap in K1B_FAMILY_CASES:
+        kw = dict(causal=True, window=window, logit_cap=cap, q_offset=0)
+        q, k, v = k1_inputs(gen, "x_bshd", b, hq, hkv, s, s, 128, dtype)
+        do, _, _ = k1_inputs(gen, "x_bshd", b, hq, hkv, s, s, 128, dtype)
+        o, lse = k1_ops._forward(q, k, v, with_lse=True, **kw)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        del again
+        errs = k1b_error_by_head(grads, q, k, v, o, lse, do, **kw)
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        worst = max(max(e[1], e[2]) for e in errs)
+        ok = finite and same and math.isfinite(worst) and worst <= 1.0
+        ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                       batches=3, per_batch=5)
+        plain_ms = device_ms(lambda: [
+            flash_attention_bwd_ref(qh, kh, vh, o[:, hs], lse[:, hs],
+                                    do[:, hs], **kw)
+            for hs, qh, kh, vh in by_kv_head(q, k, v)], batches=2,
+            per_batch=1)
+        lib_ms = k1b_library_ms(q, k, v, do, window, cap)
+        pairs = k1_visible_pairs(s, s, True, window, 0) * b * hq
+        flops = 5 * 2 * 128 * pairs
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (q, k, v, o, do, lse, *grads))
+        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        log(f"  K1b {name:<13} bf16 B={b} Hq={hq} Hkv={hkv} S={s} d=128 "
+            f"window {window} cap {cap:g}; max_abs_err, element and row in "
+            "units of the tolerance: " + "; ".join(
+                f"d{n} {e[0]:.3e} {e[1]:.3f} {e[2]:.3f}"
+                for n, e in zip("qkv", errs))
+            + f"; a second launch {'bit-identical' if same else 'DIFFERENT'}"
+            f"; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, SDPA backward "
+            f"{'none (a tanh cap)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f", bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} "
+            f"GFLOP, {nbytes / 1e6:.2f} MB) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K1b {name}: {errs}, finite {finite}, "
+                                 f"bit-identical {same}")
+        del q, k, v, o, lse, do, grads
+        torch.cuda.empty_cache()
+
+
 K2B_CASES = [  # name, rows, d, offset
     ("train", 8192, 2048, 0.0),      # llama3-1b's norms at 4 x 2048
     ("rank", 2048, 2048, 0.0),       # phase 10's per-rank step
@@ -605,8 +732,15 @@ K2B_CASES = [  # name, rows, d, offset
     # gemma's (1 + w) through the groups kernel (scalar_path takes the
     # block kernel)
     ("offset", 1024, 2048, 1.0),
+    # phase 15's train steps (8192 tokens each): mixtral-8x22b, gemma2-27b
+    # with its (1 + w), qwen2.5-32b, deepseek-67b
+    ("mixtral", 8192, 6144, 0.0),
+    ("gemma2", 8192, 4608, 1.0),
+    ("qwen2.5", 8192, 5120, 0.0),
+    ("deepseek", 8192, 8192, 0.0),
 ]
-K2B_TIMED = ("train", "mamba_ln", "decode")
+K2B_TIMED = ("train", "mamba_ln", "decode", "mixtral", "gemma2", "qwen2.5",
+             "deepseek")
 
 
 def check_k2b(gen) -> dict:
@@ -633,16 +767,17 @@ def check_k2b(gen) -> dict:
                                      f"{rrow} of tol), dw {ew} ({rw} of tol)")
             if name not in K2B_TIMED:
                 continue
-            if name == "train":
+            if name != "decode":
                 again = rmsnorm_bwd(x, w, dy, 1e-5, offset)
                 same = torch.equal(dx, again[0]) and torch.equal(dw, again[1])
-                log(f"  K2b train {str(dtype)[6:]}: a second launch's dx and "
-                    f"dw {'bit-identical' if same else 'DIFFERENT'}")
+                log(f"  K2b {name} {str(dtype)[6:]}: a second launch's dx "
+                    f"and dw {'bit-identical' if same else 'DIFFERENT'}")
                 if not same:
-                    raise AssertionError(f"K2b train {dtype}: two launches "
+                    raise AssertionError(f"K2b {name} {dtype}: two launches "
                                          "differ")
-            ms = device_ms(lambda: rmsnorm_bwd(x, w, dy, 1e-5))
-            plain_ms = device_ms(lambda: rmsnorm_bwd_ref(x, w, dy, 1e-5))
+            ms = device_ms(lambda: rmsnorm_bwd(x, w, dy, 1e-5, offset))
+            plain_ms = device_ms(lambda: rmsnorm_bwd_ref(x, w, dy, 1e-5,
+                                                         offset))
             lx, lw = (t.detach().requires_grad_(True) for t in (x, w))
             y = F.rms_norm(lx, (d,), lw, 1e-5)
             lib_ms = device_ms(lambda: torch.autograd.grad(
@@ -727,16 +862,25 @@ def check_k3(gen, names=None) -> dict:
                                               strided, init, decay, dtype)
             args = (x, dt, a, bm, cm)
             y, final = ssd_scan(*args, chunk=chunk, initial_state=st0)
+            # the launch of the training path, which also writes each
+            # chunk's inbound state: y and the final state unchanged
+            y2, final2, states = k3_ops._launch(*args, chunk, st0,
+                                                with_states=True)
             torch.cuda.synchronize()
-            err, elem, row = ssd_error(y, final, *args, chunk, st0)
+            if not (torch.equal(y, y2) and torch.equal(final, final2)):
+                raise AssertionError(f"K3 {name} {dtype}: writing the states "
+                                     "changed y or the final state")
+            err, elem, row = ssd_error(y, final, *args, chunk, st0, states)
+            del y2, final2, states
             ok = all(math.isfinite(v) for v in (err, elem, row)) and max(
                 elem, row) <= 1.0
             min_dacs = (dt * a).reshape(b, s // chunk, chunk,
                                         h).cumsum(2).min()
             log(f"  K3 {name:<15} {str(dtype)[6:]:<8} B={b} S={s} H={h} "
                 f"P={p} G={g} N={n} L={chunk} min dacs "
-                f"{min_dacs.item():.0f} max_abs_err={err:.3e}; in units "
-                f"of the tolerance: element {elem:.3f}, row {row:.3f} "
+                f"{min_dacs.item():.0f} max_abs_err={err:.3e} (y, final "
+                f"state, inbound states); in units of the tolerance: element "
+                f"{elem:.3f}, row {row:.3f} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K3 {name} {dtype}: max abs err {err}, "
@@ -769,6 +913,98 @@ def check_k3(gen, names=None) -> dict:
     return entry
 
 
+K3B_CASES = [  # name, B, S, H, P, G, N, chunk, strided, init, dfinal, decay
+    # mamba2-370m's train step at 4 x 2048, in the layout mamba2_forward
+    # passes (x, B and C column slices of the conv output)
+    ("train", 4, 2048, 32, 64, 1, 128, 256, True, False, False, "mamba"),
+    ("train_contiguous", 4, 2048, 32, 64, 1, 128, 256, False, False, False,
+     "mamba"),
+    ("init_dfinal", 2, 1024, 32, 64, 1, 128, 256, True, True, True, "mamba"),
+    ("groups2", 1, 256, 8, 64, 2, 32, 64, True, True, True, "mamba"),
+    ("p32_n64", 2, 512, 8, 32, 2, 64, 128, True, False, True, "mamba"),
+    ("strong_decay", 2, 1024, 32, 64, 1, 128, 256, True, False, False,
+     "strong"),
+]
+
+
+def k3b_work(b, s, h, p, n, chunk) -> int:
+    """K3b's flops: per (batch, head, chunk) the visible pairs of C B^T,
+    dy x^T, the dx, dC and dB products, 2 pairs (3 N + 2 P), and the four
+    state products (G B, G^T x, S^T dy and the chunk's dy (x) C), 8 L N P."""
+    pairs = chunk * (chunk + 1) // 2
+    return b * h * (s // chunk) * (2 * pairs * (3 * n + 2 * p)
+                                   + 8 * chunk * n * p)
+
+
+def check_k3b(gen, names=None) -> dict:
+    """K3b against ``ssd_scan_bwd_ref`` in double, on the inbound states K3
+    wrote: dx, ddt, da, dB, dC and the initial state's gradient; at
+    ``train`` also a second launch's bits and the times (no PyTorch call
+    computes the scan's backward: library "none")."""
+    entry = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for (name, b, s, h, p, g, n, chunk, strided, init, dfin,
+             decay) in K3B_CASES:
+            if names is not None and name not in names:
+                continue
+            x, dt, a, bm, cm, st0 = k3_inputs(gen, b, s, h, p, g, n, chunk,
+                                              strided, init, decay, dtype)
+            args = (x, dt, a, bm, cm)
+            _, _, states = k3_ops._launch(*args, chunk, st0, with_states=True)
+            dy = torch.randn(b, s, h, p, generator=gen, device="cuda").to(dtype)
+            dfinal = (torch.randn(b, h, p, n, generator=gen, device="cuda")
+                      if dfin else None)
+            kw = dict(chunk=chunk, initial_state=st0, dfinal=dfinal)
+            grads = ssd_scan_bwd(*args, states, dy, **kw)
+            torch.cuda.synchronize()
+            errs = k3b_error(grads, *args, chunk, st0, dy, dfinal)
+            finite = all(bool(torch.isfinite(t).all()) for t in grads)
+            worst = max(max(e[1], e[2]) for e in errs)
+            ok = finite and math.isfinite(worst) and worst <= 1.0
+            log(f"  K3b {name:<16} {str(dtype)[6:]:<8} B={b} S={s} H={h} "
+                f"P={p} G={g} N={n} L={chunk}; max_abs_err, element and row "
+                "in units of the tolerance: " + "; ".join(
+                    f"{k} {e[0]:.3e} {e[1]:.3f} {e[2]:.3f}" for k, e in zip(
+                        ("dx", "ddt", "da", "dB", "dC", "dinit"), errs))
+                + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K3b {name} {dtype}: {errs}, finite "
+                                     f"{finite}")
+            if name != "train":
+                continue
+            again = ssd_scan_bwd(*args, states, dy, **kw)
+            same = all(torch.equal(u, v) for u, v in zip(grads, again))
+            log(f"  K3b train {str(dtype)[6:]}: a second launch's six "
+                f"gradients {'bit-identical' if same else 'DIFFERENT'}")
+            if not same:
+                raise AssertionError(f"K3b train {dtype}: two launches differ")
+            del again
+            ms = device_ms(lambda: ssd_scan_bwd(*args, states, dy, **kw),
+                           batches=3, per_batch=3)
+            plain_ms = device_ms(lambda: ssd_scan_bwd_ref(
+                *args, chunk, st0, states, dy, dfinal), batches=3,
+                per_batch=1)
+            flops = k3b_work(b, s, h, p, n, chunk)
+            nbytes = sum(t.numel() * t.element_size() for t in (
+                *args, states, dy, *grads))
+            bound_ms, bound_by = bound(flops, nbytes, dtype)
+            log(f"  K3b train {str(dtype)[6:]}: kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                f"no library call; bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            if dtype == torch.bfloat16:
+                entry = {"name": "ssd_scan_bwd", "route": "cuda",
+                         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+                         "replaces": "none on the TPU (jax.grad of src/repro/models/ssm.py:58, ssd_chunked)",
+                         "launches": None,
+                         "max_abs_err": max(e[0] for e in errs), "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None}
+            del grads, states, dy
+            torch.cuda.empty_cache()
+    return entry
+
+
 # --------------------------------------------------------------------------
 # phase 4: the serving paths at full width
 # --------------------------------------------------------------------------
@@ -780,7 +1016,7 @@ def max_rel_diff(a: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 
 COUNTERS = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
             "ssd_scan": ssd_scan, "flash_attention_bwd": flash_attention_bwd,
-            "rmsnorm_bwd": rmsnorm_bwd}
+            "rmsnorm_bwd": rmsnorm_bwd, "ssd_scan_bwd": ssd_scan_bwd}
 
 
 def serve(arch: str, gen) -> dict:
@@ -2517,6 +2753,224 @@ def families_phase(gen) -> list:
 
 
 # --------------------------------------------------------------------------
+# phase 15: the families' training paths
+# --------------------------------------------------------------------------
+
+# (id, layers kept of the published depth, batch, seq): each at its
+# published width with random weights from the seed, AdamW with bf16
+# parameters and gradients and f32 moments (12 bytes a parameter) updated
+# in place (``donate=True``, the reference's donate_argnums), its depth cut
+# for one card's memory (PERF.md section 4), remat off so that each
+# kernel's forward runs once a step.  gemma2-27b takes 6144 tokens, still
+# past its 4096-token window: its f32 logits over a 256000-token vocabulary
+# are 8.4 GB at 8192 tokens, and the head's backward holds three such
+# tensors beside the state (out of memory at 8192 on an 80 GB card)
+FAMILY_TRAIN = [("mamba2-370m", 48, 4, 2048), ("mixtral-8x22b", 1, 1, 8192),
+                ("gemma2-27b", 2, 1, 6144), ("qwen2.5-32b", 1, 2, 4096),
+                ("deepseek-67b", 1, 2, 4096)]
+FAMILY_WARMUP, FAMILY_STEPS = 2, 3
+# the export's operators -> the launch counters
+EXPORT_COUNTERS = dict(EXPORT_OPS, ssd_scan_states="ssd_scan",
+                       ssd_scan_bwd="ssd_scan_bwd")
+FAMILY_TRAIN_GROUPS = {
+    "K3b": ["bwd_state_local", "bwd_state_scan", "bwd_chunk", "bwd_reduce"],
+    "K3": ["ssd_scan_bf16", "ssd_scan_f32"], **TRAIN_GROUPS}
+
+
+def masked_grads(cfg, params, batch, keep=None):
+    """The gradient tree of the mean cross entropy over the tokens in
+    ``keep`` ([B, S] bool; all when None) through ``cfg``'s path, each
+    gradient in its parameter's dtype."""
+    leaves = trainable(params)
+    h = _scan_layers(cfg, leaves, _embed(cfg, leaves, batch),
+                     _positions(batch))
+    logits = _logits(cfg, leaves, h).float()
+    tok = (torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, batch["targets"][..., None].long())[..., 0])
+    del logits
+    loss = tok.mean() if keep is None else (tok * keep).sum() / keep.sum()
+    grads = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                     allow_unused=True,
+                                     materialize_grads=True))
+    return map_leaves(lambda _: next(grads), params)
+
+
+def family_gate(cfg, params, batch) -> None:
+    """The gradient gate of phase 7 on the step's model: every parameter's
+    bf16 gradient through the kernels within LOGIT_FACTOR times the plain
+    bf16 path's distance from an f32 plain run.  With an MoE, first the
+    share of tokens routed otherwise by the K1 and the plain path (held at
+    ROUTING_FLIP_TOL), then the loss taken only over the tokens that all
+    three runs routed alike at every layer."""
+    plain = cfg.scaled(attn_impl="chunked", remat="full")
+    cfg32 = plain.scaled(dtype="float32")
+    keep = None
+    if cfg.moe is not None:
+        runs = []
+        with torch.no_grad():
+            for c, f32 in ((cfg, False), (plain, False), (cfg32, True)):
+                with plain_norms() if c is not cfg else \
+                        contextlib.nullcontext(), routes_recorded() as seen:
+                    p = tree_map(params, lambda t: t.float()) if f32 else \
+                        params
+                    _scan_layers(c, p, _embed(c, p, batch), _positions(batch))
+                    del p
+                runs.append([routed(cfg, e) for e in seen])
+        keep = torch.ones(batch["tokens"].numel(), dtype=torch.bool,
+                          device="cuda")
+        for layer, (r, rp, r32) in enumerate(zip(*runs)):
+            flip = (r != rp).any(-1)
+            share = flip.float().mean().item()
+            keep &= ~(flip | (r != r32).any(-1))
+            log(f"    MoE layer {layer}: experts differ between the K1 and "
+                f"the plain path for {int(flip.sum())} of {flip.numel()} "
+                f"tokens ({share:.4%}, tol {ROUTING_FLIP_TOL:.0%})")
+            if share > ROUTING_FLIP_TOL:
+                raise AssertionError(f"{cfg.name} MoE layer {layer}: "
+                                     f"{share:.4%} of tokens flip")
+        keep = keep.view(batch["tokens"].shape)
+        log(f"    the gate's loss over the {int(keep.sum())} of "
+            f"{keep.numel()} tokens routed alike by all three runs")
+    flat_k = flatten(masked_grads(cfg, params, batch, keep))
+    with plain_norms():
+        flat_p = flatten(masked_grads(plain, params, batch, keep))
+        flat_32 = flatten(masked_grads(cfg32, tree_map(
+            params, lambda t: t.float()), batch, keep))
+    worst, name_worst = 0.0, ""
+    for name, g32 in flat_32.items():
+        gk, gp = flat_k[name].float(), flat_p[name].float()
+        if not (torch.isfinite(gk).all() and gk.abs().max() > 0):
+            raise AssertionError(f"gradient gate: {name} got no gradient "
+                                 "through the kernels")
+        dk = ((gk - g32).norm() / g32.norm()).item()
+        dp = ((gp - g32).norm() / g32.norm()).item()
+        if dk / dp > worst:
+            worst, name_worst = dk / dp, f"{name} (kernels {dk:.3e}, plain " \
+                f"bf16 {dp:.3e})"
+        if not dk <= LOGIT_FACTOR * dp:
+            raise AssertionError(f"gradient gate: {name} kernels {dk} > "
+                                 f"{LOGIT_FACTOR} x plain {dp}")
+    log(f"    gradient gate: {len(flat_32)} parameters, each with a "
+        f"gradient through the kernels; largest kernel/plain distance ratio "
+        f"{worst:.2f} at {name_worst} (tol {LOGIT_FACTOR:g})")
+
+
+def train_family(arch: str, layers: int, b: int, s: int, gen) -> dict:
+    """One id's train step at full width, ``layers`` deep: FAMILY_WARMUP +
+    FAMILY_STEPS AdamW steps on one repeated batch, the launch counts read
+    around the counted ones; then the step's export on fake ``cuda``
+    tensors and its prediction on ``h100``, the gradient gate and one
+    profiled step.  Returns the launch counts."""
+    cfg = get_config(arch).scaled(num_layers=layers, remat="none")
+    assert cfg.attn_impl == "kernel" and cfg.dtype == "bfloat16"
+    torch.cuda.empty_cache()
+    specs = model_specs(cfg)
+    params = init_params(specs, gen, "cuda")
+    opt_cfg = OptimizerConfig(warmup_steps=1)
+    opt_state = adamw_init(params, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, donate=True)
+    batch = {k: torch.from_numpy(x).cuda() for k, x in next(SyntheticSource(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                   seed=0))).items()}
+    n_params = param_count(specs)
+    log(f"  {arch}: {layers} of {get_config(arch).num_layers} layers, "
+        f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B parameters "
+        f"({cfg.dtype}), AdamW with f32 moments, batch {b}x{s}")
+    losses, times = [], []
+    for i in range(FAMILY_WARMUP + FAMILY_STEPS):
+        if i == FAMILY_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # ---- the main path: counts at 0 just before, read after ----
+            for fn in COUNTERS.values():
+                fn.launches = 0
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss = float(metrics["loss"])          # waits for the step
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: n / FAMILY_STEPS for k, n in launches.items()}
+    expected = {k: 0 for k in COUNTERS}
+    if cfg.family == "ssm":
+        expected.update(ssd_scan=layers, ssd_scan_bwd=layers)
+    else:
+        expected.update(flash_attention=layers, flash_attention_bwd=layers)
+    expected.update(rmsnorm=2 * layers + 1, rmsnorm_bwd=2 * layers + 1)
+    step_s = statistics.median(times[FAMILY_WARMUP:])
+    log(f"  losses {', '.join(f'{x:.4f}' for x in losses)}; step "
+        f"{b}x{s}: median {step_s * 1e3:.2f} ms over steps "
+        f"{FAMILY_WARMUP}..{FAMILY_WARMUP + FAMILY_STEPS - 1} "
+        f"({', '.join(f'{t * 1e3:.2f}' for t in times)}), "
+        f"{b * s / step_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB "
+        f"({card()})")
+    log(f"  launches a step: {per_step}")
+    if per_step != expected:
+        raise AssertionError(f"{arch} train launches a step {per_step}, "
+                             f"expected {expected}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < \
+            losses[0]:
+        raise AssertionError(f"{arch} losses {losses}: not finite, or not "
+                             "falling on a repeated batch")
+    profile_window(f"{arch} train step {b}x{s}",
+                   lambda: float(step_fn(params, opt_state, batch)[2]["loss"]),
+                   top=12, groups=FAMILY_TRAIN_GROUPS)
+    del opt_state, step_fn
+    torch.cuda.empty_cache()
+
+    # the step's export on fake cuda tensors, and its prediction
+    step, args = train_step_exports(cfg, s, b)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in COUNTERS.items()}
+    mem = torch.cuda.memory_allocated()
+    w = export_workload(step, *args, name=f"{arch}-{layers}", device="cuda")
+    if torch.cuda.memory_allocated() != mem or {
+            k: fn.launches for k, fn in COUNTERS.items()} != counts:
+        raise AssertionError(f"{arch} export: device memory or a launch "
+                             "counter moved")
+    ops = w.meta["kernel_ops"]
+    want = {op: per_step[k] for op, k in EXPORT_COUNTERS.items()
+            if per_step[k]}
+    if ops != want:
+        raise AssertionError(f"{arch} export: operator nodes {ops}, expected "
+                             f"{want}")
+    flops = int(ir.program_cost(ir.parse_stablehlo(
+        w.stablehlo_text, frontend="streaming")).by_op["dot_general"])
+    system = default_registry().get("h100")
+    p = PredictionJob(
+        program=w.program("raw"), slicer="linear", name=w.name,
+        system_name="h100", topology=build_topology(TopologySpec.from_dict(
+            {"kind": "a2a", "params": {"num_devices": 1}}), system),
+        estimator=build_estimator(EstimatorSpec.from_dict(
+            PREDICT_ESTIMATORS["roofline"]), system)).run()
+    log(f"  export on the card: trace {w.meta['trace_s']:.2f} s, emit "
+        f"{w.meta['emit_s']:.3f} s, {w.meta['text_bytes']} bytes, operator "
+        f"nodes {ops} (the launches a step), dot_general {flops} FLOPs; "
+        f"roofline by region on h100 {p.step_time_s * 1e3:.2f} ms beside "
+        f"the measured {step_s * 1e3:.2f} ms (predicted/measured "
+        f"{p.step_time_s / step_s:.4f}, not held)")
+    del w, step, args
+    family_gate(cfg, params, batch)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def families_train_phase(gen) -> list:
+    """Phase 15: the five ids' train steps; their launch counts."""
+    t0 = time.perf_counter()
+    runs = []
+    for arch, layers, b, s in FAMILY_TRAIN:
+        t1 = time.perf_counter()
+        runs.append(train_family(arch, layers, b, s, gen))
+        log(f"  {arch}: {time.perf_counter() - t1:.1f} s")
+    log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# --------------------------------------------------------------------------
 # phase 5: where the time goes (torch.profiler)
 # --------------------------------------------------------------------------
 
@@ -2641,8 +3095,10 @@ def main() -> int:
     k1 = check_k1(gen)
     k2 = check_k2(gen)
     k1b = check_k1b(gen)
+    check_k1b_families(gen)
     k2b = check_k2b(gen)
     k3 = check_k3(gen)
+    k3b = check_k3b(gen)
 
     runs = []
     for arch in ("llama3-1b", "mamba2-370m"):
@@ -2676,13 +3132,16 @@ def main() -> int:
     log("[14] other families serving: mixtral-8x22b (sparse MoE), "
         "gemma2-27b, qwen2.5-32b, deepseek-67b")
     runs += families_phase(gen)
-    # launches on the main paths: K1 and K2 run on two, three or four
-    for entry in (k1, k2, k3, k1b, k2b):
+    log("[15] the families' training paths: mamba2-370m (K3, K3b), "
+        "mixtral-8x22b, gemma2-27b, qwen2.5-32b, deepseek-67b")
+    runs += families_train_phase(gen)
+    # launches on the main paths: K1 and K2 run on several
+    for entry in (k1, k2, k3, k1b, k2b, k3b):
         key = entry["name"]
         entry["launches"] = sum(run[key] for run in runs)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k1b, k2b]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k1b, k2b, k3b]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,11 @@ that ``core/stablehlo.py`` writes into a compute region:
 * ``broadcast_in_dim``, ``reshape``, ``transpose``, ``slice``,
   ``concatenate``, ``pad``, ``reverse``, the one-line ``reduce`` (add,
   maximum, minimum);
-* ``gather``, ``scatter`` (an add) and ``dynamic_update_slice`` in the
-  emitter's forms (an embedding lookup and its gradient, ``torch.gather``
-  and ``scatter_add`` along one dim, constant start indices); a gather
-  clamps its indices and a scatter drops updates out of range, as XLA's do;
+* ``gather``, ``scatter`` (an add, or a replacement) and
+  ``dynamic_update_slice`` in the emitter's forms (an embedding lookup and
+  its gradient, ``torch.index_select``, ``torch.gather``, ``scatter_add``
+  and ``scatter`` along one dim, constant start indices); a gather clamps
+  its indices and a scatter drops updates out of range, as XLA's do;
 * ``convolution`` in JAX's three forms (explicit ``dim_numbers``, padding,
   lhs and rhs dilation, ``reverse``), ``reduce_window`` (a max pool, or a
   cumulative sum) and ``select_and_scatter`` (the pool's gradient),
@@ -57,7 +58,7 @@ from .ir.types import TensorType, mlir_types_in
 
 #: the element types the emitter writes
 DTYPES = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16,
-          "i32": torch.int32, "i1": torch.bool}
+          "f64": torch.float64, "i32": torch.int32, "i1": torch.bool}
 
 
 def torch_dtype(dt: str) -> torch.dtype:
@@ -124,6 +125,8 @@ def _literal(text: str, dt: str):
         bits = int(text, 16)
         if dt == "f16":
             return struct.unpack("<e", struct.pack("<H", bits))[0]
+        if dt == "f64":
+            return struct.unpack("<d", struct.pack("<Q", bits))[0]
         if dt == "bf16":
             bits <<= 16
         return struct.unpack("<f", struct.pack("<I", bits))[0]
@@ -322,7 +325,7 @@ def _divide(a, b):
 UNARY = {"negate": torch.neg, "abs": torch.abs, "exponential": torch.exp,
          "log": torch.log, "sqrt": torch.sqrt, "rsqrt": torch.rsqrt,
          "sine": torch.sin, "cosine": torch.cos, "tanh": torch.tanh,
-         "logistic": torch.sigmoid,
+         "logistic": torch.sigmoid, "log_plus_one": torch.log1p,
          "not": _logical(torch.logical_not, torch.bitwise_not)}
 BINARY = {"add": torch.add, "subtract": torch.sub, "multiply": torch.mul,
           "divide": _divide, "maximum": torch.maximum,
@@ -564,15 +567,35 @@ def _gather(ex, fn, op):
             i = xs[1][..., 0].clamp(0, n - 1).long()
             return torch.gather(xs[0], dim, i)
         return run
+    if (not batch and len(i_t.shape) == 2 and ivd == 1
+            and d.get("collapsed_slice_dims") == [dim]
+            and sizes == [1 if a == dim else s for a, s in
+                          enumerate(x_t.shape)]
+            and d.get("offset_dims") == [a for a in range(rank) if a != dim]):
+        def run(xs):               # torch.index_select along dim
+            i = xs[1][:, 0].clamp(0, n - 1)
+            return torch.index_select(xs[0], dim, i)
+        return run
     raise NotImplementedError(f"gather with dimension numbers {d} and slice "
-                              f"sizes {sizes} (the emitter's two forms run)")
+                              f"sizes {sizes} (the emitter's three forms run)")
+
+
+def _replaces(op: OpNode) -> bool:
+    """Whether a scatter's update region returns its second argument (the
+    update replaces the operand's element, JAX's ``.at[].set``)."""
+    args = re.search(r"\^bb0\(\s*%[\w.]+\s*:[^,]*,\s*(%[\w.]+)\s*:", op.raw)
+    ret = re.search(r"stablehlo\.return\s+(%[\w.]+)", op.raw)
+    return (not _region_ops(op) and args is not None and ret is not None
+            and args.group(1) == ret.group(1))
 
 
 @_compiles("scatter")
 def _scatter(ex, fn, op):
-    if _region_ops(op) != ["add"]:
+    replace = _replaces(op)
+    if not replace and _region_ops(op) != ["add"]:
         raise NotImplementedError(f"scatter whose update computation is "
-                                  f"{_region_ops(op)}, not an add")
+                                  f"{_region_ops(op)}, neither an add nor "
+                                  "a replacement")
     d = _dnums(op.raw, "scatter")
     x_t = _result_types(op)[0]
     rank = len(x_t.shape)
@@ -592,6 +615,21 @@ def _scatter(ex, fn, op):
         return i.clamp(0, n - 1), ok
 
     upd_rank = len(_operand_types(op)[2].shape)
+    if replace:
+        if batch != [a for a in range(rank) if a != dim] or d.get(
+                "scatter_indices_batching_dims") != batch:
+            raise NotImplementedError(f"a replacing scatter with dimension "
+                                      f"numbers {d}")
+
+        pad = [0, 0] * (rank - 1 - dim) + [0, 1]
+
+        def run(xs):               # torch.scatter along dim
+            # an update out of range goes to a spare slot, cut off after
+            i = xs[1][..., 0].long()
+            i = torch.where((i >= 0) & (i < n), i, n)
+            return torch.scatter(F.pad(xs[0], pad), dim, i,
+                                 xs[2]).narrow(dim, 0, n)
+        return run
     if (not batch and dim == 0 and d.get("update_window_dims")
             == list(range(upd_rank - rank + 1, upd_rank))):
         def run(xs):               # x[idx] += updates (an embedding's grad)

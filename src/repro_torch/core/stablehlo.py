@@ -34,7 +34,9 @@ pad) costs what JAX's does.  A max pool is a ``reduce_window`` (its -inf
 pad folded in the same way) and its backward, as JAX writes it, a
 ``select_and_scatter`` over the -inf-padded input and a ``slice``.
 
-Element types are ``bf16``, ``f16``, ``f32``, ``i32`` and ``i1``; PyTorch's
+Element types are ``bf16``, ``f16``, ``f32``, ``f64``, ``i32`` and ``i1``
+(``f64`` only inside the plain versions of K3 and K3b, which take the
+chunk's cumulative decay in double); PyTorch's
 int64 indices are written as ``i32``, as JAX writes them without x64.
 """
 from __future__ import annotations
@@ -54,11 +56,11 @@ from .export import BARRIER, Traced
 aten = torch.ops.aten
 
 _ELEMENT = {torch.float32: "f32", torch.bfloat16: "bf16",
-            torch.float16: "f16", torch.int32: "i32", torch.int64: "i32",
-            torch.bool: "i1"}
-_FLOATS = ("f32", "bf16", "f16")
+            torch.float16: "f16", torch.float64: "f64", torch.int32: "i32",
+            torch.int64: "i32", torch.bool: "i1"}
+_FLOATS = ("f32", "bf16", "f16", "f64")
 _TORCH_FLOAT = {"f32": torch.float32, "bf16": torch.bfloat16,
-                "f16": torch.float16}
+                "f16": torch.float16, "f64": torch.float64}
 
 
 def _element(dtype: torch.dtype) -> str:
@@ -117,6 +119,8 @@ def _float_literal(x: float, dt: str) -> str:
     if math.isnan(x) or math.isinf(x):
         if dt == "f16":
             return f"0x{struct.unpack('<H', struct.pack('<e', x))[0]:04X}"
+        if dt == "f64":
+            return f"0x{struct.unpack('<Q', struct.pack('<d', x))[0]:016X}"
         bits = struct.unpack("<I", struct.pack("<f", x))[0]
         return f"0x{bits:08X}" if dt == "f32" else f"0x{bits >> 16:04X}"
     rounded = torch.tensor(x, dtype=_TORCH_FLOAT[dt]).item()
@@ -152,7 +156,7 @@ _UNARY = {
     aten.sqrt.default: "sqrt", aten.rsqrt.default: "rsqrt",
     aten.sin.default: "sine", aten.cos.default: "cosine",
     aten.tanh.default: "tanh", aten.sigmoid.default: "logistic",
-    aten.bitwise_not.default: "not",
+    aten.bitwise_not.default: "not", aten.log1p.default: "log_plus_one",
 }
 _BINARY = {
     aten.add.Tensor: "add", aten.sub.Tensor: "subtract",
@@ -161,6 +165,7 @@ _BINARY = {
     aten.div.Scalar: "divide", aten.maximum.default: "maximum",
     aten.minimum.default: "minimum", aten.pow.Scalar: "power",
     aten.bitwise_and.Tensor: "and", aten.bitwise_or.Tensor: "or",
+    aten.logical_and.default: "and",
 }
 _COMPARE = {}
 for _name, _dir in (("eq", "EQ"), ("ne", "NE"), ("lt", "LT"), ("le", "LE"),
@@ -168,7 +173,8 @@ for _name, _dir in (("eq", "EQ"), ("ne", "NE"), ("lt", "LT"), ("le", "LE"),
     _COMPARE[getattr(aten, _name).Tensor] = _dir
     _COMPARE[getattr(aten, _name).Scalar] = _dir
 # ops whose output is their input's value (functional copies, detaches)
-_IDENTITY = {aten.clone.default, aten.detach_copy.default}
+_IDENTITY = {aten.clone.default, aten.detach_copy.default, aten.alias.default,
+             aten.alias_copy.default}
 # ops whose output is their input's values in another shape
 _RESHAPE = {aten.view.default, aten.view_copy.default, aten._unsafe_view.default,
             aten.squeeze.dims, aten.squeeze_copy.dims, aten.unsqueeze.default,
@@ -664,8 +670,11 @@ def _select(f, node, x, dim, index):
     return f.reshape(f.slice_dim(v, dim, index, index + 1), _out(node)[0])
 
 
-@_lowers(aten.split_copy.Tensor, aten.unbind_copy.int)
+@_lowers(aten.split_copy.Tensor, aten.unbind_copy.int,
+         aten.split_with_sizes.default, aten.split_with_sizes_copy.default)
 def _split(f, node, x, size=0, dim=0):
+    """Consecutive slices along ``dim``, one a result (``unbind`` takes
+    its dim in ``size``'s place); each result's width is its own."""
     v = f.value(x)
     unbind = node.target is aten.unbind_copy.int
     dim = _norm_dim(size if unbind else dim, len(v.shape))
@@ -688,6 +697,14 @@ def _cat(f, node, xs, dim=0):
     return f._emit(f"stablehlo.concatenate {', '.join(v.name for v in vals)}"
                    f", dim = {dim} : ({', '.join(v.ty for v in vals)}) -> "
                    f"{_tensor_type(shape, dt)}", shape, dt)
+
+
+@_lowers(aten.flip.default)
+def _flip(f, node, x, dims):
+    v = f.value(x)
+    dims = sorted(_norm_dim(d, len(v.shape)) for d in dims)
+    return f._emit(f"stablehlo.reverse {v.name}, dims = "
+                   f"{_dims(dims)} : {v.ty}", v.shape, v.dt)
 
 
 @_lowers(*_FILL)
@@ -864,6 +881,27 @@ def _index(f, node, x, indices):
         f"{_tensor_type(shape, dt)}", shape, dt)
 
 
+@_lowers(aten.index_select.default)
+def _index_select(f, node, x, dim, index):
+    """x taken along ``dim`` at the 1-D ``index`` (the gradient of an
+    ``index_add``): JAX's ``jnp.take(x, index, axis=dim)``, a ``gather``
+    whose offset dims are the output's other dims."""
+    shape, dt = _out(node)
+    v, idx = f.value(x), f.value(index)
+    r = len(v.shape)
+    dim = _norm_dim(dim, r)
+    ind = _indices(f, idx, idx.shape)
+    sizes = [1 if d == dim else n for d, n in enumerate(v.shape)]
+    return f._emit(
+        f'"stablehlo.gather"({v.name}, {ind.name}) <{{dimension_numbers = '
+        f"#stablehlo.gather<offset_dims = "
+        f"{_dims(d for d in range(r) if d != dim)}, "
+        f"collapsed_slice_dims = [{dim}], start_index_map = [{dim}], "
+        f"index_vector_dim = 1>, indices_are_sorted = false, "
+        f"slice_sizes = array<i64: {', '.join(map(str, sizes))}>}}> : "
+        f"({v.ty}, {ind.ty}) -> {_tensor_type(shape, dt)}", shape, dt)
+
+
 @_lowers(aten.gather.default)
 def _gather(f, node, x, dim, index, sparse_grad=False):
     """torch.gather with the index's other dims equal to x's."""
@@ -887,18 +925,22 @@ def _gather(f, node, x, dim, index, sparse_grad=False):
         f"{_tensor_type(shape, dt)}", shape, dt)
 
 
-def _scatter_add(f, v: Value, ind: Value, upd: Value, dnums: str) -> Value:
+def _scatter_add(f, v: Value, ind: Value, upd: Value, dnums: str,
+                 replace: bool = False) -> Value:
+    """A ``scatter`` whose update region adds (or, with ``replace``,
+    returns the update, as JAX's ``.at[].set`` prints)."""
     name = f"%{f.count}"
     f.count += 1
     e = _tensor_type((), v.dt)
+    lhs, rhs, tag = f"%lhs{name[1:]}", f"%rhs{name[1:]}", name[1:]
+    body = ([f"      stablehlo.return {rhs} : {e}"] if replace else
+            [f"      %sum{tag} = stablehlo.add {lhs}, {rhs} : {e}",
+             f"      stablehlo.return %sum{tag} : {e}"])
     f.lines += [
         f'    {name} = "stablehlo.scatter"({v.name}, {ind.name}, {upd.name}) '
         f"<{{indices_are_sorted = false, scatter_dimension_numbers = "
         f"#stablehlo.scatter<{dnums}>, unique_indices = false}}> ({{",
-        f"    ^bb0(%lhs{name[1:]}: {e}, %rhs{name[1:]}: {e}):",
-        f"      %sum{name[1:]} = stablehlo.add %lhs{name[1:]}, "
-        f"%rhs{name[1:]} : {e}",
-        f"      stablehlo.return %sum{name[1:]} : {e}",
+        f"    ^bb0({lhs}: {e}, {rhs}: {e}):", *body,
         f"    }}) : ({v.ty}, {ind.ty}, {upd.ty}) -> {v.ty}"]
     return Value(name, v.shape, v.dt)
 
@@ -921,9 +963,10 @@ def _index_put(f, node, x, indices, values, accumulate=False):
                         f"index_vector_dim = {r}")
 
 
-@_lowers(aten.scatter_add.default)
+@_lowers(aten.scatter_add.default, aten.scatter.src)
 def _scatter_add_op(f, node, x, dim, index, src):
-    """torch.scatter_add with the index's other dims equal to x's."""
+    """torch.scatter_add (and torch.scatter, whose update replaces: the
+    gradient of a ``topk``) with the index's other dims equal to x's."""
     shape, dt = _out(node)
     v, idx = f.convert(f.value(x), dt), f.value(index)
     r = len(v.shape)
@@ -938,7 +981,8 @@ def _scatter_add_op(f, node, x, dim, index, src):
                         f"input_batching_dims = {_dims(batch)}, "
                         f"scatter_indices_batching_dims = {_dims(batch)}, "
                         f"scatter_dims_to_operand_dims = [{dim}], "
-                        f"index_vector_dim = {r}")
+                        f"index_vector_dim = {r}",
+                        replace=node.target is aten.scatter.src)
 
 
 def _update(f, x: Value, upd: Value, starts) -> Value:
@@ -1058,9 +1102,74 @@ _CONV_DATA = "[b, f, 0, 1]x[i, o, 0, 1]->[b, f, 0, 1]"
 _CONV_WEIGHT = "[f, b, 0, 1]x[i, o, 0, 1]->[f, b, 0, 1]"
 
 
+def _depthwise(x, w, stride, padding, dilation, transposed, groups) -> bool:
+    """A depthwise 1-D convolution (groups = channels) of NCL by [C, 1, K],
+    unpadded: mamba2's causal conv after its pad."""
+    xs, ws = _meta(x).shape, _meta(w).shape
+    return (len(xs) == 3 and groups > 1 and groups == xs[1] and ws[1] == 1
+            and list(stride) == [1] and list(padding) == [0]
+            and list(dilation) == [1] and not transposed)
+
+
+def _tap(f, k: Value, i: int, shape) -> Value:
+    """Tap ``i`` of a [C, 1, K] kernel broadcast over NCL ``shape``."""
+    return f.broadcast(f.reshape(f.slice_dim(k, 2, i, i + 1),
+                                 (k.shape[0], 1)), shape)
+
+
+def _depthwise_conv(f, node, x, w, bias) -> Value:
+    """As the JAX package writes its causal conv: for each tap a slice of
+    the input times the tap, added in order, then the bias."""
+    shape, dt = _out(node)
+    v, k = f.convert(f.value(x), dt), f.convert(f.value(w), dt)
+    out = None
+    for i in range(k.shape[2]):
+        term = f.binary("multiply", f.slice_dim(v, 2, i, i + shape[2]),
+                        _tap(f, k, i, shape))
+        out = term if out is None else f.binary("add", out, term)
+    if bias is not None:
+        b = f.reshape(f.convert(f.value(bias), dt), (shape[1], 1))
+        out = f.binary("add", out, f.broadcast(b, shape))
+    return out
+
+
+def _depthwise_backward(f, node, dy, x, w, output_mask) -> list:
+    """The input's gradient as each tap's product padded back into place,
+    the kernel's as each tap's sum of input slice times output gradient,
+    the bias's as the output gradient's sum."""
+    metas = _meta(node)
+    g, v, k = f.value(dy), f.value(x), f.value(w)
+    taps = k.shape[2]
+    res: list = [None, None, None]
+    if output_mask[0]:
+        dt = _element(metas[0].dtype)
+        gg, kk = f.convert(g, dt), f.convert(k, dt)
+        for i in range(taps):
+            term = f.pad(f.binary("multiply", gg, _tap(f, kk, i, g.shape)),
+                         [0, 0, i], [0, 0, taps - 1 - i], 0)
+            res[0] = term if res[0] is None else f.binary("add", res[0], term)
+    if output_mask[1]:
+        dt = _element(metas[1].dtype)
+        vv, gg = f.convert(v, dt), f.convert(g, dt)
+        parts = [f.reshape(f.reduce(f.binary(
+            "multiply", f.slice_dim(vv, 2, i, i + g.shape[2]), gg), [0, 2],
+            "add"), (k.shape[0], 1, 1)) for i in range(taps)]
+        shape = tuple(metas[1].shape)
+        res[1] = f._emit(
+            f"stablehlo.concatenate {', '.join(p.name for p in parts)}, "
+            f"dim = 2 : ({', '.join(p.ty for p in parts)}) -> "
+            f"{_tensor_type(shape, dt)}", shape, dt)
+    if output_mask[2]:
+        res[2] = f.reduce(f.convert(g, _element(metas[2].dtype)), [0, 2],
+                          "add")
+    return res
+
+
 @_lowers(aten.convolution.default)
 def _conv(f, node, x, w, bias, stride, padding, dilation, transposed,
           output_padding, groups):
+    if _depthwise(x, w, stride, padding, dilation, transposed, groups):
+        return _depthwise_conv(f, node, x, w, bias)
     _window_ok(node, dilation, groups, transposed)
     if bias is not None:
         raise NotImplementedError(f"{node.target} with a bias")
@@ -1076,6 +1185,8 @@ def _conv_backward(f, node, dy, x, w, bias_sizes, stride, padding, dilation,
     """JAX's two forms: the data gradient is a convolution of the
     lhs-dilated output gradient with the reversed kernel, the weight
     gradient one of the input with the rhs-dilated output gradient."""
+    if _depthwise(x, w, stride, padding, dilation, transposed, groups):
+        return _depthwise_backward(f, node, dy, x, w, output_mask)
     _window_ok(node, dilation, groups, transposed)
     if output_mask[2]:
         raise NotImplementedError(f"{node.target} with a bias")

@@ -13,7 +13,12 @@
 //   S_{c+1} = exp(datot) S_c + sum_t exp(datot - dacs_t) dt_t x_t (x) B_t
 //
 // with S_0 the initial state (or 0); the kernel writes y and the final state.
-// No decay, chunk state or inbound state reaches device memory.
+// No decay or chunk state reaches device memory.  When a gradient will be
+// asked for, the caller passes a `states` buffer and the kernel also writes
+// each chunk's inbound state S_c there (f32, [B, C, H, P, N], as K1 writes
+// its lse): K3b (ssd_scan_bwd.cu) reads them instead of recomputing them,
+// 33.5 MB a layer at mamba2-370m's 4 x 2048.  The reference's backward
+// recomputes them inside jax.grad of its lax.scan.
 //
 // Bound on an H100 at a mamba2-370m prefill (B=4, S=2048, 32 heads of
 // P=64, d_state N=128, one group, L=256): 76.5 MB of x, dt, B, C, y and the
@@ -99,7 +104,7 @@ ssd_scan_f32(const float* __restrict__ x, const float* __restrict__ dt,
              const float* __restrict__ a, const float* __restrict__ bm,
              const float* __restrict__ cm, const float* __restrict__ init,
              float* __restrict__ y, float* __restrict__ final_state,
-             Problem p) {
+             float* __restrict__ states, Problem p) {
   static_assert(P % 32 == 0 && P <= kTile && N % 4 == 0, "P, N");
   constexpr int kCols = P / 32;                  // output columns per lane
   constexpr int kOwn = P * N / kF32Threads;      // state elements per thread
@@ -136,11 +141,14 @@ ssd_scan_f32(const float* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();  // every thread is done with the previous chunk
     for (int j = tid; j < L; j += kF32Threads)
       sDt[j] = dt[t_off + static_cast<long long>(j) * p.heads];
-    // the inbound state, staged for C S^T
+    // the inbound state, staged for C S^T (and written for the backward)
+    float* st_out = states == nullptr ? nullptr
+        : states + ((static_cast<long long>(b) * nc + c) * p.heads + h) * P * N;
 #pragma unroll
     for (int k = 0; k < kOwn; ++k) {
       const int e = tid + kF32Threads * k;
       sS[(e / N) * (N + 1) + e % N] = static_cast<float>(st[k]);
+      if (st_out != nullptr) st_out[e] = static_cast<float>(st[k]);
     }
     __syncthreads();
     if (tid == 0) {
@@ -441,7 +449,7 @@ ssd_scan_bf16(const __grid_constant__ CUtensorMap tx,
               const __grid_constant__ CUtensorMap ty,
               const float* __restrict__ dt, const float* __restrict__ a,
               const float* __restrict__ init, float* __restrict__ final_state,
-              Problem p) {
+              float* __restrict__ states, Problem p) {
   static_assert((P == 32 || P == 64) && (N == 32 || N == 64 || N == 128),
                 "P in {32, 64}, N in {32, 64, 128}");
   using T = Tiles<P, N>;
@@ -546,14 +554,20 @@ ssd_scan_bf16(const __grid_constant__ CUtensorMap tx,
                 : 0.f;
   }
   // the state as bf16 hi and lo parts into shared memory, swizzled as a
-  // K-major [P, N] tile
-  auto stage_state = [&]() {
+  // K-major [P, N] tile; when the caller asked for them, also in f32 as the
+  // inbound state of chunk c
+  auto stage_state = [&](int c) {
     if (!holds_state) return;
+    float* st_out = states == nullptr || c >= nc ? nullptr
+        : states + ((static_cast<long long>(b) * nc + c) * p.heads + h) * P * N;
 #pragma unroll
     for (int e = 0; e < kSC / 2; e += 2) {
       const int row = warp * 16 + g + 8 * ((e >> 1) & 1);
       if (row >= P) continue;
       const int col = n0 + 8 * (e >> 2) + 2 * t4;
+      if (st_out != nullptr)
+        *reinterpret_cast<float2*>(st_out + row * N + col) =
+            make_float2(st[e], st[e + 1]);
       const uint32_t off =
           (col / T::kColsN) * P * T::kRowBytesN +
           swizzle(row * T::kRowBytesN + (col % T::kColsN) * 2, T::kSwzN);
@@ -568,7 +582,7 @@ ssd_scan_bf16(const __grid_constant__ CUtensorMap tx,
                    : "memory");
     }
   };
-  stage_state();
+  stage_state(0);
 
   float y[P / 2], s[kTile / 2];
   uint32_t pf[kTile / 16][4];
@@ -755,7 +769,7 @@ ssd_scan_bf16(const __grid_constant__ CUtensorMap tx,
 
     // every consumer is done with this chunk's state, dacs, dt and w
     named_sync(kBarAll, 256);
-    stage_state();
+    stage_state(c + 1);
     dt_cur = dt_next;
   }
 
@@ -775,7 +789,7 @@ ssd_scan_bf16(const __grid_constant__ CUtensorMap tx,
 template <int P, int N>
 cudaError_t launch_f32(const void* x, const float* dt, const float* a,
                        const void* b, const void* c, const float* init,
-                       void* y, float* final_state, int batch,
+                       void* y, float* final_state, float* states, int batch,
                        const Problem& p, cudaStream_t stream) {
   auto kernel = ssd_scan_f32<P, N>;
   constexpr size_t smem = f32_smem_bytes<P, N>();
@@ -786,15 +800,15 @@ cudaError_t launch_f32(const void* x, const float* dt, const float* a,
   kernel<<<batch * p.heads, kF32Threads, smem, stream>>>(
       static_cast<const float*>(x), dt, a, static_cast<const float*>(b),
       static_cast<const float*>(c), init, static_cast<float*>(y), final_state,
-      p);
+      states, p);
   return cudaGetLastError();
 }
 
 template <int P, int N>
 cudaError_t launch_bf16(const void* x, const float* dt, const float* a,
                         const void* b, const void* c, const float* init,
-                        void* y, float* final_state, int batch, int groups,
-                        const Problem& p, cudaStream_t stream) {
+                        void* y, float* final_state, float* states, int batch,
+                        int groups, const Problem& p, cudaStream_t stream) {
   using T = Tiles<P, N>;
   const CUtensorMapSwizzle swz_n = T::kColsN == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                                                    : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -816,7 +830,7 @@ cudaError_t launch_bf16(const void* x, const float* dt, const float* a,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (e != cudaSuccess) return e;
   kernel<<<batch * p.heads, T::kThreads, T::kSmem, stream>>>(
-      tx, tb, tc, ty, dt, a, init, final_state, p);
+      tx, tb, tc, ty, dt, a, init, final_state, states, p);
   return cudaGetLastError();
 }
 
@@ -824,13 +838,14 @@ template <int P, int N>
 cudaError_t dispatch_dtype(int dtype, const void* x, const float* dt,
                            const float* a, const void* b, const void* c,
                            const float* init, void* y, float* final_state,
-                           int batch, int groups, const Problem& p,
-                           cudaStream_t s) {
+                           float* states, int batch, int groups,
+                           const Problem& p, cudaStream_t s) {
   if (dtype == 0)
-    return launch_f32<P, N>(x, dt, a, b, c, init, y, final_state, batch, p, s);
+    return launch_f32<P, N>(x, dt, a, b, c, init, y, final_state, states,
+                            batch, p, s);
   if (dtype == 1)
-    return launch_bf16<P, N>(x, dt, a, b, c, init, y, final_state, batch,
-                             groups, p, s);
+    return launch_bf16<P, N>(x, dt, a, b, c, init, y, final_state, states,
+                             batch, groups, p, s);
   return cudaErrorInvalidValue;
 }
 
@@ -838,12 +853,12 @@ template <int P>
 cudaError_t dispatch_n(int n, int dtype, const void* x, const float* dt,
                        const float* a, const void* b, const void* c,
                        const float* init, void* y, float* final_state,
-                       int batch, int groups, const Problem& p,
+                       float* states, int batch, int groups, const Problem& p,
                        cudaStream_t s) {
   switch (n) {
-    case 32: return dispatch_dtype<P, 32>(dtype, x, dt, a, b, c, init, y, final_state, batch, groups, p, s);
-    case 64: return dispatch_dtype<P, 64>(dtype, x, dt, a, b, c, init, y, final_state, batch, groups, p, s);
-    case 128: return dispatch_dtype<P, 128>(dtype, x, dt, a, b, c, init, y, final_state, batch, groups, p, s);
+    case 32: return dispatch_dtype<P, 32>(dtype, x, dt, a, b, c, init, y, final_state, states, batch, groups, p, s);
+    case 64: return dispatch_dtype<P, 64>(dtype, x, dt, a, b, c, init, y, final_state, states, batch, groups, p, s);
+    case 128: return dispatch_dtype<P, 128>(dtype, x, dt, a, b, c, init, y, final_state, states, batch, groups, p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -854,13 +869,15 @@ cudaError_t dispatch_n(int n, int dtype, const void* x, const float* dt,
 // head-or-group) strides in elements with the last dim contiguous and every
 // stride and base aligned to 16 bytes; dt: contiguous [B, S, H] f32; a: [H]
 // f32; init (or null for zeros) and final_state: contiguous [B, H, P, N]
-// f32; y: contiguous [B, S, H, P].  dtype (of x, B, C and y): 0 = float32,
+// f32; y: contiguous [B, S, H, P]; states (or null): contiguous [B, S / chunk,
+// H, P, N] f32, each chunk's inbound state.  dtype (of x, B, C and y): 0 = float32,
 // 1 = bfloat16.  P in {32, 64}, N in {32, 64, 128}, H % G == 0, chunk a
 // multiple of 64 up to 256 dividing S.  Returns cudaGetLastError() after the
 // launch.
 extern "C" int repro_ssd_scan(
     const void* x, const void* dt, const void* a, const void* b,
-    const void* c, const void* init, void* y, void* final_state, int batch,
+    const void* c, const void* init, void* y, void* final_state,
+    void* states, int batch,
     int seqlen, int heads, int groups, int chunk, int p, int n,
     long long x_sb, long long x_ss, long long x_sh, long long b_sb,
     long long b_ss, long long b_sg, long long c_sb, long long c_ss,
@@ -877,9 +894,10 @@ extern "C" int repro_ssd_scan(
   const float* af = static_cast<const float*>(a);
   const float* initf = static_cast<const float*>(init);
   float* fs = static_cast<float*>(final_state);
+  float* ss = static_cast<float*>(states);
   switch (p) {
-    case 32: return dispatch_n<32>(n, dtype, x, dtf, af, b, c, initf, y, fs, batch, groups, pr, s);
-    case 64: return dispatch_n<64>(n, dtype, x, dtf, af, b, c, initf, y, fs, batch, groups, pr, s);
+    case 32: return dispatch_n<32>(n, dtype, x, dtf, af, b, c, initf, y, fs, ss, batch, groups, pr, s);
+    case 64: return dispatch_n<64>(n, dtype, x, dtf, af, b, c, initf, y, fs, ss, batch, groups, pr, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,7 +10,11 @@ reference.
 * :func:`ssd_ref` is the sequential oracle, the exact linear-time
   recurrence that the chunked forms must match;
 * :func:`kernel_error` holds K3's y and final state against
-  ``ssd_scan_ref`` in f32.
+  ``ssd_scan_ref`` in f32;
+* :func:`ssd_scan_states_ref` is K3's function when a gradient will be
+  asked for: the scan's outputs and each chunk's inbound state;
+* :func:`ssd_scan_bwd_ref` is K3b's function, the scan's backward, and
+  :func:`bwd_kernel_error` holds K3b against it in double.
 
 Layouts are the sequence layouts the model hands the kernel: x [B, S, H, P],
 dt [B, S, H] f32, a [H] f32, B and C [B, S, G, N] with G dividing H (head h
@@ -124,10 +128,8 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     :func:`ssd_chunk_ref` with the inbound states, the sums of products
     taken in ``sums``.  Returns (y [B, S, H, P] in x.dtype, final_state
     [B, H, P, N] f32)."""
-    dacs, inbound, final = chunk_states(x, dt, a, b_in, chunk, initial_state,
-                                        sums)
-    y, _ = ssd_chunk_ref(x, dt.float(), b_in, c_in, dacs, inbound, sums)
-    return y, final
+    return ssd_scan_states_ref(x, dt, a, b_in, c_in, chunk, initial_state,
+                               sums)[:2]
 
 
 def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, b_in: torch.Tensor,
@@ -202,7 +204,8 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 def kernel_error(y: torch.Tensor, final_state: torch.Tensor,
                  x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
-                 initial_state: torch.Tensor | None = None
+                 initial_state: torch.Tensor | None = None,
+                 states: torch.Tensor | None = None
                  ) -> tuple[float, float, float]:
     """Hold K3's ``y`` and ``final_state`` against ``ssd_scan_ref`` on the
     same inputs, its decays and weights in f32 as K3 computes them and its
@@ -212,19 +215,22 @@ def kernel_error(y: torch.Tensor, final_state: torch.Tensor,
     largest element error in units of its tolerance (RTOL * scale) and the
     largest row error in units of its row tolerance (ROW_RTOL for y,
     STATE_ROW_RTOL for the state): the kernel agrees when both ratios are
-    at most 1."""
+    at most 1.  With ``states`` (the inbound states K3 writes for its
+    backward) those are held as the final state is."""
     init = None if initial_state is None else initial_state.float()
-    ref, ref_st = ssd_scan_ref(x.float(), dt, a, b_in.float(), c_in.float(),
-                               chunk, init, sums=torch.float64)
-    mag, mag_st = ssd_scan_ref(x.float().abs(), dt, a, b_in.float().abs(),
-                               c_in.float().abs(), chunk,
-                               None if init is None else init.abs(),
-                               sums=torch.float64)
+    ref, ref_st, ref_in = ssd_scan_states_ref(
+        x.float(), dt, a, b_in.float(), c_in.float(), chunk, init,
+        sums=torch.float64)
+    mag, mag_st, mag_in = ssd_scan_states_ref(
+        x.float().abs(), dt, a, b_in.float().abs(), c_in.float().abs(),
+        chunk, None if init is None else init.abs(), sums=torch.float64)
     rtol = RTOL[x.dtype]
     max_err, elem, row = 0.0, 0.0, 0.0
-    for out, r, m, row_tol in ((y, ref, mag, ROW_RTOL[x.dtype]),
-                               (final_state, ref_st, mag_st,
-                                STATE_ROW_RTOL[x.dtype])):
+    held = [(y, ref, mag, ROW_RTOL[x.dtype]),
+            (final_state, ref_st, mag_st, STATE_ROW_RTOL[x.dtype])]
+    if states is not None:
+        held.append((states, ref_in, mag_in, STATE_ROW_RTOL[x.dtype]))
+    for out, r, m, row_tol in held:
         err = out.float() - r
         max_err = max(max_err, err.abs().max().item())
         elem = max(elem, (err.abs() / (rtol * (r.abs() + m)).clamp_min(1e-30)
@@ -232,3 +238,156 @@ def kernel_error(y: torch.Tensor, final_state: torch.Tensor,
         row = max(row, (err.norm(dim=-1) / (row_tol * r.norm(dim=-1))
                         .clamp_min(1e-30)).max().item())
     return max_err, elem, row
+
+
+def ssd_scan_states_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
+                        initial_state: torch.Tensor | None = None,
+                        sums: torch.dtype = torch.float32):
+    """:func:`ssd_scan_ref` that also returns each chunk's inbound state:
+    (y, final_state, states [B, C, H, P, N] f32), the states K3 writes for
+    its backward when a gradient will be asked for."""
+    dacs, inbound, final = chunk_states(x, dt, a, b_in, chunk, initial_state,
+                                        sums)
+    y, _ = ssd_chunk_ref(x, dt.float(), b_in, c_in, dacs, inbound, sums)
+    return y, final, inbound
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
+                     initial_state: torch.Tensor | None,
+                     states: torch.Tensor | None, dy: torch.Tensor,
+                     dfinal: torch.Tensor | None,
+                     sums: torch.dtype = torch.float32):
+    """K3b's function: the gradients of :func:`ssd_scan_ref` given dy (the
+    gradient of y) and dfinal (of the final state; None for 0), written
+    out in ``sums`` (the decays' exponentials too).  ``states``, the
+    inbound states K3 wrote, are recomputed by :func:`chunk_states` and
+    not read.  Per (batch, head, chunk), with G_c the gradient reaching the
+    state after chunk c:
+
+        G_{c-1} = exp(T) G_c + sum_i exp(dacs_i) dy_i (x) C_i
+        dx_j = dt_j [sum_{i>=j} (C_i.B_j) e_ij dy_i + exp(T - dacs_j) G B_j]
+        dC_i = sum_{j<=i} (dy_i.x_j) dt_j e_ij B_j + exp(dacs_i) S^T dy_i
+        dB_j = sum_{i>=j} (dy_i.x_j) dt_j e_ij C_i
+               + exp(T - dacs_j) dt_j G^T x_j
+
+    with e_ij = exp(dacs_i - dacs_j) and T = dacs_{L-1}; dB and dC summed
+    over a group's heads.  The exponents' gradient: M_ij = (C_i.B_j)
+    (dy_i.x_j) dt_j e_ij for i > j (the diagonal's exponent is 0 whatever
+    dacs is, so it takes no part), r_i = exp(dacs_i) dy_i.(S C_i) and q_j
+    = dt_j x_j.(exp(T - dacs_j) G B_j); then g = d(dt a) is, at row k,
+
+        sum_{i>=k} (sum_j M_ij - sum_l M_li + r_i) + sum_{j<k} q_j
+        + exp(T) <G, S>
+
+    (the q_j reach T and dacs_j with opposite signs; summing those left of
+    k avoids cancelling them), so ddt = x.(dx / dt) + a g and da = sum dt
+    g.  Returns (dx, ddt, da, dB, dC, dinitial), each in its input's dtype;
+    dinitial is the initial state's gradient [B, H, P, N] f32 (float64 when
+    ``sums`` is), given even when there is no initial state."""
+    del states
+    bsz, s, h, p = x.shape
+    g, n = b_in.shape[2], b_in.shape[3]
+    nc, k = s // chunk, h // g
+    f, dev = sums, x.device
+    dacs, inbound, _ = chunk_states(x, dt, a, b_in, chunk, initial_state,
+                                    sums)
+
+    def chunked(t, *tail):
+        return t.to(f).reshape(bsz, nc, chunk, *tail)
+    xc, dyc = chunked(x, g, k, p), chunked(dy, g, k, p)      # [B,C,L,G,K,P]
+    bc, cc = chunked(b_in, g, n), chunked(c_in, g, n)        # [B,C,L,G,N]
+    dtc, dac = chunked(dt, g, k), chunked(dacs, g, k)        # [B,C,L,G,K]
+    st = inbound.to(f).reshape(bsz, nc, g, k, p, n)
+    tot = dac[:, :, -1]                                      # [B,C,G,K]
+    ea = torch.exp(dac)
+    et = torch.exp(tot[:, :, None] - dac)                    # exp(T - dacs)
+
+    # the reverse recurrence of the state's gradient
+    local = torch.einsum("bclgkp,bclgn->bcgkpn", dyc * ea[..., None], cc)
+    grad = (torch.zeros(bsz, g, k, p, n, dtype=f, device=dev)
+            if dfinal is None else dfinal.to(f).reshape(bsz, g, k, p, n))
+    after = [grad] * nc
+    for c in reversed(range(nc)):
+        after[c] = grad
+        grad = torch.exp(tot[:, c])[..., None, None] * grad + local[:, c]
+    gst = torch.stack(after, dim=1)                          # [B,C,G,K,P,N]
+
+    # inside each chunk: rows i, j as the last two dims
+    dah = dac.permute(0, 1, 3, 4, 2)                         # [B,C,G,K,L]
+    row = torch.arange(chunk, device=dev)
+    lower = row[:, None] >= row[None, :]
+    e = torch.exp((dah[..., :, None] - dah[..., None, :]).masked_fill(
+        ~lower, float("-inf")))                              # mask first
+    cb = torch.einsum("bclgn,bcsgn->bcgls", cc, bc)[:, :, :, None]
+    dxm = torch.einsum("bclgkp,bcsgkp->bcgkls", dyc, xc)
+    w = cb * e
+    v = dxm * e * dtc.permute(0, 1, 3, 4, 2)[..., None, :]
+    m = (cb * v).masked_fill(~(row[:, None] > row[None, :]), 0.0)
+
+    dxs = torch.einsum("bcgkpn,bclgn->bclgkp", gst, bc) * et[..., None]
+    dxt = torch.einsum("bcgkls,bclgkp->bcsgkp", w, dyc) + dxs   # dx / dt
+    dcs = torch.einsum("bcgkpn,bclgkp->bclgkn", st, dyc * ea[..., None])
+    dc = torch.einsum("bcgkls,bcsgn->bclgn", v, bc) + dcs.sum(4)
+    db = (torch.einsum("bcgkls,bclgn->bcsgn", v, cc)
+          + torch.einsum("bcgkpn,bclgkp->bclgn", gst,
+                         xc * (et * dtc)[..., None]))
+
+    r = (dcs * cc[:, :, :, :, None]).sum(-1)                 # [B,C,L,G,K]
+    q = (xc * dxs).sum(-1) * dtc
+    ddacs = (m.sum(-1) - m.sum(-2)).permute(0, 1, 4, 2, 3) + r
+    suffix = torch.flip(torch.cumsum(torch.flip(ddacs, [2]), 2), [2])
+    left = torch.cat([torch.zeros_like(q[:, :, :1]),
+                      torch.cumsum(q, 2)[:, :, :-1]], dim=2)
+    gd = (suffix + left
+          + (torch.exp(tot) * (gst * st).sum((-1, -2)))[:, :, None])
+    ddt = (xc * dxt).sum(-1) + a.to(f).reshape(g, k) * gd
+    da = (dtc * gd).sum((0, 1, 2)).reshape(h)
+    return ((dxt * dtc[..., None]).reshape(bsz, s, h, p).to(x.dtype),
+            ddt.reshape(bsz, s, h).to(dt.dtype), da.to(a.dtype),
+            db.reshape(bsz, s, g, n).to(b_in.dtype),
+            dc.reshape(bsz, s, g, n).to(c_in.dtype),
+            grad.reshape(bsz, h, p, n).to(torch.promote_types(
+                f, torch.float32)))
+
+
+# How far K3b may be from ``ssd_scan_bwd_ref`` in double on the same inputs
+# (``bwd_kernel_error``).  K3b computes in f32 from its inputs as they are
+# (bf16 is exact in f32) and rounds dx, dB and dC once to the input dtype:
+# in bf16 that is at most u/2 = 2^-9 of the element, so BWD_RTOL holds
+# those three within 2^-8 of (|element| + the gradient's RMS), twice the
+# rounding bound; the RMS term takes the f32 sums' error on an element that
+# cancels.  The f32 outputs (ddt, da, the initial state's gradient) and the
+# f32 path's every output carry only the f32 sums' error (L + N + P terms a
+# product, reverse cumulative sums of L rows, the inbound states K3 wrote
+# from its hi + lo parts, off by about 2^-16 of the state): 2^-14 of the
+# same scale.  A dropped term, a mask off by one or a sign moves whole rows
+# by far more than either.
+BWD_RTOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -14}
+
+
+def bwd_kernel_error(grads, x, dt, a, b_in, c_in, chunk, initial_state, dy,
+                     dfinal):
+    """Hold K3b's (dx, ddt, da, dB, dC, dinitial) against
+    ``ssd_scan_bwd_ref`` with every input in double.  Returns, for each,
+    (max abs error, largest element error in units of its tolerance,
+    largest row error in units of its tolerance): the tolerance of an
+    element is BWD_RTOL of its output dtype times |element| plus the
+    gradient's RMS, of a row the norm of those (rows along the last dim;
+    da is one row).  The kernel agrees when every ratio is at most 1."""
+    d64 = [t.double() for t in (x, dt, a, b_in, c_in)]
+    refs = ssd_scan_bwd_ref(
+        *d64, chunk, None if initial_state is None else
+        initial_state.double(), None, dy.double(),
+        None if dfinal is None else dfinal.double(), sums=torch.float64)
+    out = []
+    for g, r in zip(grads, refs):
+        rtol = BWD_RTOL[g.dtype]
+        err = g.double() - r.double()
+        scale = r.double().abs() + r.double().square().mean().sqrt()
+        elem = err.abs() / (rtol * scale).clamp_min(1e-300)
+        row = err.norm(dim=-1) / (rtol * scale.norm(dim=-1)).clamp_min(1e-300)
+        out.append((err.abs().max().item(), elem.max().item(),
+                    row.max().item()))
+    return out

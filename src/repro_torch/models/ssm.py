@@ -1,11 +1,14 @@
 """Mamba2 / SSD (state-space duality) blocks — arXiv:2405.21060.
 
-Prefill runs the chunked dual form: with ``attn_impl == "kernel"`` through
-:func:`~repro_torch.kernels.ssd_scan.ops.ssd_scan` (the hand-written kernel
-K3 on the card), with ``"chunked"`` or ``"dense"`` through the plain
-:func:`ssd_chunked`.  A failure to build or launch K3 raises; there is no
-fallback to the plain form.  Decode runs the O(1) recurrent update in plain
-torch, as the reference does.
+Prefill and training run the chunked dual form: with ``attn_impl ==
+"kernel"`` through :func:`~repro_torch.kernels.ssd_scan.ops.ssd_scan` (on
+the card the hand-written kernel K3, and under grad its backward K3b),
+with ``"chunked"`` or ``"dense"`` through the plain :func:`ssd_chunked`,
+whose two three-operand products contract pairwise as the reference's
+einsum does (so an export's ``dot_general`` FLOPs are the reference's).  A
+failure to build or launch K3 or K3b raises; there is no fallback to the
+plain form.  Decode runs the O(1) recurrent update in plain torch, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -60,6 +63,13 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return out.masked_fill(~mask, float("-inf"))
 
 
+def _scaled_rows(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w[..., None] * x as a batched product with no contracted dim (a
+    [1, 1] by [1, P] matmul a row): the ``dot_general`` that JAX's einsum
+    writes for such a pair, FLOPs and gradients alike."""
+    return torch.matmul(w[..., None, None], x[..., None, :])[..., 0, :]
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
                 initial_state: torch.Tensor | None = None):
@@ -98,9 +108,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y_diag = torch.einsum("bchls,bcshp->bclhp", scores, xdt)
 
     # ---- chunk states ----
+    # the reference's three-operand einsums contract pairwise as JAX's
+    # einsum does (weights times x first, as a product with no contracted
+    # dim), so that the export's dot_general FLOPs are the reference's
     decay_to_end = torch.exp(da_total[:, :, None, :] - da_cs)   # [B,C,L,H]
-    states = torch.einsum("bclhn,bclh,bclhp->bchpn", bh,
-                          decay_to_end * dtc, xc)
+    states = torch.einsum("bclhp,bclhn->bchpn",
+                          _scaled_rows(decay_to_end * dtc, xc), bh)
 
     # ---- inter-chunk recurrence: emit the state BEFORE each chunk ----
     st = (torch.zeros(bsz, h, p, n, device=x.device)
@@ -112,8 +125,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     prev_states = torch.stack(prev, dim=1)                # [B,C,H,P,N]
 
     # ---- inter-chunk contribution ----
-    y_off = torch.einsum("bclhn,bchpn,bclh->bclhp", ch, prev_states,
-                         torch.exp(da_cs))
+    y_off = _scaled_rows(torch.exp(da_cs), torch.einsum(
+        "bchpn,bclhn->bclhp", prev_states, ch))
 
     y = (y_diag + y_off).reshape(bsz, s, h, p)
     return y.to(x.dtype), st

@@ -12,6 +12,7 @@ abstract arguments for :func:`repro_torch.core.pipeline.export_workload`.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 
@@ -57,11 +58,14 @@ def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict):
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                     microbatch: int = 0, gradient_compression: bool = False,
-                    mesh=None, rules=None):
+                    mesh=None, rules=None, donate: bool = False):
     """Builds ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with ``loss``, ``grad_norm`` and ``lr`` in ``metrics``.  The
     inputs are not modified; the new parameters and state are new
-    tensors.
+    tensors.  With ``donate`` (AdamW on one device) the new parameters and
+    state are written into the given ones and returned, as the reference's
+    ``jax.jit(step, donate_argnums=(0, 1))`` reuses their buffers: a step
+    then holds one copy of them, which a model near a card's memory needs.
 
     With a ``mesh`` (a data mesh: any other axis of size above 1 raises) the
     step is one rank's program: it takes the rank's shards of the
@@ -70,6 +74,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     as means over the ranks, and updates its shards with the clip's norm
     taken over all of them (``distributed/data_parallel.py``)."""
     _, update_fn = make_optimizer(opt_cfg)
+    if donate:
+        if opt_cfg.name != "adamw" or mesh is not None:
+            raise NotImplementedError(
+                "a donated step takes AdamW on one device; Adafactor's and a "
+                "mesh's updates return new tensors")
+        update_fn = functools.partial(update_fn, donate=True)
     dp = None
     if mesh is not None:
         if opt_cfg.name != "adamw" or gradient_compression:

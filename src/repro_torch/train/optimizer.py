@@ -144,7 +144,12 @@ def adamw_init(params, cfg: OptimizerConfig):
 
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: OptimizerConfig,
-                 global_norm=_global_norm):
+                 global_norm=_global_norm, donate: bool = False):
+    """One AdamW step: (new params, new state, metrics).  With ``donate``
+    the new parameters and moments are written into the given tensors,
+    which are returned (the reference jits its step with
+    ``donate_argnums=(0, 1)``): the caller must not read the old values,
+    and a step then needs no second copy of the parameters and moments."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, global_norm)
@@ -156,15 +161,22 @@ def adamw_update(params, grads, state, cfg: OptimizerConfig,
         gf = g.to(torch.float32)
         m_new = b1 * m.to(torch.float32) + (1 - b1) * gf
         v_new = b2 * v.to(torch.float32) + (1 - b2) * gf * gf
-        mh = m_new / c1
-        vh = v_new / c2
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * \
-            p.to(torch.float32)
+        del gf   # each f32 temporary as soon as it is spent
+        delta = m_new / c1 / (torch.sqrt(v_new / c2) + cfg.eps) + \
+            cfg.weight_decay * p.to(torch.float32)
+        if donate:
+            m.copy_(m_new)
+            v.copy_(v_new)
+            del m_new, v_new
+            return p.copy_(p.to(torch.float32) - lr * delta), m, v
         p_new = p.to(torch.float32) - lr * delta
         return (p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype))
 
     out = tree_map(upd, params, grads, state["m"], state["v"])
     new_params, new_m, new_v = _unzip(out, 3)
+    if donate:
+        state["step"].copy_(step)
+        step = state["step"]
     return new_params, {"step": step, "m": new_m, "v": new_v}, \
         {"grad_norm": gnorm, "lr": lr}
 

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card: K1
 (flash attention), K2 (RMSNorm) and K3 (the SSD scan), each at a few shapes
-and layouts of the serving paths, and K1's log-sum-exp, K1b and K2b (their
-backwards) and the gradients of a small model through them, in f32 and
-bf16, with the tolerances of each kernel's ``ref.py``; and the sparse MoE
-layer on the card against its CPU run, and twice to equal bits.  Every test is marked ``cuda`` and skips
+and layouts of the serving paths, and K1's log-sum-exp, K3's chunk states,
+K1b, K2b and K3b (their backwards) and the gradients of a small model
+through them, in f32 and bf16, with the tolerances of each kernel's
+``ref.py``; and the sparse MoE layer on the card against its CPU run, and
+twice to equal bits, forward and backward.  Every test is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
 also runs on a machine with a card and no JAX:
 
@@ -22,8 +23,10 @@ from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
 from repro_torch.kernels.rmsnorm.ref import (
     bwd_kernel_error as k2b_error, kernel_error as rmsnorm_error,
     rmsnorm_ref)
-from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.kernels.ssd_scan.ref import kernel_error as ssd_error
+from repro_torch.kernels.ssd_scan import ops as k3_ops
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_bwd
+from repro_torch.kernels.ssd_scan.ref import (
+    bwd_kernel_error as k3b_error, kernel_error as ssd_error)
 from repro_torch.models import common as model_common
 from repro_torch.models.params import init_params
 from repro_torch.models.registry import get_smoke_config
@@ -213,6 +216,10 @@ def test_ssd_kernel_refuses_chunks_it_does_not_take(cuda, chunk):
     # and 128-row items: the ragged edge of both, causal and not
     (2, 16, 4, 333, 461, 64, True, 0, 0.0, 128),
     (1, 8, 2, 200, 190, 128, False, 0, 0.0, 0),
+    # the families' D = 128 with a window and gemma2's cap of 50, in GQA
+    # groups of 2 and 6 (mixtral's)
+    (1, 8, 4, 700, 700, 128, True, 256, 50.0, 0),
+    (1, 12, 2, 520, 520, 128, True, 100, 0.0, 0),
 ])
 def test_flash_bwd_kernel_on_card(cuda, dtype, b, hq, hkv, sq, skv, d, causal,
                                   window, cap, q_offset):
@@ -330,15 +337,80 @@ def test_remat_full_recomputes_the_kernels_and_keeps_the_gradients(cuda):
         assert torch.equal(a, b)
 
 
+def _ssd_on_card(cuda, dtype, b, s, h, p, g, n, strided, seed=20):
+    """x, dt, a, B, C and the initial state on the card; strided: x, B and
+    C as column slices of one [B, S, H*P + 2*G*N] tensor, as
+    mamba2_forward passes them."""
+    x, dt, a, bi, ci, st0 = _ssd_inputs(seed, b, s, h, p, g, n)
+    if strided:
+        xbc = np.concatenate([x.reshape(b, s, -1), bi.reshape(b, s, -1),
+                              ci.reshape(b, s, -1)], axis=-1)
+        xbc = _torch([xbc], dtype)[0].to(cuda)
+        tx, tbi, tci = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+        tx = tx.reshape(b, s, h, p)
+        tbi, tci = tbi.reshape(b, s, g, n), tci.reshape(b, s, g, n)
+    else:
+        tx, tbi, tci = (t.to(cuda) for t in _torch([x, bi, ci], dtype))
+    tdt, ta, tst0 = (t.to(cuda) for t in _torch([dt, a, st0]))
+    return tx, tdt, ta, tbi, tci, tst0
+
+
 @pytest.mark.cuda
-def test_ssd_scan_refuses_a_gradient_on_the_card(cuda):
-    x, dt, a, bi, ci, _ = _torch(_ssd_inputs(22, 1, 256, 2, 32, 1, 32))
-    x, bi, ci = (t.to(cuda).bfloat16() for t in (x, bi, ci))
-    dt, a = dt.to(cuda), a.to(cuda)
-    with torch.no_grad():   # no gradient asked for: K3 runs
-        ssd_scan(x, dt, a, bi, ci, chunk=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssd_scan(x.requires_grad_(True), dt, a, bi, ci, chunk=64)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,strided,init,dfin", [
+    (2, 512, 8, 64, 1, 128, 256, True, False, False),
+    (2, 512, 8, 64, 1, 128, 256, False, True, True),
+    (1, 256, 8, 64, 2, 32, 64, True, True, True),
+    (2, 384, 4, 32, 1, 64, 128, False, False, True),
+    # L = 192 (three tiles), 4 heads of a group of 4
+    (1, 768, 4, 64, 1, 128, 192, True, True, False),
+])
+def test_ssd_bwd_kernel_on_card(cuda, dtype, b, s, h, p, g, n, chunk,
+                                strided, init, dfin):
+    # K3 writing each chunk's inbound state (held as its final state is),
+    # then K3b on them against the plain backward in double: the tolerance
+    # is ref.BWD_RTOL; a second launch gives the same bits (no atomics)
+    args = _ssd_on_card(cuda, dtype, b, s, h, p, g, n, strided)
+    tst0 = args[5] if init else None
+    args = args[:5]
+    y, final, states = k3_ops._launch(*args, chunk, tst0, with_states=True)
+    assert ssd_error(y, final, *args, chunk, tst0, states)[1] <= 1.0
+    dy = _torch(_normal(21, (b, s, h, p)), dtype)[0].to(cuda)
+    dfinal = (_torch(_normal(22, (b, h, p, n)))[0].to(cuda) if dfin
+              else None)
+    kw = dict(chunk=chunk, initial_state=tst0, dfinal=dfinal)
+    before = ssd_scan_bwd.launches
+    grads = ssd_scan_bwd(*args, states, dy, **kw)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == before + 1
+    for gr, ref in zip(grads, (args[0], args[1], args[2], args[3], args[4])):
+        assert gr.shape == ref.shape
+    for err, elem, row in k3b_error(grads, *args, chunk, tst0, dy, dfinal):
+        assert elem <= 1.0 and row <= 1.0, (elem, row)
+    again = ssd_scan_bwd(*args, states, dy, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_trains_through_k3_and_k3b_on_the_card(cuda, dtype):
+    # under grad the scan is one launch of K3 (writing its states) and its
+    # gradients one of K3b, which agree with the plain backward
+    args = list(_ssd_on_card(cuda, dtype, 1, 512, 4, 64, 1, 128, True, 23))
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    k3, k3b = ssd_scan.launches, ssd_scan_bwd.launches
+    y, final = ssd_scan(*leaves[:5], chunk=128, initial_state=leaves[5])
+    dy = _torch(_normal(24, tuple(y.shape)), dtype)[0].to(cuda)
+    grads = torch.autograd.grad((y, final), leaves, (dy, torch.ones_like(
+        final)))
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (k3 + 1, k3b + 1)
+    for err, elem, row in k3b_error(grads, *args[:5], 128, args[5], dy,
+                                    torch.ones_like(final)):
+        assert elem <= 1.0 and row <= 1.0, (elem, row)
+    with torch.no_grad():   # no gradient asked for: K3 alone, no states
+        ssd_scan(*args[:5], chunk=128)
+    assert ssd_scan.launches == k3 + 2
 
 
 @pytest.mark.cuda
@@ -508,3 +580,24 @@ def test_moe_layer_on_card_gives_equal_bits_twice(cuda, dtype):
     p = {k: v.to(cuda, dtype) for k, v in p.items()}
     x = x.to(cuda, dtype)
     assert torch.equal(moe_forward(cfg, p, x), moe_forward(cfg, p, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_backward_on_card_gives_equal_bits_twice(cuda, dtype):
+    """The MoE's backward: ``index_add``'s gradient is a gather, a gather's
+    an accumulate of a token's k rows onto zeros (exact in either order for
+    k = 2), ``topk``'s a scatter of distinct indices: two runs give the same
+    bits for the input and every weight."""
+    from repro_torch.models.mlp import moe_forward
+    cfg, p, x = _moe(dtype, 0.25)
+    leaves = [x.to(cuda, dtype).requires_grad_(True)] + [
+        v.to(cuda, dtype).requires_grad_(True) for v in p.values()]
+    dy = _torch(_normal(27, tuple(x.shape)), dtype)[0].to(cuda)
+
+    def grads():
+        out = moe_forward(cfg, dict(zip(p, leaves[1:])), leaves[0])
+        return torch.autograd.grad(out, leaves, dy)
+    first, second = grads(), grads()
+    assert all(g.abs().max() > 0 for g in first)
+    assert all(torch.equal(u, v) for u, v in zip(first, second))

@@ -30,6 +30,7 @@ from repro_torch.models.params import params_from_jax
 from repro_torch.models.registry import get_smoke_config
 from repro_torch.train import data, loop, optimizer
 from repro_torch.train.checkpoint import CheckpointManager
+from test_torch_families import _assert_routing_cannot_flip
 
 # one f32 function in two libraries: sums of at most a few hundred terms in
 # another order
@@ -314,6 +315,15 @@ STEP_CONFIGS = {
     "llama3-1b": ("llama3-1b", {}),
     # two padded query heads: group 3 over 2 KV heads
     "llama3-500m-pad": ("llama3-500m", {"pad_heads": 2}),
+    # the families that serve on the card also train there: the sparse MoE
+    # (window, top-k routing), gemma2's local and global layers with their
+    # tanh caps, qwen2.5's and deepseek's GQA, and mamba2 through the SSD
+    # scan's Function (K3 and K3b; their plain versions here)
+    "mixtral-8x22b": ("mixtral-8x22b", {}),
+    "gemma2-27b": ("gemma2-27b", {}),
+    "qwen2.5-32b": ("qwen2.5-32b", {}),
+    "deepseek-67b": ("deepseek-67b", {}),
+    "mamba2-370m": ("mamba2-370m", {}),
 }
 STEP_VARIANTS = {
     "adamw": ({}, {}),
@@ -323,10 +333,16 @@ STEP_VARIANTS = {
     "vocab_chunk": ({"loss_vocab_chunk": 96}, {}),
     "remat_full": ({"remat": "full"}, {}),
 }
+# the Llama configs under every variant, the families under AdamW with and
+# without remat
+STEP_CASES = [(c, v) for c in ("llama3-1b", "llama3-500m-pad")
+              for v in STEP_VARIANTS] + [
+    (c, v) for c in STEP_CONFIGS if not c.startswith("llama")
+    for v in ("adamw", "remat_full")]
 
 
-@pytest.mark.parametrize("variant", sorted(STEP_VARIANTS))
-@pytest.mark.parametrize("config", sorted(STEP_CONFIGS))
+@pytest.mark.parametrize("config,variant", [
+    pytest.param(c, v, id=f"{c}-{v}") for c, v in sorted(STEP_CASES)])
 def test_make_train_step_matches_jax_over_three_steps(config, variant):
     arch, model_kw = STEP_CONFIGS[config]
     step_kw, opt_kw = (dict(kw) for kw in STEP_VARIANTS[variant])
@@ -348,6 +364,10 @@ def test_make_train_step_matches_jax_over_three_steps(config, variant):
         vocab_size=jcfg.vocab_size, seq_len=16, global_batch=4, seed=3))
     for _ in range(3):
         batch = next(source)
+        if tcfg.moe is not None:
+            # the routing of this step's batch cannot flip between the
+            # packages (as tests/test_torch_families.py holds it)
+            _assert_routing_cannot_flip(jcfg, jp, tcfg, tp, batch["tokens"])
         jp, js, jm = jstep(jp, js, jax.tree.map(jnp.asarray, batch))
         tp, ts, tm = tstep(tp, ts, {k: _t(v) for k, v in batch.items()})
         # f32 forward and backward of a 2-layer model in two libraries.
@@ -365,6 +385,40 @@ def test_make_train_step_matches_jax_over_three_steps(config, variant):
     _assert_params_close(
         tp, jp, lr=opt_t.learning_rate, steps=3,
         share=0.99 if step_kw.get("gradient_compression") else 0.999)
+
+
+@pytest.mark.parametrize("arch", ["llama3-1b", "mamba2-370m"])
+def test_a_donated_step_writes_the_functional_steps_values_in_place(arch):
+    """``donate=True`` (the reference's ``donate_argnums=(0, 1)``) returns
+    the tensors it was given, holding bit for bit what the functional step
+    returns as new tensors, over two steps; Adafactor refuses it."""
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    opt_cfg = optimizer.OptimizerConfig(warmup_steps=1)
+    init, _ = optimizer.make_optimizer(opt_cfg)
+    params = loop.init_params(transformer.model_specs(cfg),
+                              torch.Generator().manual_seed(0), "cpu")
+    state = init(params, opt_cfg)
+    copy = optimizer.tree_map(torch.clone, [params, state])
+    source = data.SyntheticSource(data.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=2, seed=4))
+    batches = [{k: _t(v) for k, v in next(source).items()} for _ in range(2)]
+    plain = loop.make_train_step(cfg, opt_cfg)
+    donated = loop.make_train_step(cfg, opt_cfg, donate=True)
+    p1, s1 = copy
+    p2, s2 = params, state
+    for batch in batches:
+        p1, s1, m1 = plain(p1, s1, batch)
+        leaves = optimizer.tree_leaves([p2, s2])
+        p2, s2, m2 = donated(p2, s2, batch)
+        assert all(a is b for a, b in zip(optimizer.tree_leaves([p2, s2]),
+                                          leaves))
+        assert float(m1["loss"]) == float(m2["loss"])
+    for a, b in zip(optimizer.tree_leaves([p1, s1]),
+                    optimizer.tree_leaves([p2, s2])):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="AdamW"):
+        loop.make_train_step(cfg, optimizer.OptimizerConfig(
+            name="adafactor"), donate=True)
 
 
 def _assert_params_close(ours, ref, *, lr, steps, share):
