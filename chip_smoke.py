@@ -312,13 +312,15 @@ def device_ms(fn, batches: int = 5, per_batch: int = 10) -> float:
 
 
 def kernel_name(mangled: str) -> str:
-    """``bwd_dkdv_ws<64>`` or ``rmsnorm_bwd_groups<bf16>`` from the mangled
-    entry name of one of K1b's or K2b's kernels; other names unchanged."""
+    """``bwd_dkdv_ws<64>``, ``rmsnorm_bwd_groups<bf16>`` or
+    ``bwd_state_scan`` from the mangled entry name of one of the backward
+    kernels (K1b, K2b, K3b); other names unchanged."""
     import re
     m = re.search(r"((?:rmsnorm_)?bwd_[a-z]+(?:_[a-z0-9]+)?)I(.*?)EEv",
                   mangled)
     if not m:
-        return mangled
+        plain = re.search(r"\d((?:rmsnorm_)?bwd_[a-z0-9_]+)E", mangled)
+        return plain[1] if plain else mangled
     return m[1] + "<" + ", ".join(
         a or ("bf16" if b else "f32")
         for a, b in re.findall(r"Li(\d+)E|(13__nv_bfloat16)|f", m[2])) + ">"
@@ -913,6 +915,8 @@ def check_k3(gen, names=None) -> dict:
     return entry
 
 
+# K3b's bf16 kernels (torch.profiler and ptxas names), in launch order
+K3B_KERNELS = ["bwd_states_wg", "bwd_chunk_ws", "bwd_reduce"]
 K3B_CASES = [  # name, B, S, H, P, G, N, chunk, strided, init, dfinal, decay
     # mamba2-370m's train step at 4 x 2048, in the layout mamba2_forward
     # passes (x, B and C column slices of the conv output)
@@ -934,6 +938,26 @@ def k3b_work(b, s, h, p, n, chunk) -> int:
     pairs = chunk * (chunk + 1) // 2
     return b * h * (s // chunk) * (2 * pairs * (3 * n + 2 * p)
                                    + 8 * chunk * n * p)
+
+
+def k3b_split(fn, launches: int = 3) -> list[tuple[str, float]]:
+    """The device time a launch of each of K3b's kernels, from
+    ``torch.profiler`` over ``launches`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        name = next((k for k in K3B_KERNELS if k in e.key), None)
+        if e.device_type.name == "CUDA" and name is not None:
+            times[name] = (times.get(name, 0.0)
+                           + e.self_device_time_total / 1e3 / launches)
+    return [(k, times[k]) for k in K3B_KERNELS if k in times]
 
 
 def check_k3b(gen, names=None) -> dict:
@@ -993,6 +1017,10 @@ def check_k3b(gen, names=None) -> dict:
                 f"no library call; bound {bound_ms:.4f} ms ({bound_by}; "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
             if dtype == torch.bfloat16:
+                log("  K3b train bfloat16 by kernel (torch.profiler, a "
+                    "launch): " + "; ".join(
+                        f"{k} {v:.4f} ms" for k, v in k3b_split(
+                            lambda: ssd_scan_bwd(*args, states, dy, **kw))))
                 entry = {"name": "ssd_scan_bwd", "route": "cuda",
                          "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
                          "replaces": "none on the TPU (jax.grad of src/repro/models/ssm.py:58, ssd_chunked)",
@@ -2773,7 +2801,7 @@ FAMILY_WARMUP, FAMILY_STEPS = 2, 3
 EXPORT_COUNTERS = dict(EXPORT_OPS, ssd_scan_states="ssd_scan",
                        ssd_scan_bwd="ssd_scan_bwd")
 FAMILY_TRAIN_GROUPS = {
-    "K3b": ["bwd_state_local", "bwd_state_scan", "bwd_chunk", "bwd_reduce"],
+    "K3b": K3B_KERNELS,
     "K3": ["ssd_scan_bf16", "ssd_scan_f32"], **TRAIN_GROUPS}
 
 
@@ -3068,6 +3096,8 @@ def main() -> int:
     # ptxas -v: one "entry / registers / spills" line per instantiation, and
     # any warning that ptxas serialised an entry's wgmma instructions
     entry, backward = "", []
+    k3b_names = ("bwd_states_wg", "bwd_chunk", "bwd_reduce", "bwd_state_scan",
+                 "bwd_state_local")
     for line in diag.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -3083,12 +3113,14 @@ def main() -> int:
                 regs = line.split("Used")[1].split("registers")[0].strip()
                 spill = sum(int(w) for w in spills.split()
                             if w.isdigit()) - int(spills.split()[0])
-                backward.append(f"{name} {regs} registers, "
+                label = ("K3b" if name.startswith(k3b_names) else
+                         "K2b" if name.startswith("rmsnorm_bwd") else "K1b")
+                backward.append(f"{label} {name} {regs} registers, "
                                 f"{'no spill' if not spill else spills}")
-    # K1b's and K2b's entries by name (ptxas reports no register count for
+    # the backwards' entries by name (ptxas reports no register count for
     # an entry it did not rebuild: none when the library was cached)
     for line in backward:
-        log(f"  K1b/K2b {line}")
+        log(f"  {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("[3] kernels against their plain versions")

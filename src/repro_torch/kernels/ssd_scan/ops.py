@@ -14,8 +14,8 @@ runs its plain version (``ref.py``); on a CUDA tensor each launches its
 kernel or the call raises; there is no fallback.  A trace on fake tensors
 records one node per call and launches nothing.  ``ssd_scan.launches``
 counts K3's launches and ``ssd_scan_bwd.launches`` K3b's (each of which
-runs its four kernels), and nothing else: a call captured into a CUDA graph
-records the kernels and is not counted.
+runs its kernels: three in bf16, four in f32), and nothing else: a call
+captured into a CUDA graph records the kernels and is not counted.
 """
 from __future__ import annotations
 

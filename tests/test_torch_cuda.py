@@ -364,6 +364,13 @@ def _ssd_on_card(cuda, dtype, b, s, h, p, g, n, strided, seed=20):
     (2, 384, 4, 32, 1, 64, 128, False, False, True),
     # L = 192 (three tiles), 4 heads of a group of 4
     (1, 768, 4, 64, 1, 128, 192, True, True, False),
+    # the bf16 kernels' other instantiations and head groups: 1 head a
+    # group (no cluster), 2 (a cluster of 2), 32 (clusters of 8)
+    (1, 512, 4, 64, 4, 64, 128, True, True, True),
+    (1, 384, 4, 32, 2, 128, 192, True, False, True),
+    (1, 512, 32, 64, 1, 128, 256, True, True, True),
+    (1, 512, 2, 32, 2, 32, 256, False, True, False),
+    (2, 256, 6, 64, 3, 64, 64, True, False, True),
 ])
 def test_ssd_bwd_kernel_on_card(cuda, dtype, b, s, h, p, g, n, chunk,
                                 strided, init, dfin):

@@ -3,21 +3,24 @@
 
     python3 tools/mutate_k3b.py
 
-Each of six mutants of ``ssd_scan_bwd.cu`` is written into its own
+Each of seven mutants of ``ssd_scan_bwd.cu`` is written into its own
 temporary copy of ``src/`` and ``chip_smoke.py``, built there, and run
-through ``check_k3b`` on ``groups2`` and ``init_dfinal`` (bf16 and f32);
-the repository's files are never changed:
+through ``check_k3b`` on ``groups2`` and ``init_dfinal`` (bf16, whose path
+the mutants of the chunk kernel change, then f32); the repository's files
+are never changed:
 
 1. ``no_state_dx``: dx without the state's term exp(T - dacs_j) G B_j
    (and so q_j = 0 as well);
-2. ``diagonal_masked``: W and V lose their diagonal (i > j on the
-   exponent's mask);
-3. ``q_sign``: the q_j summed from the top of the chunk with - sign;
+2. ``diagonal_masked``: W and V of the j-major phase lose their diagonal
+   (i > j on the exponent's mask);
+3. ``q_sign``: the q_j with - sign in the epilogue's prefix sums;
 4. ``no_state_dc``: dC without its inbound state's term exp(dacs_i)
    S^T dy_i (and so r_i = 0);
 5. ``one_head``: dB and dC summed over the group's first head only;
 6. ``no_recurrence_decay``: the state's gradient not decayed by exp(T)
-   from one chunk to the one before.
+   from one chunk to the one before;
+7. ``no_lo``: G_c and S_c go into the tensor cores as their bf16 hi parts
+   alone (the lo parts staged as 0).
 
 A mutant is caught when ``check_k3b`` raises.  Prints each mutant's
 failing case with its ratios to the tolerances.
@@ -30,16 +33,25 @@ import tempfile
 
 SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
 MUTANTS = {
-    "no_state_dx": [("mm<4, JP, false, false>(adx, sB, RN, sG, RN, N);", "")],
+    "no_state_dx": [("        adx[e] *= f[hf];\n        adx[e + 1] *= f[hf];\n",
+                     "        adx[e] *= 0.f;\n        adx[e + 1] *= 0.f;\n")],
     "diagonal_masked": [(
-        "const float e = expf(i >= j ? sDa[i] - sDa[j] : -INFINITY);",
-        "const float e = expf(i > j ? sDa[i] - sDa[j] : -INFINITY);")],
-    "q_sign": [("      left += sQ[j];", "      left -= sQ[j];")],
-    "no_state_dc": [("mm<4, JN, false, true>(adc, sDy, RP, sS, RN, P);", "")],
+        "const float ex = __expf(i >= j ? sDa[i] - daj[hf] : -INFINITY);",
+        "const float ex = __expf(i > j ? sDa[i] - daj[hf] : -INFINITY);")],
+    "q_sign": [("if (t4 == 0) sQ[jr[hf]] = q * dtj[hf];",
+                "if (t4 == 0) sQ[jr[hf]] = -q * dtj[hf];")],
+    "no_state_dc": [("          adc[cb][e] *= f[hf];\n"
+                     "          adc[cb][e + 1] *= f[hf];\n",
+                     "          adc[cb][e] *= 0.f;\n"
+                     "          adc[cb][e + 1] *= 0.f;\n")],
     "one_head": [("for (int k = 0; k < hpg; ++k) {",
                   "for (int k = 0; k < 1; ++k) {")],
-    "no_recurrence_decay": [("run = expf(datot[blk]) * run + local;",
-                             "run = run + local;")],
+    "no_recurrence_decay": [("const float decay = expf(sDa[L - 1]);",
+                             "const float decay = 1.f;")],
+    "no_lo": [('::"r"(sG + W::kState + off),\n                     "r"(lo)',
+               '::"r"(sG + W::kState + off),\n                     "r"(0u)'),
+              ('::"r"(sS + W::kState + off),\n                     "r"(lo)',
+               '::"r"(sS + W::kState + off),\n                     "r"(0u)')],
 }
 RUN = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as cs; "
        "torch.backends.cuda.matmul.allow_tf32 = False; "
