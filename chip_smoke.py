@@ -22,7 +22,9 @@ prints no result line):
    its input, which the card's memory sets; K1b, K2b and K3b also launched
    twice at the training shapes, their outputs bit-identical (they use no
    atomics); K1b at phase 15's shapes (D 128, windows, gemma2's cap, GQA
-   groups 2 to 8) and K2b at its widths;
+   groups 2 to 8) and K2b at its widths; K1 at head_dim 80 and 160
+   (phase 14's zamba2-2.7b and stablelm-12b prefills, ragged, windowed and
+   capped, bidirectional) and K2 at 2560;
 4. two serving paths at full width in bf16 with seeded random weights,
    llama3-1b (K1, K2) and mamba2-370m (K3, K2): ``prefill`` on 4 prompts of
    2048 tokens and ``greedy_decode`` on 8 prompts of 64 tokens (32 new
@@ -75,11 +77,14 @@ prints no result line):
    per estimator, each mixed row below its roofline row) and
    ``specs/fig9_scaleout.json`` (printed beside the golden), all as
    checked in through the campaign's exports (the reference's chunked
-   attention) on fake ``cuda`` tensors; fig6 and fig9 through the CLI in
-   subprocesses while fig11 runs;
+   attention) on fake ``cuda`` tensors, the three through the CLI in
+   subprocesses started after the build (``HostWork``: host work only,
+   beside phases 3 to 9);
 11. fig7, the data-parallel ResNet step: (a) its four workloads
    (resnet18/34/50/101 at 64 x 224, f16, [4, 1]) exported through
-   ``build_workload`` on fake ``cuda`` tensors in a fake world of 4, each
+   ``build_workload`` on fake ``cuda`` tensors in a fake world of 4 (in a
+   subprocess started after the build with phase 10's grids; its lines
+   are printed when phase 11 collects it), each
    global and per-rank text's convolutions and their FLOPs (the per-rank
    ones x 4 equal to the global ones), the per-rank collectives, both front
    ends equal, no launch and no device memory; (b) each rank's step
@@ -138,17 +143,23 @@ prints no result line):
 14. other families serving, at their published widths with depth cut:
    mixtral-8x22b (4 of 56 layers; the sparse MoE, window 4096), gemma2-27b
    (8 of 46; local and global layers, tanh caps), qwen2.5-32b and
-   deepseek-67b (2 layers each): ``prefill`` on 2 prompts of 8192 tokens
-   (K1 once a layer, K2 2L+1), and for mixtral and gemma2 ``generate`` on 8
-   prompts of 64 tokens (32 new, max_len 128; K2 2L+1 a step), with the
+   deepseek-67b (2 layers each), and at full depth stablelm-12b (40
+   layers, head_dim 160) and the hybrid zamba2-2.7b (54 Mamba2 layers in 9
+   super-blocks, each closed by the shared attention block, head_dim 80;
+   K3 once a Mamba2 layer, K1 once a super-block, K2 2 L + 2 n_super + 1):
+   ``prefill`` on 2 prompts of 8192 tokens (K1 once a layer, K2 2L+1), and
+   for mixtral, gemma2, stablelm and zamba2 ``generate`` on 8 prompts of
+   64 tokens (32 new, max_len 128; K2 2L+1 a step), with the
    launch counts read around them, peak memory, the logits finite and
    shaped; each checked layer's attention output (K1 against the plain
    path on the same input) and, at each MoE layer, the share of tokens
    whose experts differ between the two (at most 1%); the logits gate of
    phase 4 on the last 64 positions of each prompt and on
    prefill-by-decode, an MoE's only on the rows that the K1, plain and f32
-   runs routed alike at every layer; a profile of the prefill by kernel
-   and by op (expert GEMMs, other GEMMs, the MoE's data movement, K1, K2).
+   runs routed alike at every layer; zamba2's first super-block held layer
+   by layer (each Mamba2 output, K3 against the plain scan, then the shared
+   attention's); a profile of the prefill by kernel and by op (expert
+   GEMMs, other GEMMs, the MoE's data movement, K1, K2, K3).
    Phase 3 holds K1 at these prefills' shapes and K2 at their widths;
 15. the families' training paths, each at its published width with its
    depth cut for one card (AdamW, bf16 parameters, f32 moments, updated in
@@ -166,8 +177,9 @@ prints no result line):
    tokens routed otherwise by the K1 and the plain path, held at 1%, with
    the loss over the tokens all three runs routed alike).
 
-The last lines are one JSON object ``{"kernels": [...]}``, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.
+Each phase's seconds are printed after it.  The last lines are one JSON
+object ``{"kernels": [...]}``, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -175,6 +187,7 @@ import contextlib
 import json
 import math
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -242,8 +255,8 @@ from repro_torch.models.resnet import (make_resnet_train_step,  # noqa: E402
                                        resnet_train_exports)
 from repro_torch.models.ssm import mamba2_forward  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    _layer_window, _logits, _positions, _scan_layers, _unstack, attn_block,
-    ffn)
+    _layer_window, _logits, _positions, _scan_layers, _super_blocks,
+    _unstack, attn_block, ffn, ssm_block)
 from repro_torch.models.transformer import (TransformerLM, _embed,  # noqa: E402
                                             decode_step, init_cache_specs,
                                             model_specs, prefill)
@@ -314,8 +327,12 @@ def device_ms(fn, batches: int = 5, per_batch: int = 10) -> float:
 def kernel_name(mangled: str) -> str:
     """``bwd_dkdv_ws<64>``, ``rmsnorm_bwd_groups<bf16>`` or
     ``bwd_state_scan`` from the mangled entry name of one of the backward
-    kernels (K1b, K2b, K3b); other names unchanged."""
+    kernels (K1b, K2b, K3b), ``flash_fwd_bf16<160>`` from one of K1's;
+    other names unchanged."""
     import re
+    fwd = re.search(r"(flash_fwd_(?:bf16|f32))ILi(\d+)E", mangled)
+    if fwd:
+        return f"{fwd[1]}<{fwd[2]}>"
     m = re.search(r"((?:rmsnorm_)?bwd_[a-z]+(?:_[a-z0-9]+)?)I(.*?)EEv",
                   mangled)
     if not m:
@@ -359,10 +376,26 @@ K1_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, q_offset
     ("mixtral_bshd", 1, 48, 8, 8192, 8192, 128, True, 4096, 0.0, 0),
     ("gemma2_local_bshd", 1, 32, 16, 8192, 8192, 128, True, 4096, 50.0, 0),
     ("gemma2_global_bshd", 1, 32, 16, 8192, 8192, 128, True, 0, 50.0, 0),
+    # phase 14's full-depth prefills at the head widths that are not a
+    # multiple of 64: stablelm-12b's 160 (32/8 heads; five 32-column blocks,
+    # 64-key tiles) and zamba2-2.7b's shared block at 80 (32/32 heads; padded
+    # to 96 inside the kernel), in the strided layout
+    ("stablelm_bshd", 1, 32, 8, 8192, 8192, 160, True, 0, 0.0, 0),
+    ("zamba2_bshd", 1, 32, 32, 8192, 8192, 80, True, 0, 0.0, 0),
+    # both widths ragged across 128-row and key tiles, Sq < Skv, an offset
+    ("d160_ragged_bshd", 1, 8, 2, 1000, 1111, 160, True, 0, 0.0, 111),
+    ("d80_ragged_bshd", 1, 8, 2, 1000, 1111, 80, True, 0, 0.0, 111),
+    # the masks' other branches at both widths: a window and a tanh cap,
+    # and no causal mask
+    ("d160_window_cap", 2, 8, 4, 700, 700, 160, True, 200, 30.0, 0),
+    ("d80_bidir", 2, 4, 4, 300, 333, 80, False, 0, 0.0, 0),
 ]
+# the cases at head_dim 80 and 160 (tools/mutate_k1.py runs these alone)
+K1_NEW_WIDTHS = ("stablelm_bshd", "zamba2_bshd", "d160_ragged_bshd",
+                 "d80_ragged_bshd", "d160_window_cap", "d80_bidir")
 # the rows timed beside their bound (bf16; "prefill" in f32 too)
 K1_TIMED = ("prefill", "mixtral_bshd", "gemma2_local_bshd",
-            "gemma2_global_bshd")
+            "gemma2_global_bshd", "stablelm_bshd", "zamba2_bshd")
 
 
 def k1_inputs(gen, name, b, hq, hkv, sq, skv, d, dtype):
@@ -407,10 +440,14 @@ def k1_visible_pairs(sq, skv, causal, window, q_offset) -> int:
     return int(mask.sum())
 
 
-def check_k1(gen) -> dict:
+def check_k1(gen, names=None) -> dict:
+    """Each K1 case (those in ``names`` only, untimed, when given) in bf16
+    and f32 against the plain version; the K1_TIMED rows timed."""
     entry = None
     for dtype in (torch.bfloat16, torch.float32):
         for name, b, hq, hkv, sq, skv, d, causal, window, cap, off in K1_CASES:
+            if names is not None and name not in names:
+                continue
             q, k, v = k1_inputs(gen, name, b, hq, hkv, sq, skv, d, dtype)
             kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=off)
             out = flash_attention(q, k, v, **kw)
@@ -433,8 +470,8 @@ def check_k1(gen) -> dict:
                 raise AssertionError(f"K1 {name} {dtype}: max abs err {err}, "
                                      f"element {elem}, row {row} of tol, lse "
                                      f"{lse_ratio} of tol, same {same}")
-            if name not in K1_TIMED or (name != "prefill"
-                                        and dtype != torch.bfloat16):
+            if names is not None or name not in K1_TIMED or (
+                    name != "prefill" and dtype != torch.bfloat16):
                 continue
             # null lse: the serving path's launch
             ms = device_ms(lambda: flash_attention(q, k, v, **kw))
@@ -482,6 +519,9 @@ K2_CASES = [  # name, rows, d, offset
     ("gemma2_decode", 8, 4608, 0.0),
     ("qwen2.5", 16384, 5120, 0.0),
     ("deepseek", 16384, 8192, 0.0),
+    # zamba2-2.7b's d_model (its d_inner, 5120, is qwen2.5's width)
+    ("zamba2", 16384, 2560, 0.0),
+    ("zamba2_decode", 8, 2560, 0.0),
     ("scalar_path", 37, 1001, 1.0),
 ]
 
@@ -1168,14 +1208,8 @@ def check_ssm_layer(cfg, chunked, params, prompts) -> None:
     lp = {k: t[0] for k, t in params["layers"]["ssm"].items()}
     x = rms_norm(_embed(cfg, params, {"tokens": prompts}),
                  params["layers"]["ln"][0], cfg.rms_eps)
-    out = mamba2_forward(cfg, lp, x)[0].float()
-    plain = mamba2_forward(chunked, lp, x)[0].float()
-    row = ((out - plain).norm(dim=-1) / plain.norm(dim=-1)).max().item()
-    log(f"  layer 0 Mamba2 output 4x2048, K3 path against the plain path: "
-        f"largest row error {row:.3e} of the row's norm "
-        f"(tol {LAYER_ROW_TOL:g})")
-    if not row <= LAYER_ROW_TOL:
-        raise AssertionError(f"layer 0 Mamba2: row error {row}")
+    hold_rows("layer 0 Mamba2 output", mamba2_forward(cfg, lp, x)[0],
+              mamba2_forward(chunked, lp, x)[0])
 
 
 def hold(name: str, x, plain, ref32) -> None:
@@ -1193,6 +1227,19 @@ def hold(name: str, x, plain, ref32) -> None:
         f"(tol {LOGIT_FACTOR:g}x that); argmax agrees with plain {agree:.2f}")
     if not (to_f32 <= LOGIT_FACTOR * base and to_plain <= LOGIT_FACTOR * base):
         raise AssertionError(f"{name}: logits off the plain path")
+
+
+def hold_rows(name: str, out, plain) -> None:
+    """One layer's output ``out`` against the plain path's ``plain`` on the
+    same input: the largest row error norm, held at LAYER_ROW_TOL of the
+    row's norm."""
+    out, plain = out.float(), plain.float()
+    row = ((out - plain).norm(dim=-1) / plain.norm(dim=-1)).max().item()
+    log(f"  {name} {out.shape[0]}x{out.shape[1]}, kernel path against the "
+        f"plain path: largest row error {row:.3e} of the row's norm (tol "
+        f"{LAYER_ROW_TOL:g})")
+    if not row <= LAYER_ROW_TOL:
+        raise AssertionError(f"{name}: row error {row}")
 
 
 def tree_map(tree: dict, fn) -> dict:
@@ -1719,18 +1766,81 @@ def rank_step(gen, predicted: dict) -> tuple[dict, float]:
     return launches, step_s
 
 
-CLI_GRIDS = ("fig6_gpu.json", "fig9_scaleout.json")
+CLI_GRIDS = ("fig6_gpu.json", "fig9_scaleout.json", "fig11_tpu.json")
 
 
-def mesh_campaigns() -> None:
+class HostWork:
+    """Phase 10 (d)'s three grids through the campaign CLI and phase 11
+    (a)'s ResNet exports (``fig7_export_to``), each in a subprocess started
+    right after the build: all four are host work (traces on fake ``cuda``
+    tensors, 2.5 to 4.5 minutes each), nothing in them is timed or
+    launches a kernel, and they run while phases 3 to 9 drive the card, at
+    a lower scheduling priority than this process (``nice`` 10).  Use it
+    as a context manager: the subprocesses still running on the way out
+    are stopped."""
+
+    def __init__(self):
+        self._tmp = tempfile.TemporaryDirectory()
+        self.tmp = self._tmp.name
+        self.t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        run = dict(cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                   stderr=subprocess.STDOUT, text=True,
+                   preexec_fn=lambda: os.nice(10))
+        self.procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.campaign", "run",
+             str(ROOT / "specs" / name), "--device", "cuda", "--executor",
+             "serial", "--out", os.path.join(self.tmp, name), "--quiet"],
+            **run) for name in CLI_GRIDS}
+        self.procs["fig7"] = subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             "sys.argv[1]); import chip_smoke as c; c.fig7_export_to("
+             "sys.argv[2])", str(ROOT), os.path.join(self.tmp, "fig7.pkl")],
+            **run)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        self._tmp.cleanup()
+
+    def wait(self, name: str) -> str:
+        """Waits for ``name``'s subprocess; its output (raises unless it
+        exited 0)."""
+        t1 = time.perf_counter()
+        proc = self.procs[name]
+        out, _ = proc.communicate(timeout=1200)
+        log(f"  {name}: waited {time.perf_counter() - t1:.1f} s, done "
+            f"{time.perf_counter() - self.t0:.1f} s after the start")
+        if proc.returncode != 0:
+            raise AssertionError(f"{name}: rc {proc.returncode}\n{out}")
+        return out
+
+    def rows(self, name: str) -> list:
+        self.wait(name)
+        return [json.loads(line) for line in Path(
+            self.tmp, name, "results.jsonl").read_text().splitlines()]
+
+    def fig7(self) -> dict:
+        for line in self.wait("fig7").splitlines():
+            log(line)
+        with open(os.path.join(self.tmp, "fig7.pkl"), "rb") as f:
+            return pickle.load(f)
+
+
+def mesh_campaigns(host: HostWork) -> None:
     """(d) fig6, fig11 and fig9 as checked in, exported by the campaign on
     fake ``cuda`` tensors: per fig6 workload and fidelity the four
     systems, and per fig11 estimator the four workloads, rank as the
     golden's rows of that fidelity do, and each fig11 mixed row lies below
-    its roofline row; fig9's rows are printed beside the golden's.  fig6
-    and fig9 run through the CLI in subprocesses while fig11 runs here:
-    each is its exports' host work (llama2-7b's four traces take about
-    four minutes), and nothing in any of them is timed."""
+    its roofline row; fig9's rows are printed beside the golden's.  The
+    three run through the CLI in ``host``'s subprocesses: each is its
+    exports' host work (llama2-7b's four traces take about four minutes),
+    and nothing in any of them is timed."""
     def golden(name):
         return {(r["workload"], r["system"], r["estimator"], r["fidelity"]):
                 r for r in load_json(str(ROOT / "specs" / "golden" /
@@ -1748,34 +1858,7 @@ def mesh_campaigns() -> None:
         if tau != 1.0:
             raise AssertionError(f"{label}: Kendall tau {tau}")
 
-    grids = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        procs = {name: subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.campaign", "run",
-             str(ROOT / "specs" / name), "--device", "cuda", "--executor",
-             "serial", "--out", os.path.join(tmp, name), "--quiet"],
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for name in CLI_GRIDS}
-        try:
-            grids["fig11_tpu.json"] = run_campaign(CampaignSpec.from_json(
-                str(ROOT / "specs" / "fig11_tpu.json")), device="cuda").rows
-            log(f"  fig11: {time.perf_counter() - t0:.2f} s")
-            for name, proc in procs.items():
-                out, _ = proc.communicate(timeout=600)
-                if proc.returncode != 0:
-                    raise AssertionError(f"{name} CLI: rc "
-                                         f"{proc.returncode}\n{out}")
-                grids[name] = [json.loads(line) for line in Path(
-                    tmp, name, "results.jsonl").read_text().splitlines()]
-                log(f"  {name} through the CLI: "
-                    f"{time.perf_counter() - t0:.2f} s")
-        finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+    grids = {name: host.rows(name) for name in CLI_GRIDS}
     for name, rows in grids.items():
         errors = [r for r in rows if "error" in r]
         if errors:
@@ -2052,16 +2135,28 @@ def campaign_cli() -> None:
             raise AssertionError(f"fig10 report: {proc.stdout}")
 
 
-def fig7_phase(gen) -> tuple[dict, dict]:
-    """Phase 11, (a) to (d).  Returns (b)'s launch counts and one-card
-    median steps."""
+def fig7_export_to(path: str) -> None:
+    """(a) in a process of its own (``HostWork``): the four exports and
+    their checks, the workloads pickled to ``path``."""
     t0 = time.perf_counter()
     workloads = fig7_export()
-    log(f"  (a) {time.perf_counter() - t0:.1f} s")
+    with open(path, "wb") as f:
+        pickle.dump(workloads, f)
+    log(f"  (a) {time.perf_counter() - t0:.1f} s in its own process")
+
+
+def fig7_phase(gen, workloads: dict) -> tuple[dict, dict]:
+    """Phase 11, (b) to (d), on (a)'s workloads.  Returns (b)'s launch
+    counts and one-card median steps."""
+    t0 = time.perf_counter()
     launches, one_card = fig7_rank_steps(gen, workloads)
+    log(f"  (b) {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
     fig7_campaign(workloads)
+    log(f"  (c) {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
     campaign_cli()
-    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    log(f"  (d) {time.perf_counter() - t1:.1f} s")
     return launches, one_card
 
 
@@ -2219,7 +2314,6 @@ def profiling_phase(train_launches: dict, step_s: float, rank_s: float,
     phase 6's launches a step (each region's eager run launches each
     operator of the text once), and (a)'s regions, their times and their
     sum projected onto ``h100``, which phase 13 fits on."""
-    t0 = time.perf_counter()
     cfg = get_config("llama3-1b").scaled(scan_layers=False,
                                          layer_barriers=True)
     step, args = train_step_exports(cfg, TRAIN_S, TRAIN_B)
@@ -2244,7 +2338,6 @@ def profiling_phase(train_launches: dict, step_s: float, rank_s: float,
     profile_regions("resnet18 train step", w, resnet_s, smi)
     profile_fig10(smi)
     profile_fig6(rank_s, total / step_s, smi)
-    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
     return launches, tuple(profiled)
 
 
@@ -2460,7 +2553,6 @@ def learned_phase(profiled: tuple, smi: str) -> None:
     times and their sum projected onto ``h100``.  Launches no kernel of
     the port: (b)'s GEMMs are ``dot_general``s, which the executor runs
     with ``torch.matmul`` (held across (b))."""
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         grids_through_the_clis(tmp, smi)
     for fn in COUNTERS.values():
@@ -2472,8 +2564,7 @@ def learned_phase(profiled: tuple, smi: str) -> None:
     regions, times, projected_h100 = profiled
     gemm_model_on_a_train_step(model, host, regions, times)
     fitted_on_a_train_step(host, regions, times, projected_h100)
-    log(f"  phase 13: {time.perf_counter() - t0:.1f} s, launches across "
-        f"(b) {launches}")
+    log(f"  launches across (b) {launches}")
 
 
 # --------------------------------------------------------------------------
@@ -2482,9 +2573,13 @@ def learned_phase(profiled: tuple, smi: str) -> None:
 
 # (id, layers kept of the published depth, whether the run decodes too):
 # each at its published width with random weights from the seed, its depth
-# cut so that the phase fits the script's time (PERF.md section 4)
+# cut so that the phase fits the script's time (PERF.md section 4);
+# stablelm-12b (head_dim 160) and the hybrid zamba2-2.7b (head_dim 80; 9
+# super-blocks of 6 Mamba2 layers and the shared attention block) at their
+# full depth
 FAMILIES = [("mixtral-8x22b", 4, True), ("gemma2-27b", 8, True),
-            ("qwen2.5-32b", 2, False), ("deepseek-67b", 2, False)]
+            ("qwen2.5-32b", 2, False), ("deepseek-67b", 2, False),
+            ("stablelm-12b", 40, True), ("zamba2-2.7b", 54, True)]
 # prefill: 2 prompts of 8192 tokens, longer than the 4096-token windows
 FAMILY_B, FAMILY_S = 2, 8192
 # greedy decode: 8 prompts of 64 tokens, 32 new tokens, max_len 128
@@ -2499,7 +2594,8 @@ ROUTING_FLIP_TOL = 0.01
 # device time of the prefill: K1's and K2's kernels (launched outside any
 # PyTorch op), and by PyTorch op (the ops' own kernels) the MoE's grouped
 # GEMMs, the other GEMMs and the MoE's data movement
-FAMILY_KERNEL_GROUPS = {"K1": ["flash_fwd"], "K2": ["rmsnorm"]}
+FAMILY_KERNEL_GROUPS = {"K1": ["flash_fwd"], "K2": ["rmsnorm"],
+                        "K3": ["ssd_scan_bf16", "ssd_scan_f32"]}
 FAMILY_OP_GROUPS = {
     "expert GEMMs (bmm)": ["aten::bmm"],
     "other GEMMs (projections, router, head)": ["aten::mm", "aten::addmm"],
@@ -2538,6 +2634,23 @@ def routed(cfg, top_e) -> torch.Tensor:
                        device=top_e.device).scatter_(1, top_e, kept)
 
 
+def layer_walk(cfg, params, pos, cast):
+    """``prefill``'s blocks in order, each a function of the hidden state
+    whose weights are cast (``cast``) a layer at a time when it runs: the
+    attention layers, or the hybrid's super-blocks (each Mamba2 layer, then
+    the shared attention block as the layer of index 1)."""
+    if cfg.family != "hybrid":
+        for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+            yield lambda h, lp=lp, i=i: attn_block(cfg, tree_map(lp, cast), h,
+                                                   pos, i)
+        return
+    shared = tree_map(params["shared_attn"], cast)
+    for group in _super_blocks(cfg, params):
+        for lp in group:
+            yield lambda h, lp=lp: ssm_block(cfg, tree_map(lp, cast), h)
+        yield lambda h: attn_block(cfg, shared, h, pos, 1)
+
+
 def walk_logits(cfg, params, tokens, rows: int, f32: bool = False):
     """``prefill``'s layers one by one, with the head on the last ``rows``
     positions of each prompt: [B * rows, V] f32.  With ``f32`` on an f32
@@ -2546,12 +2659,34 @@ def walk_logits(cfg, params, tokens, rows: int, f32: bool = False):
     cast = (lambda t: t.float()) if f32 else (lambda t: t)
     if f32:
         cfg = cfg.scaled(dtype="float32")
-    top = {k: cast(v) for k, v in params.items() if k != "layers"}
+    top = {k: cast(v) for k, v in params.items()
+           if k not in ("layers", "shared_attn")}
     batch = {"tokens": tokens}
     h, pos = _embed(cfg, top, batch), _positions(batch)
-    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
-        h = attn_block(cfg, tree_map(lp, cast), h, pos, i)
+    for block in layer_walk(cfg, params, pos, cast):
+        h = block(h)
     return _logits(cfg, top, h[:, -rows:].contiguous()).flatten(0, 1)
+
+
+def check_super_block(cfg, chunked, params, prompts) -> None:
+    """The hybrid's first super-block fed the kernel path's hidden state:
+    each Mamba2 layer's output (K3 against the plain chunked scan) and then
+    the shared attention block's (K1 against the plain chunked attention),
+    each on the same input, row by row."""
+    batch = {"tokens": prompts}
+    h, pos = _embed(cfg, params, batch), _positions(batch)
+    for i, lp in enumerate(_super_blocks(cfg, params)[0]):
+        x = rms_norm(h, lp["ln"], cfg.rms_eps)
+        y = mamba2_forward(cfg, lp["ssm"], x)[0]
+        hold_rows(f"layer {i} Mamba2 output", y,
+                  mamba2_forward(chunked, lp["ssm"], x)[0])
+        h = h + y
+    shared = params["shared_attn"]
+    x = rms_norm(h, shared["ln1"], cfg.rms_eps)
+    w = _layer_window(cfg, 1)
+    hold_rows(f"shared attention (window {w})",
+              gqa_forward(cfg, shared["attn"], x, pos, layer_window=w),
+              gqa_forward(chunked, shared["attn"], x, pos, layer_window=w))
 
 
 def check_family_layers(cfg, chunked, params, prompts) -> None:
@@ -2560,7 +2695,11 @@ def check_family_layers(cfg, chunked, params, prompts) -> None:
     row), and with an MoE the share of tokens whose experts differ between
     the two (held at ROUTING_FLIP_TOL) and the layer's output of the
     tokens whose experts agree (measured).  gemma2's first local and global
-    layers; every layer of an MoE; the first layer otherwise."""
+    layers; every layer of an MoE; the hybrid's first super-block; the
+    first layer otherwise."""
+    if cfg.family == "hybrid":
+        check_super_block(cfg, chunked, params, prompts)
+        return
     moe = cfg.moe is not None
     last = (cfg.num_layers if moe else max(cfg.local_global_pattern, 1))
     batch = {"tokens": prompts}
@@ -2570,14 +2709,7 @@ def check_family_layers(cfg, chunked, params, prompts) -> None:
         w = _layer_window(cfg, i)
         a = gqa_forward(cfg, lp["attn"], x, pos, layer_window=w)
         ap = gqa_forward(chunked, lp["attn"], x, pos, layer_window=w)
-        row = ((a.float() - ap.float()).norm(dim=-1)
-               / ap.float().norm(dim=-1)).max().item()
-        log(f"  layer {i} (window {w}) attention output "
-            f"{prompts.shape[0]}x{prompts.shape[1]}, K1 path against the "
-            f"plain path: largest row error {row:.3e} of the row's norm "
-            f"(tol {LAYER_ROW_TOL:g})")
-        if not row <= LAYER_ROW_TOL:
-            raise AssertionError(f"layer {i} attention: row error {row}")
+        hold_rows(f"layer {i} (window {w}) attention output", a, ap)
         if moe:
             xs = [rms_norm(h + y, lp["ln2"], cfg.rms_eps) for y in (a, ap)]
             with routes_recorded() as seen:
@@ -2686,15 +2818,24 @@ def serve_family(arch: str, layers: int, decodes: bool, gen) -> dict:
     with the launch counts read around them; then the checks, the logits
     gate and the prefill's profile.  K1 runs once a layer in prefill and
     never in decode; K2 twice a layer and once at the end, in prefill and
-    in each decode step."""
+    in each decode step.  The hybrid runs K3 once a Mamba2 layer and K1
+    once a super-block in prefill, and K2 twice a Mamba2 layer (its norm
+    and the gated norm), twice a super-block and once at the end, in
+    prefill and in each decode step."""
     cfg = get_config(arch).scaled(num_layers=layers)
     assert cfg.attn_impl == "kernel" and cfg.dtype == "bfloat16"
     torch.cuda.empty_cache()
     model = TransformerLM(cfg, generator=gen)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"  {arch}: {layers} of {get_config(arch).num_layers} layers, d_model "
-        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
-        f"{cfg.resolved_head_dim}, window {cfg.sliding_window}"
+    hybrid = cfg.family == "hybrid"
+    ssm = (f", {layers // cfg.hybrid_attn_every} super-blocks of "
+           f"{cfg.hybrid_attn_every} Mamba2 layers (SSD head_dim "
+           f"{cfg.ssm.head_dim}, state {cfg.ssm.d_state}, chunk "
+           f"{cfg.ssm.chunk_size}) and the shared attention block"
+           if hybrid else "")
+    log(f"  {arch}: {layers} of {get_config(arch).num_layers} layers{ssm}, "
+        f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+        f"head_dim {cfg.resolved_head_dim}, window {cfg.sliding_window}"
         f"{' (even layers)' if cfg.local_global_pattern else ''}, cap "
         f"{cfg.attn_logit_softcap}, vocab {cfg.vocab_size}"
         f"{', experts %d top-%d' % (cfg.moe.num_experts, cfg.moe.top_k) if cfg.moe else ''}: "
@@ -2731,7 +2872,14 @@ def serve_family(arch: str, layers: int, decodes: bool, gen) -> dict:
 
     steps = DECODE_S + DECODE_NEW if decodes else 0
     expected = {k: 0 for k in COUNTERS}
-    expected.update({"flash_attention": layers, "rmsnorm": 2 * layers + 1})
+    if hybrid:
+        n_super = layers // cfg.hybrid_attn_every
+        expected.update({"flash_attention": n_super, "ssd_scan": layers,
+                         "rmsnorm": 2 * layers + 2 * n_super + 1})
+    else:
+        expected.update({"flash_attention": layers,
+                         "rmsnorm": 2 * layers + 1})
+    per_step = expected["rmsnorm"]
     tokens = FAMILY_B * FAMILY_S
     log(f"  prefill {FAMILY_B}x{FAMILY_S}: {prefill_s * 1e3:.2f} ms, "
         f"{tokens / prefill_s:.0f} tokens/s, peak memory "
@@ -2746,7 +2894,7 @@ def serve_family(arch: str, layers: int, decodes: bool, gen) -> dict:
     expected["rmsnorm"] *= 1 + steps
     if launches != expected:
         raise AssertionError(f"main-path launches {launches}, expected "
-                             f"{expected} ({2 * layers + 1} K2 and nothing "
+                             f"{expected} ({per_step} K2 and nothing "
                              "else per decode step)")
     if logits.shape != (FAMILY_B, v) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
@@ -2770,13 +2918,11 @@ def serve_family(arch: str, layers: int, decodes: bool, gen) -> dict:
 
 def families_phase(gen) -> list:
     """Phase 14: the four ids' serving paths; their launch counts."""
-    t0 = time.perf_counter()
     runs = []
     for arch, layers, decodes in FAMILIES:
         t1 = time.perf_counter()
         runs.append(serve_family(arch, layers, decodes, gen))
         log(f"  {arch}: {time.perf_counter() - t1:.1f} s")
-    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -2988,13 +3134,11 @@ def train_family(arch: str, layers: int, b: int, s: int, gen) -> dict:
 
 def families_train_phase(gen) -> list:
     """Phase 15: the five ids' train steps; their launch counts."""
-    t0 = time.perf_counter()
     runs = []
     for arch, layers, b, s in FAMILY_TRAIN:
         t1 = time.perf_counter()
         runs.append(train_family(arch, layers, b, s, gen))
         log(f"  {arch}: {time.perf_counter() - t1:.1f} s")
-    log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -3106,9 +3250,9 @@ def main() -> int:
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line:
-            log(f"  ptxas {entry[:90]}: {line.split(':', 1)[1].strip()}; "
-                f"{spills}")
             name = kernel_name(entry)
+            log(f"  ptxas {(name if name != entry else entry)[:90]}: "
+                f"{line.split(':', 1)[1].strip()}; {spills}")
             if name.startswith(("bwd_", "rmsnorm_bwd")):
                 regs = line.split("Used")[1].split("registers")[0].strip()
                 spill = sum(int(w) for w in spills.split()
@@ -3122,51 +3266,73 @@ def main() -> int:
     for line in backward:
         log(f"  {line}")
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    log("[3] kernels against their plain versions")
-    k1 = check_k1(gen)
-    k2 = check_k2(gen)
-    k1b = check_k1b(gen)
-    check_k1b_families(gen)
-    k2b = check_k2b(gen)
-    k3 = check_k3(gen)
-    k3b = check_k3b(gen)
+    lap = [time.perf_counter()]
 
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        log(f"  {name}: {now - lap[0]:.1f} s")
+        lap[0] = now
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
     runs = []
-    for arch in ("llama3-1b", "mamba2-370m"):
-        log(f"[4] {arch} serving path; [5] where the time goes")
-        runs.append(serve(arch, gen))
-    log("[6] llama3-1b training path")
-    train_launches, step_s = train_llama(gen)
-    runs.append(train_launches)
-    log("[7] gradient gate and the training CLI")
-    gradient_gate(gen)
-    gradient_gate(gen, fan_in=True)
-    train_cli()
-    log("[8] export on the card")
-    exported = export_on_the_card(train_launches)
-    log("[9] predict on the card")
-    predict_on_the_card(exported, step_s)
-    log("[10] the per-rank step of a [4, 1] data mesh")
-    predicted = mesh_predict(mesh_export())
-    rank_launches, rank_s = rank_step(gen, predicted)
-    runs.append(rank_launches)
-    mesh_campaigns()
-    log("[11] fig7: the data-parallel ResNet step")
-    launches, one_card = fig7_phase(gen)
-    runs.append(launches)
+    # phase 10 (d)'s grids and phase 11 (a)'s exports trace on the host
+    # from here on, while phases 3 to 9 drive the card
+    with HostWork() as host:
+        log("[3] kernels against their plain versions")
+        k1 = check_k1(gen)
+        k2 = check_k2(gen)
+        k1b = check_k1b(gen)
+        check_k1b_families(gen)
+        k2b = check_k2b(gen)
+        k3 = check_k3(gen)
+        k3b = check_k3b(gen)
+        phase_done("phase 3")
+        for arch in ("llama3-1b", "mamba2-370m"):
+            log(f"[4] {arch} serving path; [5] where the time goes")
+            runs.append(serve(arch, gen))
+        phase_done("phases 4 and 5")
+        log("[6] llama3-1b training path")
+        train_launches, step_s = train_llama(gen)
+        runs.append(train_launches)
+        phase_done("phase 6")
+        log("[7] gradient gate and the training CLI")
+        gradient_gate(gen)
+        gradient_gate(gen, fan_in=True)
+        train_cli()
+        phase_done("phase 7")
+        log("[8] export on the card")
+        exported = export_on_the_card(train_launches)
+        phase_done("phase 8")
+        log("[9] predict on the card")
+        predict_on_the_card(exported, step_s)
+        phase_done("phase 9")
+        log("[10] the per-rank step of a [4, 1] data mesh")
+        predicted = mesh_predict(mesh_export())
+        rank_launches, rank_s = rank_step(gen, predicted)
+        runs.append(rank_launches)
+        mesh_campaigns(host)
+        phase_done("phase 10")
+        log("[11] fig7: the data-parallel ResNet step")
+        launches, one_card = fig7_phase(gen, host.fig7())
+        runs.append(launches)
+        phase_done("phase 11")
     log("[12] profiling on the card")
     launches, profiled = profiling_phase(train_launches, step_s, rank_s,
                                          one_card["resnet18"], smi)
     runs.append(launches)
+    phase_done("phase 12")
     log("[13] the learned estimator and the what-if search on the card")
     learned_phase(profiled, smi)
+    phase_done("phase 13")
     log("[14] other families serving: mixtral-8x22b (sparse MoE), "
-        "gemma2-27b, qwen2.5-32b, deepseek-67b")
+        "gemma2-27b, qwen2.5-32b, deepseek-67b, stablelm-12b (head_dim "
+        "160), zamba2-2.7b (the hybrid, head_dim 80)")
     runs += families_phase(gen)
+    phase_done("phase 14")
     log("[15] the families' training paths: mamba2-370m (K3, K3b), "
         "mixtral-8x22b, gemma2-27b, qwen2.5-32b, deepseek-67b")
     runs += families_train_phase(gen)
+    phase_done("phase 15")
     # launches on the main paths: K1 and K2 run on several
     for entry in (k1, k2, k3, k1b, k2b, k3b):
         key = entry["name"]

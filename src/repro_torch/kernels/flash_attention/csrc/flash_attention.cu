@@ -41,7 +41,12 @@
 //     V in memory for GQA);
 //   * ragged Sq and Skv tails are masked, not asserted; q, k, v and o are
 //     addressed through their strides (last dim contiguous), so the
-//     [B, S, H, D] projections are read without a transposing copy.
+//     [B, S, H, D] projections are read without a transposing copy;
+//   * head_dim 32, 64, 80, 128 or 160 (zamba2-2.7b's shared block is 80
+//     wide, stablelm-12b's 160).  bf16 cuts D into column blocks of 64
+//     (D 64, 128) or of 32 (D 32, 80, 160); 80 is padded to 96 inside the
+//     kernel (TMA fills the columns past D with zeros and its store clips
+//     them), and the softmax scale is 1/sqrt of the true D.
 // A key masked out contributes exactly 0, and a row with no visible key at
 // all writes 0.
 //
@@ -118,8 +123,11 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, Problem p) {
-  static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
-  constexpr int kCols = D / 32;  // output columns per lane
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  // output columns per lane; at D 80 a lane's last column lies past D for
+  // lanes 16..31, and is neither read nor written
+  constexpr int kCols = (D + 31) / 32;
+  auto owned = [](int col) { return D % 32 == 0 || col < D; };
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
   float* sK = sQ + kBlockQ * D;
@@ -233,7 +241,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int t = 0; t < 4; ++t)
 #pragma unroll
         for (int j = 0; j < kCols; ++j)
-          vv[t][j] = sV[(kk + t) * D + lane + 32 * j];
+          vv[t][j] = owned(lane + 32 * j) ? sV[(kk + t) * D + lane + 32 * j]
+                                          : 0.f;
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
         const float4 pr =
@@ -254,7 +263,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
-        ob[qi * p.os.s + lane + 32 * j] = acc[r][j] * inv;
+        if (owned(lane + 32 * j))
+          ob[qi * p.os.s + lane + 32 * j] = acc[r][j] * inv;
       // m and l are in natural units here (Q was scaled on load)
       if (lse_row != nullptr && lane == 0)
         lse_row[qi] = l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
@@ -269,13 +279,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // (batch, query head), the items whose rows see the most keys first, with
 // three warpgroups:
 //   * warpgroup 0, the producer: one thread loads each item's Q tile and
-//     then its K and V tiles of 128 keys into a ring of stages (three; two
-//     at d=128) with TMA.  Each stage has a "full" mbarrier for K and one
-//     for V (the TMA reports its bytes to them) and an "empty" mbarrier on
-//     which the 256 consumer threads arrive when they are done with the
-//     stage; Q has a full and an empty mbarrier of its own.  The ring runs on
-//     across items, and the next Q loads once the consumers' last Q K^T
-//     is done;
+//     then its K and V tiles of 128 keys (64 at d=160) into a ring of stages
+//     (three; two at d=128) with TMA.  Each stage has a "full" mbarrier
+//     for K and one for V (the TMA reports its bytes to them) and an
+//     "empty" mbarrier on which the 256 consumer threads arrive when they
+//     are done with the stage; Q has a full and an empty mbarrier of its
+//     own.  The ring runs on across items, and the next Q loads once the
+//     consumers' last Q K^T is done;
 //   * warpgroups 1 and 2, the consumers: 64 query rows each, in wgmma's
 //     accumulator layout (warp w holds rows 16w .. 16w+15; lane l rows
 //     l/4 and l/4 + 8, columns 2(l%4) + 8j and the one after).  For key
@@ -287,11 +297,15 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 //     their products in turn (named barriers), so that the tensor cores work
 //     for one while the other exponentiates.
 // Shared tiles are stored as TMA writes them with the 128-byte swizzle
-// (64 columns a row; d=128 as two such column blocks) or, at d=32, the
-// 64-byte swizzle; the wgmma descriptors name the same swizzle.  Every tile
-// starts on a 1024-byte boundary, where the swizzle pattern starts.  The
-// output goes through shared memory and out with one TMA store per
-// consumer, which also clips the rows past Sq.
+// (64 columns a row; d=128 as two such column blocks) or, at d=32, 80 and
+// 160, the 64-byte swizzle (32 columns a row: one, three and five column
+// blocks); the wgmma descriptors name the same swizzle.  d=80 is padded to
+// 96 columns: the tensor maps are 80 wide, so TMA fills a box's columns 80
+// to 95 with zeros, Q K^T takes the 80 real columns (five k-steps of 16),
+// P V computes 96 output columns of which the last 16 are 0, and the store
+// clips them.  Every tile starts on a 1024-byte boundary, where the swizzle
+// pattern starts.  The output goes through shared memory and out with one
+// TMA store per consumer, which also clips the rows past Sq.
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 64;       // query rows of a consumer warpgroup
@@ -309,15 +323,22 @@ struct Bf16Tiles {
   // producer gives back 128 x 128 of them, which the consumers take
   static constexpr int kProducerRegs = 40;
   static constexpr int kConsumerRegs = 232;
-  static constexpr int kCols = D < 64 ? D : 64;  // columns of a swizzled block
-  static constexpr int kColBlocks = D / kCols;
+  // columns of a swizzled block: 64 (128-byte swizzle) where they divide
+  // D, else 32 (64-byte swizzle)
+  static constexpr int kCols = D % 64 == 0 ? 64 : 32;
+  // D padded to whole column blocks (80 -> 96): the width of the shared
+  // tiles and of P V
+  static constexpr int kDp = (D + kCols - 1) / kCols * kCols;
+  static constexpr int kColBlocks = kDp / kCols;
   static constexpr int kRowBytes = kCols * 2;    // one row of a block
   static constexpr int kSwizzleBits = kCols == 64 ? 3 : 2;  // 128 or 64 bytes
   static constexpr int kLayout = kCols == 64 ? 1 : 2;  // wgmma layout type
-  static constexpr int kTileK = 128;  // keys of a K or V tile
+  // keys of a K or V tile: 64 at d=160, where two stages of 128-key tiles
+  // beside Q and O would need 240 KB
+  static constexpr int kTileK = D > 128 ? 64 : 128;
   static constexpr int kStages = D == 128 ? 2 : 3;
-  static constexpr int kQBytes = kTileQ * D * 2;
-  static constexpr int kKVBytes = kTileK * D * 2;  // one K or V tile
+  static constexpr int kQBytes = kTileQ * kDp * 2;
+  static constexpr int kKVBytes = kTileK * kDp * 2;  // one K or V tile
   static constexpr int kBarBytes = 8 * (2 + 3 * kStages);
   // Q, O, the K and V ring, the barriers; + 1024 to align the dynamic
   // shared memory to the swizzle's period
@@ -326,15 +347,33 @@ struct Bf16Tiles {
   static_assert(kSmem <= 232448, "at most 227 KB of shared memory a block");
 };
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+// O[64 x N] += P V with N the padded head_dim
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 32) {
+  if constexpr (N == 32) {
     wgmma_rs_n32(o, a, db);
-  } else if constexpr (D == 64) {
+  } else if constexpr (N == 64) {
     wgmma_rs_n64(o, a, db);
-  } else {
+  } else if constexpr (N == 96) {
+    wgmma_rs_n96(o, a, db);
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(o, a, db);
+  } else {
+    static_assert(N == 160, "P V is 32, 64, 96, 128 or 160 wide");
+    wgmma_rs_n160(o, a, db);
+  }
+}
+
+// S[64 x N] (+)= Q K^T of N keys
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64(s, da, db, accumulate);
+  } else {
+    static_assert(N == 128, "key tiles of 64 or 128");
+    wgmma_ss_n128(s, da, db, accumulate);
   }
 }
 
@@ -371,7 +410,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap to, Problem p, int n_bh,
                int n_q_tiles) {
-  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 160,
+                "head_dim 32, 64, 80, 128 or 160");
   using T = Bf16Tiles<D>;
   constexpr int kS = T::kStages, kC = T::kConsumers, kTileQ = T::kTileQ,
                 kTileK = T::kTileK;
@@ -464,7 +504,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   };
 
   constexpr int kN = kTileK / 2;  // S accumulator registers of a thread
-  float o[D / 2], s[kN];
+  constexpr int kDp = T::kDp;
+  float o[kDp / 2], s[kN];
 #pragma unroll
   for (int x = 0; x < kN; ++x) s[x] = 0.f;
   uint32_t pf[kTileK / 16][4];
@@ -478,15 +519,16 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   // S = Q K^T of the tile in stage st, and O += P V of the tile in stage st,
   // each one commit group
   auto issue_qk = [&](int st) {
+    // the real columns only: past D, Q and K are zeros
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks)
-      wgmma_ss_n128(s, q_desc(ks * 16), k_desc(st, ks * 16), ks > 0);
+      wgmma_qk<kTileK>(s, q_desc(ks * 16), k_desc(st, ks * 16), ks > 0);
     wgmma_commit();
   };
   auto issue_pv = [&](int st) {
 #pragma unroll
     for (int kk = 0; kk < kTileK / 16; ++kk)
-      wgmma_pv<D>(o, pf[kk], v_desc(st, kk));
+      wgmma_pv<kDp>(o, pf[kk], v_desc(st, kk));
     wgmma_commit();
   };
   // the online softmax of key tile i's scores, in place: s becomes P (f32),
@@ -553,7 +595,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   // O is rescaled once P_{i-1} V_{i-1} is in it, before P_i V_i
   auto rescale = [&]() {
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+    for (int e = 0; e < kDp / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
   };
 
   // The consumers take turns at the tensor cores, in order: consumer c waits
@@ -587,7 +629,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     wg_first = x.q0 + c * kWgRows + p.q_offset;
     wg_last = min(x.q0 + (c + 1) * kWgRows, p.sq) - 1 + p.q_offset;
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    for (int e = 0; e < kDp / 2; ++e) o[e] = 0.f;
     m[0] = m[1] = -INFINITY;
     l[0] = l[1] = 0.f;
 
@@ -634,7 +676,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     it += n;
 
     // O / l as bf16 into this consumer's rows of the output buffer, swizzled
-    // as the O map reads them, then one TMA store (rows past Sq are clipped)
+    // as the O map reads them, then one TMA store (rows past Sq, and the
+    // padded columns past D, are clipped: they are not written here)
     float inv[2];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
@@ -756,8 +799,9 @@ cudaError_t dispatch_dtype(int dtype, const void* q, const void* k,
 // by its (batch, head, seq) strides in elements with the last dim contiguous;
 // every stride and base pointer aligned to 16 bytes.  lse: null, or a
 // contiguous [B, Hq, Sq] f32 buffer for each row's log-sum-exp.  dtype: 0 =
-// float32, 1 = bfloat16.  d in {32, 64, 128}; Hq % Hkv == 0.  Returns
-// cudaGetLastError() after the launch.
+// float32, 1 = bfloat16.  d in {32, 64, 80, 128, 160} (80: zamba2-2.7b;
+// 160: stablelm-12b); Hq % Hkv == 0.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, float* lse, int b,
     int hq,
@@ -787,7 +831,9 @@ extern "C" int repro_flash_attention(
   switch (d) {
     case 32: return dispatch_dtype<32>(dtype, q, k, v, o, b, hkv, p, s);
     case 64: return dispatch_dtype<64>(dtype, q, k, v, o, b, hkv, p, s);
+    case 80: return dispatch_dtype<80>(dtype, q, k, v, o, b, hkv, p, s);
     case 128: return dispatch_dtype<128>(dtype, q, k, v, o, b, hkv, p, s);
+    case 160: return dispatch_dtype<160>(dtype, q, k, v, o, b, hkv, p, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,2 +1,2 @@
-"""Model zoo in PyTorch (the dense Llama family and the Mamba2 SSM family),
-with the JAX package's layouts."""
+"""Model zoo in PyTorch (the dense and MoE families, the Mamba2 SSM family
+and the Zamba2 hybrid), with the JAX package's layouts."""

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> config.
 
 The port serves the dense Llama family, the attention-free SSM family
-(mamba2-370m), the dense deepseek-67b, qwen2.5-32b and gemma2-27b, and the
-sparse MoE mixtral-8x22b; the other ids of the JAX registry raise
+(mamba2-370m), the dense deepseek-67b, qwen2.5-32b, gemma2-27b and
+stablelm-12b, the sparse MoE mixtral-8x22b and the hybrid zamba2-2.7b (Mamba2
+layers with one shared attention block); the other ids of the JAX registry raise
 ``NotImplementedError`` naming the ROADMAP item that ports them (Queue 1,
 item 11: other families).
 """
@@ -18,22 +19,17 @@ from .transformer import cache_shapes
 
 # the JAX registry's ids that are not ported yet, each with what it waits
 # for
-ARCH_IDS = [
-    "stablelm-12b", "zamba2-2.7b", "deepseek-v3-671b", "hubert-xlarge",
-    "qwen2-vl-7b",
-]
+ARCH_IDS = ["deepseek-v3-671b", "hubert-xlarge", "qwen2-vl-7b"]
 _WAITS_FOR = {
-    "stablelm-12b": "K1 at head_dim 160",
-    "zamba2-2.7b": "K1 at head_dim 80 and the hybrid super-block",
     "deepseek-v3-671b": "MLA, K1 with dv != dqk",
     "hubert-xlarge": "the stub front end",
     "qwen2-vl-7b": "M-RoPE and the stub front end",
 }
-# the paper's dense Llama workloads, the SSM family, and the dense and MoE
-# families whose attention K1 takes: the ids the port serves
+# the paper's dense Llama workloads, the SSM family, the dense and MoE
+# families whose attention K1 takes, and the hybrid: the ids the port serves
 PORTED_IDS = ["llama3-100m", "llama3-500m", "llama3-1b", "llama3-3b",
               "llama2-7b", "mamba2-370m", "deepseek-67b", "qwen2.5-32b",
-              "gemma2-27b", "mixtral-8x22b"]
+              "gemma2-27b", "mixtral-8x22b", "stablelm-12b", "zamba2-2.7b"]
 
 
 def _module(arch: str):

@@ -1,12 +1,16 @@
 """LM assembly: the training and serving paths of the dense Llama family,
 the serving paths of the attention-free SSM family (Mamba2), of the other
-dense families (deepseek-67b, qwen2.5-32b, gemma2-27b) and of the sparse
-MoE family (mixtral-8x22b).
+dense families (deepseek-67b, qwen2.5-32b, gemma2-27b, stablelm-12b), of the
+sparse MoE family (mixtral-8x22b) and of the hybrid family (zamba2-2.7b: the
+Mamba2 layers in super-blocks, each closed by one attention block whose
+weights all super-blocks share).
 
 Public entry points are plain functions of (cfg, params, batch), with the
 JAX package's names, signatures and layouts (layer-stacked weights [L, ...],
 KV cache [L, B, S_max, kv, hd]; SSM cache ``ssm_state`` [L, B, H, P, N] f32
-and ``conv_state`` [L, B, K-1, conv_ch]):
+and ``conv_state`` [L, B, K-1, conv_ch]; the hybrid's SSM cache over its
+Mamba2 layers and its KV cache [n_super, B, S_max, kv, hd], one slot a
+super-block):
 
   model_specs(cfg)                       -> ParamSpec tree
   forward(cfg, params, batch)            -> (loss, logits)  [train / eval]
@@ -15,10 +19,10 @@ and ``conv_state`` [L, B, K-1, conv_ch]):
   init_cache_specs(cfg, batch, max_len)  -> cache ParamSpec tree
 
 :class:`TransformerLM` is the ``nn.Module`` that owns the parameters and
-calls these functions.  The MLA and hybrid branches raise
-``NotImplementedError`` until their families are ported.  As in the
-reference, ``forward`` adds no router auxiliary loss for MoE
-(``moe_aux_loss`` is there for a caller that wants it).
+calls these functions.  The MLA branch raises ``NotImplementedError``
+until its family is ported.  As in the reference, ``forward`` adds no
+router auxiliary loss for MoE (``moe_aux_loss`` is there for a caller that
+wants it).
 """
 from __future__ import annotations
 
@@ -39,10 +43,10 @@ from .ssm import mamba2_forward, ssm_specs
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "hybrid" or cfg.mla is not None:
+    if cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (MLA/hybrid branches) is "
-            "not ported yet (ROADMAP, Queue 1 item 11: other families)")
+            f"{cfg.name}: the MLA branch is not ported yet (ROADMAP, Queue 1 "
+            "item 11: other families)")
 
 
 # --------------------------------------------------------------------------
@@ -83,8 +87,37 @@ def model_specs(cfg: ModelConfig) -> dict:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                      ("embed", "vocab"), init="scaled",
                                      dtype=dt)
-    specs["layers"] = _layer_specs(cfg, stacked=cfg.num_layers)
+    if cfg.family == "hybrid":
+        n = _n_super(cfg) * cfg.hybrid_attn_every
+        specs["layers"] = {
+            "ssm": ssm_specs(cfg, stacked=n),
+            "ln": ParamSpec((n, cfg.d_model), ("layers", "norm"),
+                            init="ones", dtype=dt),
+        }
+        # one attention block that every super-block shares (Zamba2)
+        specs["shared_attn"] = {
+            "attn": attention_specs(cfg, stacked=0),
+            "ln1": norm_spec(cfg.d_model, dt),
+            "ln2": norm_spec(cfg.d_model, dt),
+            "mlp": mlp_specs(cfg, stacked=0),
+        }
+    else:
+        specs["layers"] = _layer_specs(cfg, stacked=cfg.num_layers)
     return specs
+
+
+def _n_super(cfg: ModelConfig) -> int:
+    """The hybrid's super-blocks: ``hybrid_attn_every`` Mamba2 layers and
+    the shared attention block each."""
+    return cfg.num_layers // cfg.hybrid_attn_every
+
+
+def _super_blocks(cfg: ModelConfig, params: dict) -> list[list[dict]]:
+    """The hybrid's Mamba2 layers (views of the stacked weights), grouped
+    by super-block."""
+    every = cfg.hybrid_attn_every
+    layers = _unstack(params["layers"], _n_super(cfg) * every)
+    return [layers[i:i + every] for i in range(0, len(layers), every)]
 
 
 # --------------------------------------------------------------------------
@@ -182,6 +215,8 @@ def _scan_layers(cfg: ModelConfig, params: dict, h: torch.Tensor,
     barrier follows each layer when ``layer_barriers`` is set and
     ``scan_layers`` is not (the reference's unrolled stack)."""
     _check_family(cfg)
+    if cfg.family == "hybrid":
+        return _scan_super_blocks(cfg, params, h, positions)
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         if cfg.family == "ssm":
             def block(x, lp=lp):
@@ -195,6 +230,27 @@ def _scan_layers(cfg: ModelConfig, params: dict, h: torch.Tensor,
             h = block(h)
         if cfg.layer_barriers and not cfg.scan_layers:
             h = barrier(h)
+    return h
+
+
+def _scan_super_blocks(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """The reference's two nested scans as loops: each super-block runs its
+    Mamba2 layers and then the shared attention block, as the layer of
+    index 1 (the reference's ``attn_block(..., jnp.int32(1))``).  With
+    ``remat == "full"`` the whole super-block is recomputed in the backward
+    (the reference checkpoints the outer scan's body).  As in the
+    reference, no barrier follows a layer."""
+    shared = params["shared_attn"]
+    for group in _super_blocks(cfg, params):
+        def block(x, group=group):
+            for lp in group:
+                x = ssm_block(cfg, lp, x)
+            return attn_block(cfg, shared, x, positions, 1)
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            h = checkpoint(block, h, use_reentrant=False)
+        else:
+            h = block(h)
     return h
 
 
@@ -267,11 +323,12 @@ def cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int) -> dict:
     """KV or SSM cache description (shape, dtype, logical axes) for one
     batch."""
     _check_family(cfg)
-    if cfg.family == "ssm":
+    hd = cfg.resolved_head_dim
+    if cfg.family in ("ssm", "hybrid"):
         s = cfg.ssm
         nh, di = s.n_heads(cfg.d_model), s.d_inner(cfg.d_model)
         conv_ch = di + 2 * s.n_groups * s.d_state
-        return {
+        shapes = {
             "index": ((), "int32", ()),
             "ssm_state": ((cfg.num_layers, batch_size, nh, s.head_dim,
                            s.d_state), "float32",
@@ -281,7 +338,17 @@ def cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int) -> dict:
                             conv_ch), cfg.dtype,
                            ("layers", "batch", "conv", "ssm_inner")),
         }
-    hd = cfg.resolved_head_dim
+        if cfg.family == "hybrid":
+            # the shared block's cache, one slot a super-block
+            kv_shape = (_n_super(cfg), batch_size, max_len,
+                        cfg.num_kv_heads, hd)
+            shapes["k"] = (kv_shape, cfg.dtype, ("layers", "batch",
+                                                 "cache_seq", "kv_heads",
+                                                 "qk_dim"))
+            shapes["v"] = (kv_shape, cfg.dtype, ("layers", "batch",
+                                                 "cache_seq", "kv_heads",
+                                                 "v_dim"))
+        return shapes
     eff_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
                else max_len)
     kv_shape = (cfg.num_layers, batch_size, eff_len, cfg.num_kv_heads, hd)
@@ -304,25 +371,33 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     """One autoregressive step. batch: tokens [B,1] (or embeds [B,1,d]).
 
     The cache index is carried in ``cache["index"]`` (a 0-d tensor).  The
-    K/V tensors of ``cache`` (SSM family: ``ssm_state`` and ``conv_state``)
-    are updated in place; the returned cache holds them and the advanced
-    index.
+    K/V tensors of ``cache`` (SSM family: ``ssm_state`` and ``conv_state``;
+    the hybrid: both, the shared block's K/V slot of each super-block) are
+    updated in place; the returned cache holds them and the advanced index.
     """
     _check_family(cfg)
     h = _embed(cfg, params, batch)
     index = cache["index"]
-    layers = _unstack(params["layers"], cfg.num_layers)
     if cfg.family == "ssm":
-        for i, lp in enumerate(layers):
-            x = rms_norm(h, lp["ln"], cfg.rms_eps)
-            y, new_s, new_c = mamba2_forward(
-                cfg, lp["ssm"], x, ssm_state=cache["ssm_state"][i],
-                conv_state=cache["conv_state"][i], decode=True)
-            cache["ssm_state"][i].copy_(new_s)
-            cache["conv_state"][i].copy_(new_c)
-            h = h + y
+        for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+            h = _ssm_decode(cfg, lp, cache, i, h)
         logits = _logits(cfg, params, h)
         return logits[:, -1], dict(cache, index=index + 1)
+    if cfg.family == "hybrid":
+        shared = params["shared_attn"]
+        every = cfg.hybrid_attn_every
+        for j, group in enumerate(_super_blocks(cfg, params)):
+            for i, lp in enumerate(group, start=j * every):
+                h = _ssm_decode(cfg, lp, cache, i, h)
+            x = rms_norm(h, shared["ln1"], cfg.rms_eps)
+            y, _, _ = gqa_decode(cfg, shared["attn"], x, cache["k"][j],
+                                 cache["v"][j], index)
+            h = h + y
+            x = rms_norm(h, shared["ln2"], cfg.rms_eps)
+            h = h + mlp_forward(cfg, shared["mlp"], x)
+        logits = _logits(cfg, params, h)
+        return logits[:, -1], dict(cache, index=index + 1)
+    layers = _unstack(params["layers"], cfg.num_layers)
     for i, lp in enumerate(layers):
         x = rms_norm(h, lp["ln1"], cfg.rms_eps)
         y, _, _ = gqa_decode(cfg, lp["attn"], x, cache["k"][i],
@@ -333,6 +408,19 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
         h = h + ffn(cfg, lp, x)
     logits = _logits(cfg, params, h)
     return logits[:, -1], dict(cache, index=index + 1)
+
+
+def _ssm_decode(cfg: ModelConfig, lp: dict, cache: dict, i: int,
+                h: torch.Tensor) -> torch.Tensor:
+    """One Mamba2 layer's decode step, its states (layer ``i`` of the
+    cache) updated in place."""
+    x = rms_norm(h, lp["ln"], cfg.rms_eps)
+    y, new_s, new_c = mamba2_forward(
+        cfg, lp["ssm"], x, ssm_state=cache["ssm_state"][i],
+        conv_state=cache["conv_state"][i], decode=True)
+    cache["ssm_state"][i].copy_(new_s)
+    cache["conv_state"][i].copy_(new_c)
+    return h + y
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
@@ -367,7 +455,8 @@ class _ParamTree(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Owns a dense, MoE or SSM LM's parameters and serves it.
+    """Owns a dense, MoE, SSM or hybrid LM's parameters and serves it (the
+    hybrid's ``shared_attn`` subtree beside its stacked ``layers``).
 
     ``params`` (e.g. from :func:`~repro_torch.models.params.params_from_jax`)
     is taken as is; without it the parameters are drawn from ``generator``

@@ -1,15 +1,19 @@
 """The port's CUDA kernels against their plain versions on the card: K1
-(flash attention), K2 (RMSNorm) and K3 (the SSD scan), each at a few shapes
-and layouts of the serving paths, and K1's log-sum-exp, K3's chunk states,
-K1b, K2b and K3b (their backwards) and the gradients of a small model
-through them, in f32 and bf16, with the tolerances of each kernel's
-``ref.py``; and the sparse MoE layer on the card against its CPU run, and
-twice to equal bits, forward and backward.  Every test is marked ``cuda`` and skips
+(flash attention, head_dim 32 to 160), K2 (RMSNorm) and K3 (the SSD scan),
+each at a few shapes and layouts of the serving paths, and K1's
+log-sum-exp, K3's chunk states, K1b, K2b and K3b (their backwards) and the
+gradients of a small model through them, in f32 and bf16, with the
+tolerances of each kernel's ``ref.py``; a small hybrid (zamba2's head width
+and SSM widths) served through K1, K2 and K3; and the sparse MoE layer on
+the card against its CPU run, and twice to equal bits, forward and
+backward.  Every test is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
 also runs on a machine with a card and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,7 +34,8 @@ from repro_torch.kernels.ssd_scan.ref import (
 from repro_torch.models import common as model_common
 from repro_torch.models.params import init_params
 from repro_torch.models.registry import get_smoke_config
-from repro_torch.models.transformer import model_specs
+from repro_torch.models.transformer import (decode_step, init_cache_specs,
+                                            model_specs, prefill)
 from repro_torch.train.checkpoint import _flatten
 from repro_torch.train.loop import _value_and_grad
 from repro_torch.train.optimizer import tree_leaves, tree_map
@@ -93,6 +98,14 @@ def cuda():
     (2, 8, 2, 384, 384, 32, True, 0, 0.0, 0, True),
     (1, 8, 2, 1000, 1000, 64, True, 0, 0.0, 0, True),
     (1, 8, 2, 520, 520, 128, True, 0, 0.0, 0, True),
+    # d 80 (zamba2-2.7b; padded to 96 inside the kernel) and 160
+    # (stablelm-12b; 64-key tiles): strided and ragged with an offset, a
+    # window with a cap, no causal mask, one query row
+    (1, 8, 2, 1000, 1111, 80, True, 0, 0.0, 111, True),
+    (1, 8, 2, 1000, 1111, 160, True, 0, 0.0, 111, True),
+    (2, 8, 4, 700, 700, 160, True, 200, 30.0, 0, False),
+    (2, 4, 4, 300, 333, 80, False, 0, 0.0, 0, False),
+    (1, 4, 4, 1, 300, 80, True, 0, 0.0, 299, False),
 ])
 def test_flash_kernel_on_card(cuda, dtype, b, hq, hkv, sq, skv, d, causal,
                               window, cap, q_offset, bshd):
@@ -280,6 +293,17 @@ def test_backward_kernels_are_deterministic(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 160])
+def test_flash_bwd_kernel_refuses_the_widths_it_does_not_take(cuda, d):
+    # K1b at head_dim 80 and 160 is the training slice's work
+    q, k, v = (t.to(cuda, torch.bfloat16)
+               for t in _torch(_qkv(3, 1, 2, 2, 64, 64, d)))
+    o, lse = k1_ops._forward(q, k, v, True, 0, 0.0, 0, with_lse=True)
+    with pytest.raises(ValueError, match="K1b takes"):
+        flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o))
+
+
 def _tiny_llama():
     # head_dim 64 (K1 takes 32, 64 and 128), GQA group 2, 2 layers
     return get_smoke_config("llama3-1b").scaled(
@@ -335,6 +359,50 @@ def test_remat_full_recomputes_the_kernels_and_keeps_the_gradients(cuda):
     assert launches == [cfg.num_layers, 2 * cfg.num_layers]
     for a, b in zip(tree_leaves(grads[0]), tree_leaves(grads[1])):
         assert torch.equal(a, b)
+
+
+def _tiny_hybrid():
+    # zamba2-2.7b's head width (2 heads of 80) and SSM widths (head_dim 64,
+    # d_state 64, one group), two super-blocks of two Mamba2 layers, 64-token
+    # SSD chunks
+    cfg = get_smoke_config("zamba2-2.7b")
+    return cfg.scaled(d_model=160, num_heads=2, num_kv_heads=2, d_ff=320,
+                      vocab_size=512, ssm=dataclasses.replace(
+                          cfg.ssm, head_dim=64, d_state=64, chunk_size=64))
+
+
+@pytest.mark.cuda
+def test_hybrid_serves_through_k1_k2_and_k3(cuda, monkeypatch):
+    # bf16 prefill through K1 (head_dim 80), K2 and K3 against the plain
+    # bf16 path (chunked attention and scan, plain norms), both against an
+    # f32 plain run: the kernels' distance within twice the plain path's.
+    # A prefill launches K1 once a super-block, K3 once a Mamba2 layer and
+    # K2 2 L + 2 n_super + 1 times; a decode step K2 as often and neither
+    # K1 nor K3
+    cfg = _tiny_hybrid()
+    params = init_params(model_specs(cfg), torch.Generator(cuda).manual_seed(2),
+                         cuda)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (2, 192)).astype(np.int32)).to(cuda)}
+    counters = (flash_attention, ssd_scan, rmsnorm)
+    before = [f.launches for f in counters]
+    logits = prefill(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [2, 4, 13]
+    cache = init_params(init_cache_specs(cfg, 2, 8),
+                        torch.Generator(cuda), cuda)
+    before = [f.launches for f in counters]
+    decode_step(cfg, params, cache, {"tokens": batch["tokens"][:, :1]})
+    assert [f.launches - n for f, n in zip(counters, before)] == [0, 0, 13]
+    plain = cfg.scaled(attn_impl="chunked")
+    monkeypatch.setattr(model_common, "rmsnorm", rmsnorm_ref)
+    lp = prefill(plain, params, batch)
+    l32 = prefill(plain.scaled(dtype="float32"),
+                  tree_map(lambda t: t.float(), params), batch)
+    assert torch.isfinite(logits).all()
+    dk = (logits - l32).norm() / l32.norm()
+    dp = (lp - l32).norm() / l32.norm()
+    assert dk <= 2 * dp, (dk.item(), dp.item())
 
 
 def _ssd_on_card(cuda, dtype, b, s, h, p, g, n, strided, seed=20):

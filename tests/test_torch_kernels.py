@@ -55,6 +55,9 @@ class TestFlashAttentionPlain:
         (1, 4, 4, 128, 256, 64),
         (2, 2, 2, 256, 256, 32),
         (1, 8, 2, 128, 128, 128),
+        # zamba2-2.7b's and stablelm-12b's head widths
+        (1, 4, 4, 128, 128, 80),
+        (1, 4, 1, 128, 256, 160),
     ])
     def test_matches_pallas_and_ref_causal(self, b, hq, hkv, sq, skv, d):
         q, k, v = _qkv(0, b, hq, hkv, sq, skv, d)

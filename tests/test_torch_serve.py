@@ -118,8 +118,7 @@ def test_transformer_lm_module_serves_like_the_functions():
                                                    {"tokens": prompt}))
 
 
-@pytest.mark.parametrize("arch", ["stablelm-12b", "zamba2-2.7b",
-                                  "deepseek-v3-671b", "hubert-xlarge",
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "hubert-xlarge",
                                   "qwen2-vl-7b"])
 def test_unported_families_raise(arch):
     from repro_torch.models.registry import get_config as tget
@@ -128,3 +127,25 @@ def test_unported_families_raise(arch):
         with pytest.raises(NotImplementedError,
                            match=r"ROADMAP, Queue 1 item 11"):
             get(arch)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-12b", "zamba2-2.7b"])
+def test_head_dim_and_hybrid_families_serve(arch):
+    """The two ids that waited for K1 at head_dim 160 and 80 and for the
+    hybrid super-block: both configs resolve, and the smoke model
+    generates through ``TransformerLM`` as through ``greedy_decode``
+    (tests/test_torch_hybrid.py holds them against the JAX package)."""
+    from repro_torch.models.registry import get_config as tget
+    from repro_torch.models.registry import get_smoke_config as tsmoke
+    assert tget(arch).resolved_head_dim == {"stablelm-12b": 160,
+                                            "zamba2-2.7b": 80}[arch]
+    cfg = tsmoke(arch).scaled(dtype="float32")
+    model = transformer.TransformerLM(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    prompt = torch.from_numpy(_prompt(2, 5, cfg.vocab_size))
+    out = model.generate(prompt, 4, 16)
+    assert out.tokens.shape == (2, 4) and out.tokens.dtype == torch.int32
+    np.testing.assert_array_equal(
+        out.tokens.numpy(),
+        greedy_decode(cfg, model.params, prompt, 4, 16).tokens.numpy())
+    assert model.prefill({"tokens": prompt}).shape == (2, cfg.vocab_size)
