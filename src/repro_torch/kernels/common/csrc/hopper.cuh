@@ -1,7 +1,7 @@
 // PTX and TMA helpers for the port's Hopper (sm_90a) kernels: mbarriers,
 // TMA loads and stores through 4-D tensor maps, named barriers, wgmma (the
-// widths N the kernels take: 32, 64 and 128 from shared memory; 32, 64, 96,
-// 128 and 160 with A from registers) and its shared-memory descriptors.
+// widths N the kernels take: 16, 32, 64 and 128 from shared memory; 32, 64,
+// 96, 128 and 160 with A from registers) and its shared-memory descriptors.
 // Included by K1 (flash_attention.cu), K1b (flash_attention_bwd.cu) and K3
 // (ssd_scan.cu); everything here has internal linkage.
 #pragma once
@@ -179,6 +179,19 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
       "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
       "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -23,7 +23,7 @@
 //     query tiles that can see its keys, so the group's sums stay in
 //     registers;
 //   * bwd_dq_ws: dQ, one work item per (batch, query head, 128-row tile),
-//     which walks its visible key tiles (128 keys; 64 at d=128).
+//     which walks its visible key tiles (128 keys; 64 at d=80, 128, 160).
 // S and dP are recomputed in both (7 products instead of 5): computing them
 // once would need dQ's partial sums added across blocks, which is atomics
 // (an order that changes from run to run) or an ordered hand-over that
@@ -52,14 +52,22 @@
 //     A operand from registers (the accumulator of S or dP, repacked to
 //     bf16: a 16-column slice of an accumulator is the A fragment of that
 //     slice) and B MN-major in shared memory (the transpose bit, no
-//     transposing copy).  Tiles are stored as TMA writes them, with the
-//     128-byte swizzle (64-byte at d=32), each on a 1024-byte boundary;
+//     transposing copy).  Tiles are stored as TMA writes them, in column
+//     blocks of 64 with the 128-byte swizzle (d=64, 128) or of 32 with the
+//     64-byte swizzle (d=32, 80, 160), each on a 1024-byte boundary.  d=80
+//     is padded to 96 in shared memory only, as in K1: the tensor maps are
+//     80 wide, so TMA fills a box's columns 80 to 95 with zeros; S^T, dP^T,
+//     S and dP take the five real k-steps of 16, dV, dK and dQ are 96 wide
+//     (their last 16 columns are 0) and only the 80 real columns are
+//     written;
 //   * a dK/dV item's two consumers hold 64 keys each and share every Q and
-//     dO stage, so each query tile is loaded once for 128 keys; at d=128 a
-//     step takes 32 query rows, so that dK and dV (128 f32 registers a
-//     thread) and S^T and dP^T fit without spilling.  dQ takes 128 keys a
-//     step (64 at d=128): S and dP at N = 128 read 96 bytes of shared
-//     memory a cycle, where N = 64 needs all 128 the SM has;
+//     dO stage, so each query tile is loaded once for 128 keys; a step takes
+//     64 query rows, 32 at d=80 and 128 and 16 at d=160, so that dK and dV
+//     (2 x 48, 2 x 64 and 2 x 80 f32 registers a thread) and S^T and dP^T
+//     fit without spilling (8 stages of the smaller steps at d=80 and 160).
+//     dQ takes 128 keys a step (64 at d=80, 128, 160): S and dP at N = 128
+//     read 96 bytes of shared memory a cycle, where N = 64 needs all 128
+//     the SM has;
 //   * the mask is evaluated only on tiles that cross the diagonal or the
 //     window's edge; masked tiles are never loaded;
 //   * items are numbered longest first (the smallest key tile for dK/dV,
@@ -161,33 +169,49 @@ __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 // ---------------------------------------------------------------------------
 // delta = rowsum(dO o) in f32, and lse in log2 units, into the scratch.
-// kLanes lanes a row, each one 16-byte vector of o and of dO; the row's sum
-// over its lanes by shuffles.  The grid is (batch, query head) x blocks of
-// the padded rows, so the padding is written too.
+// kLanes lanes a row, the power of two at or above the row's 16-byte
+// vectors (at most a warp); lane l takes vectors l, l + kLanes, ... of o and
+// of dO, and lanes past the row's end add nothing (d=80, 160: 10 and 20
+// vectors of bf16 on 16 and 32 lanes).  The row's sum over its lanes by
+// shuffles.  The grid is (batch, query head) x blocks of the padded rows,
+// so the padding is written too.
 // ---------------------------------------------------------------------------
+
+template <typename T, int D>
+struct DeltaShape {
+  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kVecs = D / kVec;  // 16-byte vectors a row
+  static constexpr int kLanes =
+      kVecs <= 4 ? 4 : kVecs <= 8 ? 8 : kVecs <= 16 ? 16 : 32;
+  static constexpr int kPerLane = (kVecs + kLanes - 1) / kLanes;
+  static constexpr int kRows = 256 / kLanes;  // rows of a block
+  static_assert(D % kVec == 0, "a row is whole 16-byte vectors");
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
 bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, Bwd p) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kLanes = D / kVec;  // 4 to 32, a power of two
-  constexpr int kRows = 256 / kLanes;
-  static_assert(kLanes >= 1 && kLanes <= 32 && (kLanes & (kLanes - 1)) == 0,
-                "a row's lanes lie in one warp");
+  using S = DeltaShape<T, D>;
+  constexpr int kVec = S::kVec, kLanes = S::kLanes;
   const int bh = blockIdx.x;  // (batch, query head)
-  const int i = blockIdx.y * kRows + threadIdx.x / kLanes;
+  const int i = blockIdx.y * S::kRows + threadIdx.x / kLanes;
   const int part = threadIdx.x % kLanes;
   float acc = 0.f;
   if (i < p.sq) {
     const int b = bh / p.hq, h = bh % p.hq;
-    const uint4 ov = *reinterpret_cast<const uint4*>(
-        o + b * p.os.b + h * p.os.h + i * p.os.s + part * kVec);
-    const uint4 dv = *reinterpret_cast<const uint4*>(
-        dout + b * p.dos.b + h * p.dos.h + i * p.dos.s + part * kVec);
-    const T* oe = reinterpret_cast<const T*>(&ov);
-    const T* de = reinterpret_cast<const T*>(&dv);
+    const T* orow = o + b * p.os.b + h * p.os.h + i * p.os.s;
+    const T* drow = dout + b * p.dos.b + h * p.dos.h + i * p.dos.s;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc += to_f32(oe[e]) * to_f32(de[e]);
+    for (int j = 0; j < S::kPerLane; ++j) {
+      const int vec = part + j * kLanes;
+      if (vec >= S::kVecs) break;
+      const uint4 ov = *reinterpret_cast<const uint4*>(orow + vec * kVec);
+      const uint4 dv = *reinterpret_cast<const uint4*>(drow + vec * kVec);
+      const T* oe = reinterpret_cast<const T*>(&ov);
+      const T* de = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc += to_f32(oe[e]) * to_f32(de[e]);
+    }
   }
 #pragma unroll
   for (int off = kLanes / 2; off > 0; off >>= 1)
@@ -215,14 +239,18 @@ constexpr int kBarTurn = 1;  // named barriers 1, 2: whose turn at wgmma
 
 // what both warp-specialised kernels share: 384 threads, the registers
 // given from the producer to the consumers (384 threads at 168 each fill
-// the SM), and the swizzled column blocks of their tiles
+// the SM), and the swizzled column blocks of their tiles: 64 columns (the
+// 128-byte swizzle) where they divide D, else 32 (the 64-byte swizzle);
+// D padded to whole blocks (80 -> 96) is the tiles' width
 template <int D>
 struct WsTiles {
   static constexpr int kConsumers = 2;
   static constexpr int kThreads = 128 * (1 + kConsumers);
   static constexpr int kProducerRegs = 40;
   static constexpr int kConsumerRegs = 232;
-  static constexpr int kCols = D < 64 ? D : 64;  // columns of a swizzled block
+  static constexpr int kCols = D % 64 == 0 ? 64 : 32;  // a block's columns
+  static constexpr int kDp = (D + kCols - 1) / kCols * kCols;
+  static constexpr int kColBlocks = kDp / kCols;
   static constexpr int kRowBytes = kCols * 2;    // one row of a block
   static constexpr int kLayout = kCols == 64 ? 1 : 2;  // wgmma: 128 or 64 B
   static constexpr uint32_t kSbo = 8 * kRowBytes;      // 8 rows of a block
@@ -230,11 +258,15 @@ struct WsTiles {
 
 template <int D>
 struct DkdvTiles : WsTiles<D> {
-  static constexpr int kKeys = kWgRows * 2;         // keys of an item
-  static constexpr int kRowsQ = D == 128 ? 32 : 64;  // query rows a step
-  static constexpr int kStages = 4;
-  static constexpr int kKVBytes = kKeys * D * 2;  // K or V of an item
-  static constexpr int kQBytes = kRowsQ * D * 2;  // Q or dO of a step
+  using WsTiles<D>::kDp;
+  static constexpr int kKeys = kWgRows * 2;  // keys of an item
+  // query rows a step: dK and dV take kDp f32 registers a thread beside
+  // S^T, dP^T and the cap's derivative (3 kRowsQ / 2) and their bf16
+  // fragments (kRowsQ / 4), within the consumers' 232
+  static constexpr int kRowsQ = D == 160 ? 16 : D >= 80 ? 32 : 64;
+  static constexpr int kStages = D == 80 || D == 160 ? 8 : 4;
+  static constexpr int kKVBytes = kKeys * kDp * 2;  // K or V of an item
+  static constexpr int kQBytes = kRowsQ * kDp * 2;  // Q or dO of a step
   static constexpr int kLDBytes = kRowsQ * 4;     // lse or delta of a step
   static constexpr int kBarBytes = 8 * (2 + 2 * kStages);
   static constexpr int kSmem = 2 * kKVBytes +
@@ -245,25 +277,30 @@ struct DkdvTiles : WsTiles<D> {
 
 template <int D>
 struct DqTiles : WsTiles<D> {
-  static constexpr int kRows = kWgRows * 2;           // query rows of an item
-  static constexpr int kKeys = D == 128 ? 64 : 128;  // keys a step
-  static constexpr int kStages = D == 128 ? 3 : 4;
-  static constexpr int kQBytes = kRows * D * 2;   // Q or dO of an item
-  static constexpr int kKVBytes = kKeys * D * 2;  // K or V of a step
+  using WsTiles<D>::kDp;
+  static constexpr int kRows = kWgRows * 2;         // query rows of an item
+  static constexpr int kKeys = D > 64 ? 64 : 128;  // keys a step
+  static constexpr int kStages = D >= 128 ? 3 : 4;
+  static constexpr int kQBytes = kRows * kDp * 2;   // Q or dO of an item
+  static constexpr int kKVBytes = kKeys * kDp * 2;  // K or V of a step
   static constexpr int kBarBytes = 8 * (2 + 2 * kStages);
   static constexpr int kSmem =
       2 * kQBytes + 2 * kStages * kKVBytes + kBarBytes + 1024;
   static_assert(kSmem <= 232448, "at most 227 KB of shared memory a block");
 };
 
-// D[64 x N] (+)= A[64 x 16] B[N x 16]^T (both K-major in shared memory)
-// and D[64 x N] += A[64 x 16] B[16 x N] (A from registers, B MN-major),
-// for N in {32, 64, 128}
+// D[64 x N] (+)= A[64 x 16] B[N x 16]^T (both K-major in shared memory),
+// N in {16, 32, 64, 128} (query rows or keys of a step), and D[64 x N] +=
+// A[64 x 16] B[16 x N] (A from registers, B MN-major), N in {32, 64, 96,
+// 128, 160} (the padded head_dim)
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
                                        uint64_t db, int accumulate) {
-  static_assert(N == 32 || N == 64 || N == 128, "N is 32, 64 or 128");
-  if constexpr (N == 32) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "N is 16, 32, 64 or 128");
+  if constexpr (N == 16) {
+    wgmma_ss_n16(d, da, db, accumulate);
+  } else if constexpr (N == 32) {
     wgmma_ss_n32(d, da, db, accumulate);
   } else if constexpr (N == 64) {
     wgmma_ss_n64(d, da, db, accumulate);
@@ -275,13 +312,18 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 32 || N == 64 || N == 128, "N is 32, 64 or 128");
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128 || N == 160,
+                "N is 32, 64, 96, 128 or 160");
   if constexpr (N == 32) {
     wgmma_rs_n32(d, a, db);
   } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a, db);
-  } else {
+  } else if constexpr (N == 96) {
+    wgmma_rs_n96(d, a, db);
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, db);
+  } else {
+    wgmma_rs_n160(d, a, db);
   }
 }
 
@@ -306,12 +348,13 @@ __device__ __forceinline__ void to_frags(uint32_t (&f)[N / 16][4],
   }
 }
 
-// a consumer's 64 x D f32 accumulator, times `scale`, as bf16 into rows
-// [r0, r0 + 64) of a strided [S, D] slice; rows at or past `limit` skipped
-template <int D>
+// a consumer's 64 x Dp f32 accumulator (Dp: D padded), times `scale`, as
+// bf16 into rows [r0, r0 + 64) of a strided [S, D] slice: its first D
+// columns only; rows at or past `limit` skipped
+template <int D, int Dp>
 __device__ __forceinline__ void store_rows(bf16* base, long long row_stride,
                                            int r0, int limit,
-                                           const float (&acc)[D / 2],
+                                           const float (&acc)[Dp / 2],
                                            float scale) {
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int g = lane / 4, t4 = lane % 4;
@@ -356,10 +399,12 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ dk,
             bf16* __restrict__ dv, Bwd p, int n_bhk, int n_work) {
-  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 160,
+                "head_dim 32, 64, 80, 128 or 160");
   using T = DkdvTiles<D>;
   constexpr int kS = T::kStages, kC = T::kConsumers, kKeys = T::kKeys,
-                kRowsQ = T::kRowsQ, kCols = T::kCols, kRowBytes = T::kRowBytes;
+                kRowsQ = T::kRowsQ, kCols = T::kCols, kRowBytes = T::kRowBytes,
+                kDp = T::kDp;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sK = (raw + 1023u) & ~1023u;
@@ -408,7 +453,7 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
           const int q0 = x.lo + (i % x.nq) * kRowsQ;
           const uint32_t full = bar_f + 8 * st;
           mbar_expect_tx(full, 2 * T::kQBytes + 2 * T::kLDBytes);
-          for (int cb = 0; cb < D / kCols; ++cb) {
+          for (int cb = 0; cb < T::kColBlocks; ++cb) {
             tma_load(sQ + st * T::kQBytes + cb * kRowsQ * kRowBytes, &tq, full,
                      cb * kCols, q0, h, x.b);
             tma_load(sDO + st * T::kQBytes + cb * kRowsQ * kRowBytes, &tdo,
@@ -424,7 +469,7 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
         for (int i = 0; i < pre; ++i) load_step(i);
         mbar_wait(bar_kve, (j & 1) ^ 1);  // the consumers are done with K, V
         mbar_expect_tx(bar_kvf, 2 * T::kKVBytes);
-        for (int cb = 0; cb < D / kCols; ++cb) {
+        for (int cb = 0; cb < T::kColBlocks; ++cb) {
           tma_load(sK + cb * kKeys * kRowBytes, &tk, bar_kvf, cb * kCols,
                    x.k0, x.hk, x.b);
           tma_load(sV + cb * kKeys * kRowBytes, &tv, bar_kvf, cb * kCols,
@@ -462,14 +507,15 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
                      T::kLayout);
   };
 
-  float s[kRowsQ / 2], dp[kRowsQ / 2], dc[kRowsQ / 2], dk_acc[D / 2],
-      dv_acc[D / 2];
+  float s[kRowsQ / 2], dp[kRowsQ / 2], dc[kRowsQ / 2], dk_acc[kDp / 2],
+      dv_acc[kDp / 2];
   uint32_t pf[kRowsQ / 16][4] = {}, df[kRowsQ / 16][4] = {};
 #pragma unroll
   for (int e = 0; e < kRowsQ / 2; ++e) s[e] = dp[e] = dc[e] = 0.f;
 
-  // S^T = K Q^T and dP^T = V dO^T of the query tile in stage st, two commit
-  // groups; dV += P^T dO and dK += dS^T Q of the tile in stage st, one
+  // S^T = K Q^T and dP^T = V dO^T of the query tile in stage st over the D
+  // real columns, two commit groups; dV += P^T dO and dK += dS^T Q of the
+  // tile in stage st, kDp wide, one
   auto issue_scores = [&](int st) {
     const uint32_t tq_st = sQ + st * T::kQBytes, tdo_st = sDO + st * T::kQBytes;
 #pragma unroll
@@ -486,10 +532,10 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
     const uint32_t tq_st = sQ + st * T::kQBytes, tdo_st = sDO + st * T::kQBytes;
 #pragma unroll
     for (int kk = 0; kk < kRowsQ / 16; ++kk)
-      mma_rs<D>(dv_acc, pf[kk], mnmajor(tdo_st, kk));
+      mma_rs<kDp>(dv_acc, pf[kk], mnmajor(tdo_st, kk));
 #pragma unroll
     for (int kk = 0; kk < kRowsQ / 16; ++kk)
-      mma_rs<D>(dk_acc, df[kk], mnmajor(tq_st, kk));
+      mma_rs<kDp>(dk_acc, df[kk], mnmajor(tq_st, kk));
     wgmma_commit();
   };
   // The consumers take turns at the tensor cores, in order: consumer c
@@ -516,7 +562,7 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
     const int k_first = x.k0 + c * kWgRows;  // this consumer's first key
     const int kj0 = k_first + warp * 16 + g;  // this thread's keys: + 0, + 8
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+    for (int e = 0; e < kDp / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
 
     // after step i's products are issued: P^T and dS^T of its query tile,
     // into pf and df for the next turn
@@ -607,10 +653,10 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
     }
     it += n;
     // dK and dV summed over the group: scaled and written once
-    store_rows<D>(dk + x.b * p.dks.b + x.hk * p.dks.h, p.dks.s, k_first,
-                  p.skv, dk_acc, p.scale);
-    store_rows<D>(dv + x.b * p.dvs.b + x.hk * p.dvs.h, p.dvs.s, k_first,
-                  p.skv, dv_acc, 1.f);
+    store_rows<D, kDp>(dk + x.b * p.dks.b + x.hk * p.dks.h, p.dks.s,
+                       k_first, p.skv, dk_acc, p.scale);
+    store_rows<D, kDp>(dv + x.b * p.dvs.b + x.hk * p.dvs.h, p.dvs.s,
+                       k_first, p.skv, dv_acc, 1.f);
   }
   if (c == 0) named_sync(kBarTurn, 256);  // the last consumer's hand-over
 }
@@ -643,10 +689,12 @@ bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ dq,
           Bwd p, int n_bh, int n_q_tiles) {
-  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 160,
+                "head_dim 32, 64, 80, 128 or 160");
   using T = DqTiles<D>;
   constexpr int kS = T::kStages, kC = T::kConsumers, kRows = T::kRows,
-                kKeys = T::kKeys, kCols = T::kCols, kRowBytes = T::kRowBytes;
+                kKeys = T::kKeys, kCols = T::kCols, kRowBytes = T::kRowBytes,
+                kDp = T::kDp;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sDO = sQ + T::kQBytes;
@@ -686,7 +734,7 @@ bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
           const uint32_t full = bar_f + 8 * st;
           const int k0 = x.lo + i * kKeys;
           mbar_expect_tx(full, 2 * T::kKVBytes);
-          for (int cb = 0; cb < D / kCols; ++cb) {
+          for (int cb = 0; cb < T::kColBlocks; ++cb) {
             tma_load(sK + st * T::kKVBytes + cb * kKeys * kRowBytes, &tk, full,
                      cb * kCols, k0, x.hk, x.b);
             tma_load(sV + st * T::kKVBytes + cb * kKeys * kRowBytes, &tv, full,
@@ -697,7 +745,7 @@ bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
         for (int i = 0; i < pre; ++i) load_step(i);
         mbar_wait(bar_qe, (j & 1) ^ 1);  // the consumers are done with Q, dO
         mbar_expect_tx(bar_qf, 2 * T::kQBytes);
-        for (int cb = 0; cb < D / kCols; ++cb) {
+        for (int cb = 0; cb < T::kColBlocks; ++cb) {
           tma_load(sQ + cb * kRows * kRowBytes, &tq, bar_qf, cb * kCols, x.q0,
                    x.h, x.b);
           tma_load(sDO + cb * kRows * kRowBytes, &tdo, bar_qf, cb * kCols,
@@ -735,13 +783,14 @@ bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
                      T::kLayout);
   };
 
-  float s[kKeys / 2], dp[kKeys / 2], dq_acc[D / 2];
+  float s[kKeys / 2], dp[kKeys / 2], dq_acc[kDp / 2];
   uint32_t df[kKeys / 16][4] = {};
 #pragma unroll
   for (int e = 0; e < kKeys / 2; ++e) s[e] = dp[e] = 0.f;
 
-  // S = Q K^T and dP = dO V^T of the key tile in stage st, two commit
-  // groups; dQ += dS K of the tile in stage st, one
+  // S = Q K^T and dP = dO V^T of the key tile in stage st over the D real
+  // columns, two commit groups; dQ += dS K of the tile in stage st, kDp
+  // wide, one
   auto issue_scores = [&](int st) {
     const uint32_t tk_st = sK + st * T::kKVBytes, tv_st = sV + st * T::kKVBytes;
 #pragma unroll
@@ -756,7 +805,7 @@ bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
   auto issue_grads = [&](int st) {
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk)
-      mma_rs<D>(dq_acc, df[kk], mnmajor(sK + st * T::kKVBytes, kk));
+      mma_rs<kDp>(dq_acc, df[kk], mnmajor(sK + st * T::kKVBytes, kk));
     wgmma_commit();
   };
   // turns at the tensor cores as in bwd_dkdv_ws: a turn issues the previous
@@ -781,7 +830,7 @@ bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
     const float lse[2] = {lse2_row(p, bh)[r0], lse2_row(p, bh)[r0 + 8]};
     const float delta[2] = {delta_row(p, bh)[r0], delta_row(p, bh)[r0 + 8]};
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) dq_acc[e] = 0.f;
+    for (int e = 0; e < kDp / 2; ++e) dq_acc[e] = 0.f;
 
     // after key tile i's products are issued: dS into df for the next turn
     auto step = [&](int i) {
@@ -858,8 +907,8 @@ bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(bar_e + 8 * (last % kS));
     }
     it += x.n;
-    store_rows<D>(dq + x.b * p.dqs.b + x.h * p.dqs.h, p.dqs.s, wg_first, p.sq,
-                  dq_acc, p.scale);
+    store_rows<D, kDp>(dq + x.b * p.dqs.b + x.h * p.dqs.h, p.dqs.s, wg_first,
+                       p.sq, dq_acc, p.scale);
   }
   if (c == 0) named_sync(kBarTurn, 256);  // the last consumer's hand-over
 }
@@ -1099,7 +1148,7 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, void* dq, void* dk, void* dv, int b,
                 const Bwd& p, cudaStream_t stream) {
   // grid: (batch, query head) x the padded rows' blocks
-  constexpr int kDeltaRows = 256 / (D / (16 / sizeof(T)));
+  constexpr int kDeltaRows = DeltaShape<T, D>::kRows;
   const dim3 grid(b * p.hq, p.sqp / kDeltaRows);
   if (p.sqp / kDeltaRows > 65535) return cudaErrorInvalidValue;
   bwd_delta<T, D><<<grid, 256, 0, stream>>>(static_cast<const T*>(o),
@@ -1148,7 +1197,8 @@ cudaError_t dispatch_dtype(int dtype, const void* q, const void* k,
 // aligned.  lse: K1's [B, Hq, Sq] f32 log-sum-exp; delta: f32 scratch of
 // B * Hq * 2 * (Sq rounded up to 128) values, 16-byte aligned.  dtype: 0 =
 // float32, 1 = bfloat16, the same for every tensor but lse and delta.  d in
-// {32, 64, 128}; Hq % Hkv == 0.  Launches bwd_delta, then the dK/dV and the
+// {32, 64, 80, 128, 160} (80: zamba2-2.7b; 160: stablelm-12b); Hq % Hkv ==
+// 0.  Launches bwd_delta, then the dK/dV and the
 // dQ kernels, in that order on `stream`; returns the first launch error, or
 // cudaGetLastError() after the last.
 extern "C" int repro_flash_attention_bwd(
@@ -1187,8 +1237,13 @@ extern "C" int repro_flash_attention_bwd(
       return dispatch_dtype<32>(dtype, q, k, v, o, dout, dq, dk, dv, b, p, st);
     case 64:
       return dispatch_dtype<64>(dtype, q, k, v, o, dout, dq, dk, dv, b, p, st);
+    case 80:
+      return dispatch_dtype<80>(dtype, q, k, v, o, dout, dq, dk, dv, b, p, st);
     case 128:
       return dispatch_dtype<128>(dtype, q, k, v, o, dout, dq, dk, dv, b, p,
+                                 st);
+    case 160:
+      return dispatch_dtype<160>(dtype, q, k, v, o, dout, dq, dk, dv, b, p,
                                  st);
     default:
       return cudaErrorInvalidValue;

@@ -24,9 +24,6 @@ from ...library import call, define
 from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 
 HEAD_DIMS = (32, 64, 80, 128, 160)
-# K1b's widths: 80 and 160 wait for the training slice of stablelm-12b and
-# zamba2-2.7b (ROADMAP, Queue 2)
-BWD_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 12
@@ -101,10 +98,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o, its log-sum-exp lse ([B, Hq, Sq] f32) and dO; on CUDA tensors only.
     Each gradient has its input's shape, dtype and strides."""
     _check(q, k, v)
-    if q.shape[3] not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head_dim {q.shape[3]}; K1b "
-                         f"takes {BWD_HEAD_DIMS} (80 and 160: ROADMAP, "
-                         "Queue 2)")
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, dO "
                          f"{tuple(do.shape)} for q {tuple(q.shape)}")

@@ -12,11 +12,14 @@
 // Bound on an H100: memory.  At 8192 x 2048 bf16 it reads x and dy and
 // writes dx, 100.7 MB, 30 us at 3.35 TB/s.  Two launches, deterministic and
 // without atomics:
-//   * rmsnorm_bwd_groups (16-byte aligned rows of 128, 256, 512 or 1024
-//     vectors: bf16 d = 1024 .. 8192): one persistent block of 512 threads
-//     an SM, in row groups of d / 16 threads (bf16; 2 vectors of 8 columns
-//     a thread), so that a thread holds 16 columns of x and dy, not a
-//     whole warp's share of the row: nothing spills.  Each thread keeps its
+//   * rmsnorm_bwd_groups (16-byte aligned rows of 2 tpr vectors, tpr a
+//     multiple of 32 from 64 to 512: bf16 d = 1024 .. 8192 in steps of
+//     512, e.g. 2560, 4608, 5120, 6144): one persistent block an SM, of as
+//     many row groups of tpr = d / 16 threads (bf16; 2 vectors of 8 columns
+//     a thread) as 512 threads hold (3 x 160 = 480 threads at d = 2560, one
+//     group of 288, 320 or 384 at 4608, 5120, 6144), so that a thread holds
+//     16 columns of x and dy, not a whole warp's share of the row: nothing
+//     spills.  Each thread keeps its
 //     columns' offset + w (read once a block) and partial dw in f32
 //     registers.  A group walks rows g, g + G, ... (G groups in the grid)
 //     and loads the next two rows' x and dy while it computes the current
@@ -70,8 +73,9 @@ __device__ __forceinline__ void group_sync(int id, int threads) {
 }
 
 // T: type of x, w, dy and dx.  d = tpr * kGroupVecs vectors of 16 bytes, tpr
-// (threads a row) in {64, 128, 256, 512}: kGroupThreads / tpr groups a
-// block, named barriers 1 .. 8.  Dynamic shared memory: d floats.
+// (threads a row) a multiple of 32 from 64 to 512; the block is a whole
+// number of groups (blockDim.x / tpr of them, at most 8: named barriers
+// 1 .. 8).  Dynamic shared memory: d floats.
 template <typename T>
 __global__ void __launch_bounds__(kGroupThreads, 1)
 rmsnorm_bwd_groups(const T* __restrict__ x, const T* __restrict__ w,
@@ -84,7 +88,7 @@ rmsnorm_bwd_groups(const T* __restrict__ x, const T* __restrict__ w,
   // the warps' (sum of x^2, sum of g x) of a row, in two slots used in turn
   __shared__ float red[2][2][kMaxGroupWarps];
   const int tpr = d / (kVec * kV);
-  const int groups = kGroupThreads / tpr;
+  const int groups = blockDim.x / tpr;
   const int gid = threadIdx.x / tpr, tig = threadIdx.x % tpr;
   const int lane = threadIdx.x & 31, wig = tig / 32, nw = tpr / 32;
   float* red_g = &red[0][0][0] + gid * (tpr / 32);  // this group's warps
@@ -188,7 +192,7 @@ rmsnorm_bwd_groups(const T* __restrict__ x, const T* __restrict__ w,
     }
     __syncthreads();
   }
-  for (int col = threadIdx.x; col < d; col += kGroupThreads)
+  for (int col = threadIdx.x; col < d; col += blockDim.x)
     partial[static_cast<long long>(blockIdx.x) * d + col] = sdw[col];
 }
 
@@ -288,18 +292,17 @@ cudaError_t run(const void* x, const void* w, const void* dy, void* dx,
   const int nvec = d / kVec;
   const int tpr = nvec / kGroupVecs;
   const bool by_groups = vec && d % kVec == 0 && nvec % kGroupVecs == 0 &&
-                         tpr >= 64 && tpr <= kGroupThreads &&
-                         kGroupThreads % tpr == 0;
-  const long long want =
-      by_groups ? (rows + kGroupThreads / tpr - 1) / (kGroupThreads / tpr)
-                : rows;
+                         tpr >= 64 && tpr <= kGroupThreads && tpr % 32 == 0;
+  // the groups of a block: as many whole groups as kGroupThreads hold
+  const int groups = by_groups ? kGroupThreads / tpr : 1;
+  const long long want = by_groups ? (rows + groups - 1) / groups : rows;
   const int blocks = static_cast<int>(want < max_blocks ? want : max_blocks);
   const size_t smem = (by_groups ? 1 : 3) * static_cast<size_t>(d) *
                       sizeof(float);
   cudaError_t e;
   if (by_groups) {
     if ((e = allow_smem(rmsnorm_bwd_groups<T>, smem)) != cudaSuccess) return e;
-    rmsnorm_bwd_groups<T><<<blocks, kGroupThreads, smem, stream>>>(
+    rmsnorm_bwd_groups<T><<<blocks, groups * tpr, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
         static_cast<const T*>(dy), static_cast<T*>(dx), partial, rows, d, eps,
         offset);

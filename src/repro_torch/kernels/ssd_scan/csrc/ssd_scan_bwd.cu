@@ -1354,7 +1354,14 @@ bwd_chunk_ws(const __grid_constant__ CUtensorMap tx,
 
     if (jt >= 0) {
       // the j tile is done: x . adx for ddt (the anchor's last read), then
-      // dx = dt adx and dB's partial
+      // dx = dt adx and dB's partial.  The anchor is freed only once the
+      // quad sums of x . adx are stored, which waits for every lane's
+      // loads of x, and after a proxy fence: the producer's next TMA load
+      // (the async proxy) into the anchor must not overtake those generic
+      // loads.  Freed right after the loads were issued, with no fence, up
+      // to eight rows of a warp's ddt came out wrong in one launch of seven
+      // at zamba2-2.7b's shape (dx, dB and dC right), as if the refill had
+      // overtaken the loads; with the fence, none in 120
       float dd[2] = {0.f, 0.f};
 #pragma unroll
       for (int e = 0; e < P / 2; e += 2) {
@@ -1364,8 +1371,6 @@ bwd_chunk_ws(const __grid_constant__ CUtensorMap tx,
                 anc_ptr + W::kTileN + W::off_p(rl[hf], col)));
         dd[hf] += adx[e] * xv.x + adx[e + 1] * xv.y;
       }
-      mbar_arrive(bar_ae + 8 * cw);
-      ++used;
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const float d = sum_quad(dd[hf]);
@@ -1374,6 +1379,9 @@ bwd_chunk_ws(const __grid_constant__ CUtensorMap tx,
           sA[jr[hf]] = rowacc[hf];   // d dacs_j's - part
         }
       }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(bar_ae + 8 * cw);
+      ++used;
 #pragma unroll
       for (int e = 0; e < P / 2; e += 2) {
         const int hf = (e >> 1) & 1, col = 8 * (e >> 2) + 2 * t4;
@@ -1514,6 +1522,8 @@ bwd_chunk_ws(const __grid_constant__ CUtensorMap tx,
     }
 
     if (it >= 0) {
+      // the anchor's generic loads (r_i's C) ordered before its refill
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       mbar_arrive(bar_ae + 8 * cw);
       ++used;
       // d dacs_i (its sum over j less its sum over k, which this thread

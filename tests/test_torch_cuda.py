@@ -233,6 +233,13 @@ def test_ssd_kernel_refuses_chunks_it_does_not_take(cuda, chunk):
     # groups of 2 and 6 (mixtral's)
     (1, 8, 4, 700, 700, 128, True, 256, 50.0, 0),
     (1, 12, 2, 520, 520, 128, True, 100, 0.0, 0),
+    # stablelm-12b's head_dim 160 (five 32-column blocks; 16 query rows a
+    # dK/dV step) and zamba2-2.7b's 80 (padded to 96 in shared memory),
+    # ragged, with an offset, a window, a cap and no causal mask
+    (1, 8, 2, 333, 461, 160, True, 0, 0.0, 128),
+    (1, 4, 1, 300, 300, 160, True, 64, 30.0, 0),
+    (2, 4, 4, 257, 257, 80, True, 0, 0.0, 0),
+    (1, 8, 2, 130, 200, 80, False, 0, 1.0, 0),
 ])
 def test_flash_bwd_kernel_on_card(cuda, dtype, b, hq, hkv, sq, skv, d, causal,
                                   window, cap, q_offset):
@@ -294,14 +301,32 @@ def test_backward_kernels_are_deterministic(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [80, 160])
+@pytest.mark.parametrize("d", [48, 96])
 def test_flash_bwd_kernel_refuses_the_widths_it_does_not_take(cuda, d):
-    # K1b at head_dim 80 and 160 is the training slice's work
+    # K1b takes K1's head widths (32, 64, 80, 128, 160) and raises on others
     q, k, v = (t.to(cuda, torch.bfloat16)
                for t in _torch(_qkv(3, 1, 2, 2, 64, 64, d)))
-    o, lse = k1_ops._forward(q, k, v, True, 0, 0.0, 0, with_lse=True)
-    with pytest.raises(ValueError, match="K1b takes"):
-        flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o))
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="head_dim must be one of"):
+        flash_attention_bwd(q, k, v, q, lse, torch.ones_like(q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,offset", [(2560, 0.0), (4608, 1.0)])
+def test_rmsnorm_bwd_group_widths_on_card(cuda, dtype, d, offset):
+    # K2b's groups kernel at row widths whose d / 16 threads (bf16) do not
+    # divide its 512: zamba2-2.7b's 2560 (three groups of 160 threads a
+    # block) and gemma2-27b's 4608 with its (1 + w) (one group of 288); the
+    # tolerances of the rmsnorm ref, and two launches to equal bits
+    x, w, dy = _normal(18, (2048, d), (d,), (2048, d))
+    x, w, dy = (t.to(cuda) for t in _torch([x, 1.0 + 0.1 * w, dy], dtype))
+    dx, dw = rmsnorm_bwd(x, w, dy, offset=offset)
+    again = rmsnorm_bwd(x, w, dy, offset=offset)
+    torch.cuda.synchronize()
+    _, rx, rrow, _, rw = k2b_error(dx, dw, x, w, dy, offset=offset)
+    assert max(rx, rrow, rw) <= 1.0, (rx, rrow, rw)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
 
 
 def _tiny_llama():
@@ -405,6 +430,34 @@ def test_hybrid_serves_through_k1_k2_and_k3(cuda, monkeypatch):
     assert dk <= 2 * dp, (dk.item(), dp.item())
 
 
+@pytest.mark.cuda
+def test_hybrid_remat_full_keeps_the_gradients_on_the_card(cuda):
+    # zamba2's super-block at its head width (K1 and K1b at 80, K3 and K3b,
+    # K2 and K2b) under remat="full": each super-block's forward runs again
+    # in the backward, so K1, K3 and K2 launch twice as often, and the
+    # gradients are bit for bit those without remat (the kernels add in a
+    # fixed order), the shared block's the sum over its two uses
+    cfg = _tiny_hybrid()
+    params = init_params(model_specs(cfg), torch.Generator(cuda).manual_seed(3),
+                         cuda)
+    toks = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (2, 129)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    counters = (flash_attention, ssd_scan, rmsnorm, flash_attention_bwd,
+                ssd_scan_bwd, rmsnorm_bwd)
+    grads, launches = [], []
+    for remat in ("none", "full"):
+        before = [f.launches for f in counters]
+        grads.append(_value_and_grad(cfg.scaled(remat=remat), params,
+                                     batch)[1])
+        launches.append([f.launches - n for f, n in zip(counters, before)])
+    assert launches == [[2, 4, 13, 2, 4, 13], [4, 8, 25, 2, 4, 13]]
+    for (name, a), b in zip(_flatten(grads[0]).items(),
+                            tree_leaves(grads[1])):
+        assert torch.isfinite(a).all() and a.abs().max() > 0, name
+        assert torch.equal(a, b), name
+
+
 def _ssd_on_card(cuda, dtype, b, s, h, p, g, n, strided, seed=20):
     """x, dt, a, B, C and the initial state on the card; strided: x, B and
     C as column slices of one [B, S, H*P + 2*G*N] tensor, as
@@ -464,6 +517,23 @@ def test_ssd_bwd_kernel_on_card(cuda, dtype, b, s, h, p, g, n, chunk,
         assert elem <= 1.0 and row <= 1.0, (elem, row)
     again = ssd_scan_bwd(*args, states, dy, **kw)
     assert all(torch.equal(u, v) for u, v in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_kernel_gives_equal_bits_at_zamba2s_shape(cuda):
+    # zamba2-2.7b's train shape (80 heads, P 64, N 64, 256-row chunks):
+    # forty launches of K3b on one input give the same bits.  Before its
+    # chunk kernel fenced the anchor's loads of x before freeing it, about
+    # one launch in seven wrote a few wrong rows of ddt here
+    x, dt, a, bi, ci, _ = _ssd_on_card(cuda, torch.bfloat16, 2, 4096, 80, 64,
+                                       1, 64, True, seed=23)
+    _, _, states = k3_ops._launch(x, dt, a, bi, ci, 256, None,
+                                  with_states=True)
+    dy = _torch(_normal(24, (2, 4096, 80, 64)), torch.bfloat16)[0].to(cuda)
+    first = ssd_scan_bwd(x, dt, a, bi, ci, states, dy, chunk=256)
+    for _ in range(40):
+        again = ssd_scan_bwd(x, dt, a, bi, ci, states, dy, chunk=256)
+        assert all(torch.equal(u, v) for u, v in zip(first, again))
 
 
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ import torch
 
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.models import common as jax_common
+from repro.models import params as jax_params
 from repro.models import transformer as jax_tf
 from repro.models.params import init_params as jax_init_params
 from repro.models.registry import get_smoke_config as jax_get_smoke_config
@@ -31,6 +32,7 @@ from repro_torch.models.registry import get_smoke_config
 from repro_torch.train import data, loop, optimizer
 from repro_torch.train.checkpoint import CheckpointManager
 from test_torch_families import _assert_routing_cannot_flip
+from test_torch_hybrid import WIDE, _fan_in
 
 # one f32 function in two libraries: sums of at most a few hundred terms in
 # another order
@@ -68,6 +70,11 @@ ATTN_CASES = {  # B, Hq, Hkv, Sq, Skv, D, causal, window, cap, q_offset
     "cap_d128": (1, 4, 2, 16, 16, 128, True, 0, 2.0, 0),
     "offset_bidir": (1, 4, 2, 8, 40, 32, False, 0, 0.0, 0),
     "offset_causal": (1, 4, 1, 12, 40, 64, True, 16, 1.5, 28),
+    # the head widths K1b takes for stablelm-12b (160) and zamba2-2.7b (80)
+    "d160_gqa_cap": (1, 4, 1, 20, 20, 160, True, 0, 2.0, 0),
+    "d160_window_offset": (1, 4, 2, 12, 30, 160, True, 9, 0.0, 18),
+    "d80_bidir": (2, 2, 2, 18, 26, 80, False, 0, 0.0, 0),
+    "d80_causal": (1, 4, 4, 24, 24, 80, True, 0, 0.0, 0),
 }
 
 
@@ -324,6 +331,15 @@ STEP_CONFIGS = {
     "qwen2.5-32b": ("qwen2.5-32b", {}),
     "deepseek-67b": ("deepseek-67b", {}),
     "mamba2-370m": ("mamba2-370m", {}),
+    # stablelm-12b (dense, GQA) and zamba2-2.7b (the hybrid: Mamba2 layers
+    # and the shared attention block, whose gradient sums its uses), on the
+    # smoke configs and on the narrow variants at the published head widths
+    # (160 and 80), whose layer-stacked weights are drawn at std 1/sqrt(input
+    # width) (test_torch_hybrid._fan_in)
+    "stablelm-12b": ("stablelm-12b", {}),
+    "zamba2-2.7b": ("zamba2-2.7b", {}),
+    "stablelm-12b-head-width": ("stablelm-12b", WIDE["stablelm-12b"]),
+    "zamba2-2.7b-head-width": ("zamba2-2.7b", WIDE["zamba2-2.7b"]),
 }
 STEP_VARIANTS = {
     "adamw": ({}, {}),
@@ -357,7 +373,10 @@ def test_make_train_step_matches_jax_over_three_steps(config, variant):
     opt_t = optimizer.OptimizerConfig(warmup_steps=2, **opt_kw)
     jstep = jax.jit(jax_loop.make_train_step(jcfg, opt_j, **step_kw))
     tstep = loop.make_train_step(tcfg, opt_t, **step_kw)
-    jp = jax_init_params(jax_tf.model_specs(jcfg), jax.random.PRNGKey(0))
+    specs = jax_tf.model_specs(jcfg)
+    jp = jax_init_params(specs, jax.random.PRNGKey(0))
+    if config.endswith("-head-width"):
+        jp = jax.tree.map(_fan_in, specs, jp, is_leaf=jax_params.is_spec)
     js = jax_opt.make_optimizer(opt_j)[0](jp, opt_j)
     tp, ts = params_from_jax(_np(jp), "cpu"), params_from_jax(_np(js), "cpu")
     source = data.SyntheticSource(data.DataConfig(

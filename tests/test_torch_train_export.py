@@ -3,11 +3,13 @@
 Every family the port serves also trains, and its train step exports to
 StableHLO: mixtral-8x22b (the MoE's backward: the gradient of its
 ``index_add`` as a ``gather``, of its ``topk`` as a replacing ``scatter``),
-gemma2-27b, qwen2.5-32b, deepseek-67b and mamba2-370m (its ``split`` of
+gemma2-27b, qwen2.5-32b, deepseek-67b, mamba2-370m (its ``split`` of
 the projection into slices, softplus's ``log_plus_one``, the depthwise
 causal conv as the reference writes it, the backward of ``cumsum`` as a
-``reverse``).  At smoke size in f32, with two SSD chunks so that the
-states' gradients are taken as JAX takes them:
+``reverse``), stablelm-12b and zamba2-2.7b (the hybrid: Mamba2 layers and
+one shared attention block, whose weights' gradient sums its uses).  At
+smoke size in f32, with two SSD chunks so that the states' gradients are
+taken as JAX takes them:
 
 * (d) the campaign's text (chunked attention) of each train step, and
   mamba2's forward, reads through both front ends to the JAX export's
@@ -43,7 +45,7 @@ from test_torch_export import XLA_RTOL, _run_xla
 from test_torch_profiling import _assert_close, _module
 
 FAMILIES = ["mixtral-8x22b", "gemma2-27b", "qwen2.5-32b", "deepseek-67b",
-            "mamba2-370m"]
+            "mamba2-370m", "stablelm-12b", "zamba2-2.7b"]
 # two of mamba2-smoke's 32-row chunks: with one chunk no state reaches a
 # later chunk, and autograd prunes the gradients JAX's scan still takes
 SEQ, BATCH = 64, 2
@@ -95,14 +97,23 @@ def test_the_campaigns_text_has_the_jax_exports_flops(arch, kind):
 def test_the_cards_configuration_calls_each_kernel_once_a_layer(arch):
     """The card's text (``attn_impl="kernel"``, traced here on the CPU):
     each mixer's forward and backward operator once a layer, the norms'
-    twice and once more for the final norm."""
+    twice and once more for the final norm.  The hybrid's Mamba2 layers
+    call the SSD scan's, and its shared attention block, once a
+    super-block, K1's and two more norms."""
     cfg = registry.get_smoke_config(arch)
     ops = _text(arch, "kernel").meta["kernel_ops"]
-    mixer = (("ssd_scan_states", "ssd_scan_bwd") if cfg.family == "ssm"
-             else ("flash_attention_lse", "flash_attention_bwd"))
     n = cfg.num_layers
-    assert ops == {mixer[0]: n, mixer[1]: n, "rmsnorm": 2 * n + 1,
-                   "rmsnorm_bwd": 2 * n + 1}
+    ssd = {"ssd_scan_states": n, "ssd_scan_bwd": n}
+    if cfg.family == "hybrid":
+        n_attn = n // cfg.hybrid_attn_every
+        mixers = dict(ssd, flash_attention_lse=n_attn,
+                      flash_attention_bwd=n_attn)
+        norms = 2 * n + 2 * n_attn + 1
+    else:
+        mixers = ssd if cfg.family == "ssm" else {
+            "flash_attention_lse": n, "flash_attention_bwd": n}
+        norms = 2 * n + 1
+    assert ops == dict(mixers, rmsnorm=norms, rmsnorm_bwd=norms)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Show that ``chip_smoke.check_k1b`` catches a wrong K1b, on an H100:
 
-    python3 tools/mutate_k1b.py
+    python3 tools/mutate_k1b.py [--widths]
 
 Each mutant of ``flash_attention_bwd.cu`` is written into its own temporary
 copy of ``src/`` and ``chip_smoke.py``, built there, and run through
@@ -19,6 +19,16 @@ caught when ``check_k1b`` raises (or its process fails).  The mutants:
 * ``dk_unscaled``: dK is written without the 1/sqrt(d) scale;
 * ``dq_skips_last_tile``: the dQ kernel stops one key tile short of the
   last one its rows can see.
+
+The last three are of the head widths that are not a multiple of 64 (80,
+padded to 96, and 160), and run only the cases at those widths
+(``chip_smoke.K1B_NEW_WIDTHS``); ``--widths`` runs these three alone:
+
+* ``pad_columns_written``: dQ, dK and dV are written over the padded width
+  (96 at d=80), so the pad's columns land on the next row's or head's;
+* ``scale_of_padded_d``: the scale is 1/sqrt(96) at d=80;
+* ``scores_drop_last_block``: S^T, dP^T, S and dP leave out the last
+  32-column block of the head.
 
 Prints each mutant's first failing case with its ratios to the tolerances.
 """
@@ -50,15 +60,30 @@ MUTANTS = {
         ("  x.n = hi > x.lo ? (hi - x.lo + kKeys - 1) / kKeys : 0;",
          "  x.n = hi > x.lo ? (hi - x.lo - 1) / kKeys : 0;", 1)],
 }
+WIDTH_MUTANTS = {
+    "pad_columns_written": [
+        ("    for (int jd = 0; jd < D / 8; ++jd)",
+         "    for (int jd = 0; jd < Dp / 8; ++jd)", 1)],
+    "scale_of_padded_d": [
+        ("              1.0f / sqrtf(static_cast<float>(d)),",
+         "              1.0f / sqrtf(static_cast<float>(d == 80 ? 96 : d)),",
+         1)],
+    "scores_drop_last_block": [
+        ("    for (int ks = 0; ks < D / 16; ++ks)",
+         "    for (int ks = 0; ks < (D - 32) / 16; ++ks)", 4)],
+}
 RUN = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as cs; "
        "cs._build.build(); "
-       "cs.{check}(torch.Generator(device='cuda').manual_seed(0))")
+       "cs.{check}(torch.Generator(device='cuda').manual_seed(0){names})")
 
 
-def run_mutants(src: str, mutants: dict, check: str, tag: str) -> int:
+def run_mutants(src: str, mutants: dict, check: str, tag: str,
+                names: str = "") -> int:
     """Builds each mutant of ``src`` in a temporary copy of the tree and
-    runs ``chip_smoke.<check>`` there; prints the first failing lines (those
-    that start with ``tag``).  Returns 1 when a mutant passed, else 0."""
+    runs ``chip_smoke.<check>`` there (given ``names``, an expression for
+    the cases to run, on those alone); prints the first failing lines
+    (those that start with ``tag``).  Returns 1 when a mutant passed, else
+    0."""
     missed = 0
     os.chdir(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
     for name, subs in mutants.items():
@@ -78,8 +103,9 @@ def run_mutants(src: str, mutants: dict, check: str, tag: str) -> int:
                 f.write(text)
             try:
                 proc = subprocess.run(
-                    [sys.executable, "-c", RUN.format(check=check)], cwd=tmp,
-                    capture_output=True, text=True, timeout=600)
+                    [sys.executable, "-c", RUN.format(
+                        check=check, names=f", {names}" if names else "")],
+                    cwd=tmp, capture_output=True, text=True, timeout=600)
                 rc, out, err = proc.returncode, proc.stdout, proc.stderr
             except subprocess.TimeoutExpired as e:
                 rc, out, err = "timeout", e.stdout or "", "timed out"
@@ -101,4 +127,8 @@ def run_mutants(src: str, mutants: dict, check: str, tag: str) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(run_mutants(SRC, MUTANTS, "check_k1b", "  K1b "))
+    widths = run_mutants(SRC, WIDTH_MUTANTS, "check_k1b", "  K1b ",
+                         "cs.K1B_NEW_WIDTHS")
+    if "--widths" in sys.argv[1:]:
+        sys.exit(widths)
+    sys.exit(run_mutants(SRC, MUTANTS, "check_k1b", "  K1b ") or widths)

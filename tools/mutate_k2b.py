@@ -13,7 +13,10 @@ the repository's files are never changed.  The mutants:
 * ``dw_block_left_out``: the dw reduction leaves out the last block's
   partial row;
 * ``no_offset``: the groups kernel forgets the offset in g = dy (offset +
-  w).
+  w);
+* ``groups_off_by_one``: the groups kernel counts one group more than its
+  block holds (at d = 2560, four groups of 160 threads in a block of 480),
+  so the rows it strides over are never written.
 
 Prints each mutant's first failing case with its ratios to the tolerances.
 """
@@ -33,6 +36,9 @@ MUTANTS = {
     "no_offset": [
         ("      wf[j][e] = to_f32(we[e]) + offset;",
          "      wf[j][e] = to_f32(we[e]);", 1)],
+    "groups_off_by_one": [
+        ("  const int groups = blockDim.x / tpr;",
+         "  const int groups = blockDim.x / tpr + 1;", 1)],
 }
 
 if __name__ == "__main__":
