@@ -7,6 +7,9 @@
 //
 //   O = softmax(mask(cap(Q K^T / sqrt(d)))) V      per (batch, query head)
 //
+// where Q and K are d wide and V (and O) dv wide: dv = d, or MLA's pair d
+// 192 (128 columns without rope and 64 with), dv 128.
+//
 // with an online softmax over KV tiles (running max m, sum l and accumulator
 // in f32), a causal mask, a sliding window (0 <= q - k < window), a tanh
 // logit cap and a query offset q_offset (absolute position of q[0]).
@@ -43,10 +46,16 @@
 //     addressed through their strides (last dim contiguous), so the
 //     [B, S, H, D] projections are read without a transposing copy;
 //   * head_dim 32, 64, 80, 128 or 160 (zamba2-2.7b's shared block is 80
-//     wide, stablelm-12b's 160).  bf16 cuts D into column blocks of 64
-//     (D 64, 128) or of 32 (D 32, 80, 160); 80 is padded to 96 inside the
-//     kernel (TMA fills the columns past D with zeros and its store clips
-//     them), and the softmax scale is 1/sqrt of the true D.
+//     wide, stablelm-12b's 160), or (d, dv) = (192, 128) (deepseek-v3-671b's
+//     MLA).  bf16 cuts each width into column blocks of 64 (64, 128, 192)
+//     or of 32 (32, 80, 160); 80 is padded to 96 inside the kernel (TMA
+//     fills the columns past D with zeros and its store clips them), and
+//     the softmax scale is 1/sqrt of the true query/key width d;
+//   * at (192, 128) the Q tile is 128 x 192 (48 KB), the output's staging
+//     tile 128 x 128 (32 KB), and the ring holds three stages of 64-key
+//     tiles, K 24 KB and V 16 KB each: 200 KB in all.  Two stages of
+//     128-key tiles would take 48 + 32 + 2 x (48 + 32) = 240 KB, over the
+//     227 KB a block may have, and 64-key tiles are what d = 160 takes too.
 // A key masked out contributes exactly 0, and a row with no visible key at
 // all writes 0.
 //
@@ -113,26 +122,27 @@ __device__ __forceinline__ bool visible(const Problem& p, int qa, int kj) {
 // columns lane + 32*j of its 16 rows.
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t f32_smem_bytes() {
-  return (kBlockQ * D + kBlockK * (D + 1) + kBlockK * D +
+  return (kBlockQ * DQK + kBlockK * (DQK + 1) + kBlockK * DV +
           kWarps * kRowsPerWarp * kBlockK) * sizeof(float);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, Problem p) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  // output columns per lane; at D 80 a lane's last column lies past D for
-  // lanes 16..31, and is neither read nor written
-  constexpr int kCols = (D + 31) / 32;
-  auto owned = [](int col) { return D % 32 == 0 || col < D; };
+  static_assert(DQK % 16 == 0 && DV % 16 == 0,
+                "head widths must be multiples of 16");
+  // output columns per lane; at DV 80 a lane's last column lies past DV
+  // for lanes 16..31, and is neither read nor written
+  constexpr int kCols = (DV + 31) / 32;
+  auto owned = [](int col) { return DV % 32 == 0 || col < DV; };
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sK = sQ + kBlockQ * D;
-  float* sV = sK + kBlockK * (D + 1);
-  float* sP = sV + kBlockK * D;
+  float* sK = sQ + kBlockQ * DQK;
+  float* sV = sK + kBlockK * (DQK + 1);
+  float* sP = sV + kBlockK * DV;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y / p.hq, h = blockIdx.y % p.hq;
@@ -145,13 +155,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * p.vs.b + (h / p.group) * p.vs.h;
   float* ob = o + b * p.os.b + h * p.os.h;
 
-  for (int i = tid; i < kBlockQ * D / 4; i += kThreads) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+  for (int i = tid; i < kBlockQ * DQK / 4; i += kThreads) {
+    const int r = i / (DQK / 4), c = (i % (DQK / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < p.sq)
       x = *reinterpret_cast<const float4*>(qb + (q0 + r) * p.qs.s + c);
     x.x *= p.scale; x.y *= p.scale; x.z *= p.scale; x.w *= p.scale;
-    *reinterpret_cast<float4*>(sQ + r * D + c) = x;
+    *reinterpret_cast<float4*>(sQ + r * DQK + c) = x;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
@@ -169,32 +179,36 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = kv_lo; k0 < kv_hi; k0 += kBlockK) {
     __syncthreads();  // every warp is done with the previous K, V tiles
-    for (int i = tid; i < kBlockK * D / 4; i += kThreads) {
-      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (k0 + r < p.skv) {
+    for (int i = tid; i < kBlockK * DQK / 4; i += kThreads) {
+      const int r = i / (DQK / 4), c = (i % (DQK / 4)) * 4;
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < p.skv)
         kx = *reinterpret_cast<const float4*>(kb + (k0 + r) * p.ks.s + c);
-        vx = *reinterpret_cast<const float4*>(vb + (k0 + r) * p.vs.s + c);
-      }
-      float* kr = sK + r * (D + 1) + c;
+      float* kr = sK + r * (DQK + 1) + c;
       kr[0] = kx.x; kr[1] = kx.y; kr[2] = kx.z; kr[3] = kx.w;
-      *reinterpret_cast<float4*>(sV + r * D + c) = vx;
+    }
+    for (int i = tid; i < kBlockK * DV / 4; i += kThreads) {
+      const int r = i / (DV / 4), c = (i % (DV / 4)) * 4;
+      float4 vx = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < p.skv)
+        vx = *reinterpret_cast<const float4*>(vb + (k0 + r) * p.vs.s + c);
+      *reinterpret_cast<float4*>(sV + r * DV + c) = vx;
     }
     __syncthreads();
 
     float s[kRowsPerWarp][2];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* ka = sK + lane * (D + 1);
-    const float* kc = sK + (lane + 32) * (D + 1);
+    const float* ka = sK + lane * (DQK + 1);
+    const float* kc = sK + (lane + 32) * (DQK + 1);
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DQK; d += 4) {
       const float a0 = ka[d], a1 = ka[d + 1], a2 = ka[d + 2], a3 = ka[d + 3];
       const float c0 = kc[d], c1 = kc[d + 1], c2 = kc[d + 2], c3 = kc[d + 3];
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
         const float4 qv =
-            *reinterpret_cast<const float4*>(sQ + (row0 + r) * D + d);
+            *reinterpret_cast<const float4*>(sQ + (row0 + r) * DQK + d);
         s[r][0] += qv.x * a0 + qv.y * a1 + qv.z * a2 + qv.w * a3;
         s[r][1] += qv.x * c0 + qv.y * c1 + qv.z * c2 + qv.w * c3;
       }
@@ -241,7 +255,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int t = 0; t < 4; ++t)
 #pragma unroll
         for (int j = 0; j < kCols; ++j)
-          vv[t][j] = owned(lane + 32 * j) ? sV[(kk + t) * D + lane + 32 * j]
+          vv[t][j] = owned(lane + 32 * j) ? sV[(kk + t) * DV + lane + 32 * j]
                                           : 0.f;
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -279,8 +293,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // (batch, query head), the items whose rows see the most keys first, with
 // three warpgroups:
 //   * warpgroup 0, the producer: one thread loads each item's Q tile and
-//     then its K and V tiles of 128 keys (64 at d=160) into a ring of stages
-//     (three; two at d=128) with TMA.  Each stage has a "full" mbarrier
+//     then its K and V tiles of 128 keys (64 at d=160 and 192) into a ring
+//     of stages (three; two at d=128) with TMA.  Each stage has a "full" mbarrier
 //     for K and one for V (the TMA reports its bytes to them) and an
 //     "empty" mbarrier on which the 256 consumer threads arrive when they
 //     are done with the stage; Q has a full and an empty mbarrier of its
@@ -297,9 +311,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 //     their products in turn (named barriers), so that the tensor cores work
 //     for one while the other exponentiates.
 // Shared tiles are stored as TMA writes them with the 128-byte swizzle
-// (64 columns a row; d=128 as two such column blocks) or, at d=32, 80 and
-// 160, the 64-byte swizzle (32 columns a row: one, three and five column
-// blocks); the wgmma descriptors name the same swizzle.  d=80 is padded to
+// (64 columns a row; d=128 as two such column blocks, MLA's Q and K as
+// three and its V and O as two) or, at d=32, 80 and 160, the 64-byte
+// swizzle (32 columns a row: one, three and five column blocks); the wgmma
+// descriptors name the same swizzle.  d=80 is padded to
 // 96 columns: the tensor maps are 80 wide, so TMA fills a box's columns 80
 // to 95 with zeros, Q K^T takes the 80 real columns (five k-steps of 16),
 // P V computes 96 output columns of which the last 16 are 0, and the store
@@ -312,7 +327,7 @@ constexpr int kWgRows = 64;       // query rows of a consumer warpgroup
 constexpr int kBarTurn = 1;   // named barriers 1, 2: whose turn at wgmma
 constexpr int kBarStore = 3;  // named barriers 3, 4: a consumer's epilogue
 
-template <int D>
+template <int DQK, int DV>
 struct Bf16Tiles {
   // consumer warpgroups (three, as 192-row items, measured faster without
   // a causal mask and slower with one; see PERF.md)
@@ -324,26 +339,32 @@ struct Bf16Tiles {
   static constexpr int kProducerRegs = 40;
   static constexpr int kConsumerRegs = 232;
   // columns of a swizzled block: 64 (128-byte swizzle) where they divide
-  // D, else 32 (64-byte swizzle)
-  static constexpr int kCols = D % 64 == 0 ? 64 : 32;
-  // D padded to whole column blocks (80 -> 96): the width of the shared
-  // tiles and of P V
-  static constexpr int kDp = (D + kCols - 1) / kCols * kCols;
-  static constexpr int kColBlocks = kDp / kCols;
+  // both widths, else 32 (64-byte swizzle)
+  static constexpr int kCols = DQK % 64 == 0 && DV % 64 == 0 ? 64 : 32;
+  // the widths padded to whole column blocks (80 -> 96): the width of the
+  // shared Q and K tiles, and of the V and O tiles and of P V
+  static constexpr int kDqp = (DQK + kCols - 1) / kCols * kCols;
+  static constexpr int kDvp = (DV + kCols - 1) / kCols * kCols;
+  static constexpr int kQColBlocks = kDqp / kCols;
+  static constexpr int kVColBlocks = kDvp / kCols;
   static constexpr int kRowBytes = kCols * 2;    // one row of a block
   static constexpr int kSwizzleBits = kCols == 64 ? 3 : 2;  // 128 or 64 bytes
   static constexpr int kLayout = kCols == 64 ? 1 : 2;  // wgmma layout type
-  // keys of a K or V tile: 64 at d=160, where two stages of 128-key tiles
-  // beside Q and O would need 240 KB
-  static constexpr int kTileK = D > 128 ? 64 : 128;
-  static constexpr int kStages = D == 128 ? 2 : 3;
-  static constexpr int kQBytes = kTileQ * kDp * 2;
-  static constexpr int kKVBytes = kTileK * kDp * 2;  // one K or V tile
+  // keys of a K or V tile: 64 past a query/key width of 128 (d=160, and
+  // MLA's 192), where two stages of 128-key tiles beside Q and O would
+  // need 240 KB
+  static constexpr int kTileK = DQK > 128 ? 64 : 128;
+  static constexpr int kStages = DQK == 128 && DV == 128 ? 2 : 3;
+  static constexpr int kQBytes = kTileQ * kDqp * 2;
+  static constexpr int kOBytes = kTileQ * kDvp * 2;
+  static constexpr int kKBytes = kTileK * kDqp * 2;  // one K tile
+  static constexpr int kVBytes = kTileK * kDvp * 2;  // one V tile
   static constexpr int kBarBytes = 8 * (2 + 3 * kStages);
   // Q, O, the K and V ring, the barriers; + 1024 to align the dynamic
   // shared memory to the swizzle's period
-  static constexpr int kSmem =
-      2 * kQBytes + 2 * kStages * kKVBytes + kBarBytes + 1024;
+  static constexpr int kSmem = kQBytes + kOBytes +
+                               kStages * (kKBytes + kVBytes) + kBarBytes +
+                               1024;
   static_assert(kSmem <= 232448, "at most 227 KB of shared memory a block");
 };
 
@@ -403,25 +424,27 @@ __device__ __forceinline__ Work work_item(const Problem& p, int w, int n_bh,
 // runs on across items, and the producer loads the next item's Q as soon as
 // the consumers' last Q K^T of the current one is done, so one item's
 // softmax, last products and output overlap the next one's loads.
-template <int D>
-__global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(Bf16Tiles<DQK, DV>::kThreads, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap to, Problem p, int n_bh,
                int n_q_tiles) {
-  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 160,
-                "head_dim 32, 64, 80, 128 or 160");
-  using T = Bf16Tiles<D>;
+  static_assert((DQK == DV && (DQK == 32 || DQK == 64 || DQK == 80 ||
+                               DQK == 128 || DQK == 160)) ||
+                    (DQK == 192 && DV == 128),
+                "head_dim 32, 64, 80, 128 or 160, or (192, 128)");
+  using T = Bf16Tiles<DQK, DV>;
   constexpr int kS = T::kStages, kC = T::kConsumers, kTileQ = T::kTileQ,
                 kTileK = T::kTileK;
   constexpr uint32_t kSbo = 8 * T::kRowBytes;  // 8 rows of a swizzled block
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sO = sQ + T::kQBytes;           // the output, on its way out
-  const uint32_t sK = sO + T::kQBytes;           // stage st at + st * kKVBytes
-  const uint32_t sV = sK + kS * T::kKVBytes;
-  const uint32_t bar_qf = sV + kS * T::kKVBytes;  // Q has landed
+  const uint32_t sK = sO + T::kOBytes;           // stage st at + st * kKBytes
+  const uint32_t sV = sK + kS * T::kKBytes;      // stage st at + st * kVBytes
+  const uint32_t bar_qf = sV + kS * T::kVBytes;  // Q has landed
   const uint32_t bar_qe = bar_qf + 8;  // the consumers are done with Q
   const uint32_t bar_k = bar_qe + 8;   // + 8 st: K of stage st has landed
   const uint32_t bar_v = bar_k + 8 * kS;  // + 8 st: V of stage st has landed
@@ -454,7 +477,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
         mbar_wait(bar_qe, (j & 1) ^ 1);  // the consumers are done with Q
         mbar_expect_tx(bar_qf, T::kQBytes);
         for (int c = 0; c < kC; ++c)
-          for (int cb = 0; cb < T::kColBlocks; ++cb)
+          for (int cb = 0; cb < T::kQColBlocks; ++cb)
             tma_load(sQ + (cb * kTileQ + c * kWgRows) * T::kRowBytes, &tq,
                      bar_qf, cb * T::kCols, x.q0 + c * kWgRows, x.h, x.b);
         for (int i = 0; i < x.n; ++i, ++it) {
@@ -462,13 +485,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
           const uint32_t phase = (it / kS) & 1;
           mbar_wait(bar_e + 8 * st, phase ^ 1);  // the stage is free
           const int k0 = x.lo + i * kTileK;
-          mbar_expect_tx(bar_k + 8 * st, T::kKVBytes);
-          for (int cb = 0; cb < T::kColBlocks; ++cb)
-            tma_load(sK + st * T::kKVBytes + cb * kTileK * T::kRowBytes, &tk,
+          mbar_expect_tx(bar_k + 8 * st, T::kKBytes);
+          for (int cb = 0; cb < T::kQColBlocks; ++cb)
+            tma_load(sK + st * T::kKBytes + cb * kTileK * T::kRowBytes, &tk,
                      bar_k + 8 * st, cb * T::kCols, k0, x.hk, x.b);
-          mbar_expect_tx(bar_v + 8 * st, T::kKVBytes);
-          for (int cb = 0; cb < T::kColBlocks; ++cb)
-            tma_load(sV + st * T::kKVBytes + cb * kTileK * T::kRowBytes, &tv,
+          mbar_expect_tx(bar_v + 8 * st, T::kVBytes);
+          for (int cb = 0; cb < T::kVColBlocks; ++cb)
+            tma_load(sV + st * T::kVBytes + cb * kTileK * T::kRowBytes, &tv,
                      bar_v + 8 * st, cb * T::kCols, k0, x.hk, x.b);
         }
       }
@@ -493,19 +516,19 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                      16, kSbo, T::kLayout);
   };
   auto k_desc = [&](int st, int col) {
-    return smem_desc(sK + st * T::kKVBytes +
+    return smem_desc(sK + st * T::kKBytes +
                          (col / T::kCols) * kTileK * T::kRowBytes +
                          (col % T::kCols) * 2,
                      16, kSbo, T::kLayout);
   };
   auto v_desc = [&](int st, int kk) {
-    return smem_desc(sV + st * T::kKVBytes + kk * 16 * T::kRowBytes,
+    return smem_desc(sV + st * T::kVBytes + kk * 16 * T::kRowBytes,
                      kTileK * T::kRowBytes, kSbo, T::kLayout);
   };
 
   constexpr int kN = kTileK / 2;  // S accumulator registers of a thread
-  constexpr int kDp = T::kDp;
-  float o[kDp / 2], s[kN];
+  constexpr int kDvp = T::kDvp;
+  float o[kDvp / 2], s[kN];
 #pragma unroll
   for (int x = 0; x < kN; ++x) s[x] = 0.f;
   uint32_t pf[kTileK / 16][4];
@@ -521,14 +544,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   auto issue_qk = [&](int st) {
     // the real columns only: past D, Q and K are zeros
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
+    for (int ks = 0; ks < DQK / 16; ++ks)
       wgmma_qk<kTileK>(s, q_desc(ks * 16), k_desc(st, ks * 16), ks > 0);
     wgmma_commit();
   };
   auto issue_pv = [&](int st) {
 #pragma unroll
     for (int kk = 0; kk < kTileK / 16; ++kk)
-      wgmma_pv<kDp>(o, pf[kk], v_desc(st, kk));
+      wgmma_pv<kDvp>(o, pf[kk], v_desc(st, kk));
     wgmma_commit();
   };
   // the online softmax of key tile i's scores, in place: s becomes P (f32),
@@ -595,7 +618,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   // O is rescaled once P_{i-1} V_{i-1} is in it, before P_i V_i
   auto rescale = [&]() {
 #pragma unroll
-    for (int e = 0; e < kDp / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+    for (int e = 0; e < kDvp / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
   };
 
   // The consumers take turns at the tensor cores, in order: consumer c waits
@@ -629,7 +652,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     wg_first = x.q0 + c * kWgRows + p.q_offset;
     wg_last = min(x.q0 + (c + 1) * kWgRows, p.sq) - 1 + p.q_offset;
 #pragma unroll
-    for (int e = 0; e < kDp / 2; ++e) o[e] = 0.f;
+    for (int e = 0; e < kDvp / 2; ++e) o[e] = 0.f;
     m[0] = m[1] = -INFINITY;
     l[0] = l[1] = 0.f;
 
@@ -701,7 +724,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     named_sync(kBarStore + c, 128);
 #pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd)
+    for (int jd = 0; jd < DV / 8; ++jd)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int row = warp * 16 + g + 8 * hf, col = jd * 8 + t4 * 2;
@@ -719,7 +742,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     named_sync(kBarStore + c, 128);
     if (t == 0) {
-      for (int cb = 0; cb < T::kColBlocks; ++cb)
+      for (int cb = 0; cb < T::kVColBlocks; ++cb)
         tma_store(&to, o_rows + cb * kTileQ * T::kRowBytes, cb * T::kCols,
                   x.q0 + c * kWgRows, x.h, x.b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -746,24 +769,25 @@ cudaError_t launch(Kernel kernel, size_t smem, const void* q, const void* k,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int b, int hkv, const Problem& p, cudaStream_t stream) {
-  using T = Bf16Tiles<D>;
+  using T = Bf16Tiles<DQK, DV>;
   const CUtensorMapSwizzle swizzle =
       T::kCols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap tq, tk, tv, to;
-  if (!tensor_map(&tq, q, D, p.sq, p.hq, b, p.qs, T::kCols, kWgRows, swizzle) ||
-      !tensor_map(&tk, k, D, p.skv, hkv, b, p.ks, T::kCols, T::kTileK,
+  if (!tensor_map(&tq, q, DQK, p.sq, p.hq, b, p.qs, T::kCols, kWgRows,
                   swizzle) ||
-      !tensor_map(&tv, v, D, p.skv, hkv, b, p.vs, T::kCols, T::kTileK,
+      !tensor_map(&tk, k, DQK, p.skv, hkv, b, p.ks, T::kCols, T::kTileK,
                   swizzle) ||
-      !tensor_map(&to, o, D, p.sq, p.hq, b, p.os, T::kCols, kWgRows, swizzle))
+      !tensor_map(&tv, v, DV, p.skv, hkv, b, p.vs, T::kCols, T::kTileK,
+                  swizzle) ||
+      !tensor_map(&to, o, DV, p.sq, p.hq, b, p.os, T::kCols, kWgRows, swizzle))
     return cudaErrorInvalidValue;
   const long long n_q_tiles = (p.sq + T::kTileQ - 1) / T::kTileQ;
   const long long n_work = n_q_tiles * b * p.hq;
   if (n_work > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_bf16<D>;
+  auto kernel = flash_fwd_bf16<DQK, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (e != cudaSuccess) return e;
@@ -779,33 +803,34 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t dispatch_dtype(int dtype, const void* q, const void* k,
                            const void* v, void* o, int b, int hkv,
                            const Problem& p, cudaStream_t stream) {
   if (dtype == 0) {
     if (static_cast<long long>(b) * p.hq > 65535)  // grid.y of flash_fwd_f32
       return cudaErrorInvalidValue;
-    return launch<float>(flash_fwd_f32<D>, f32_smem_bytes<D>(), q, k, v, o, b,
-                         p, stream);
+    return launch<float>(flash_fwd_f32<DQK, DV>, f32_smem_bytes<DQK, DV>(), q,
+                         k, v, o, b, p, stream);
   }
-  if (dtype == 1) return launch_bf16<D>(q, k, v, o, b, hkv, p, stream);
+  if (dtype == 1) return launch_bf16<DQK, DV>(q, k, v, o, b, hkv, p, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q: [B, Hq, Sq, D], k and v: [B, Hkv, Skv, D], o: [B, Hq, Sq, D], each given
-// by its (batch, head, seq) strides in elements with the last dim contiguous;
-// every stride and base pointer aligned to 16 bytes.  lse: null, or a
-// contiguous [B, Hq, Sq] f32 buffer for each row's log-sum-exp.  dtype: 0 =
-// float32, 1 = bfloat16.  d in {32, 64, 80, 128, 160} (80: zamba2-2.7b;
-// 160: stablelm-12b); Hq % Hkv == 0.  Returns cudaGetLastError() after the
-// launch.
+// q: [B, Hq, Sq, D], k: [B, Hkv, Skv, D], v: [B, Hkv, Skv, Dv], o: [B, Hq,
+// Sq, Dv], each given by its (batch, head, seq) strides in elements with the
+// last dim contiguous; every stride and base pointer aligned to 16 bytes.
+// lse: null, or a contiguous [B, Hq, Sq] f32 buffer for each row's
+// log-sum-exp.  dtype: 0 = float32, 1 = bfloat16.  dv == d in {32, 64, 80,
+// 128, 160} (80: zamba2-2.7b; 160: stablelm-12b), or (d, dv) = (192, 128)
+// (deepseek-v3-671b's MLA); Hq % Hkv == 0.  The scores are scaled by
+// 1/sqrt(d).  Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, float* lse, int b,
     int hq,
-    int hkv, int sq, int skv, int d, long long q_sb, long long q_sh,
+    int hkv, int sq, int skv, int d, int dv, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int causal, int window, float logit_cap,
@@ -828,12 +853,17 @@ extern "C" int repro_flash_attention(
                   1.0f / sqrtf(static_cast<float>(d)),
                   lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 192 && dv == 128)
+    return dispatch_dtype<192, 128>(dtype, q, k, v, o, b, hkv, p, s);
+  if (dv != d) return cudaErrorInvalidValue;
   switch (d) {
-    case 32: return dispatch_dtype<32>(dtype, q, k, v, o, b, hkv, p, s);
-    case 64: return dispatch_dtype<64>(dtype, q, k, v, o, b, hkv, p, s);
-    case 80: return dispatch_dtype<80>(dtype, q, k, v, o, b, hkv, p, s);
-    case 128: return dispatch_dtype<128>(dtype, q, k, v, o, b, hkv, p, s);
-    case 160: return dispatch_dtype<160>(dtype, q, k, v, o, b, hkv, p, s);
+    case 32: return dispatch_dtype<32, 32>(dtype, q, k, v, o, b, hkv, p, s);
+    case 64: return dispatch_dtype<64, 64>(dtype, q, k, v, o, b, hkv, p, s);
+    case 80: return dispatch_dtype<80, 80>(dtype, q, k, v, o, b, hkv, p, s);
+    case 128:
+      return dispatch_dtype<128, 128>(dtype, q, k, v, o, b, hkv, p, s);
+    case 160:
+      return dispatch_dtype<160, 160>(dtype, q, k, v, o, b, hkv, p, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -24,8 +24,11 @@ from ...library import call, define
 from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 
 HEAD_DIMS = (32, 64, 80, 128, 160)
+# (query/key width, value width) pairs K1 takes: each head_dim with itself,
+# and MLA's 192 (128 without rope + 64 with) beside a value width of 128
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p])
@@ -58,11 +61,11 @@ def _check(q, k, v) -> None:
                         f"{v.dtype}; one of float32 or bfloat16 for all")
     b, hq, _, d = q.shape
     hkv = k.shape[1]
-    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
-            or hq % hkv or d not in HEAD_DIMS):
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d
+            or hq % hkv or (d, v.shape[3]) not in HEAD_DIM_PAIRS):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}; head_dim "
-                         f"must be one of {HEAD_DIMS}")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; (query/key, "
+                         f"value) widths must be one of {HEAD_DIM_PAIRS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
 
@@ -71,16 +74,16 @@ def _forward(q, k, v, causal, window, logit_cap, q_offset, with_lse):
     """One launch of K1: (o, lse or None)."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    # written as [B, Sq, Hq, D]: the caller's transpose back is free
-    o = torch.empty(b, sq, hq, d, dtype=q.dtype,
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    # written as [B, Sq, Hq, Dv]: the caller's transpose back is free
+    o = torch.empty(b, sq, hq, dv, dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     lse = (torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
            if with_lse else None)
     fn = _build.function("repro_flash_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              None if lse is None else lse.data_ptr(),
-             b, hq, hkv, sq, skv, d,
+             b, hq, hkv, sq, skv, d, dv,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *o.stride()[:3], int(causal), int(window), float(logit_cap),
              int(q_offset), _DTYPE_CODES[q.dtype],
@@ -97,6 +100,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1b: (dq, dk, dv) of :func:`flash_attention` from q, k, v, its output
     o, its log-sum-exp lse ([B, Hq, Sq] f32) and dO; on CUDA tensors only.
     Each gradient has its input's shape, dtype and strides."""
+    if v.shape[-1] != q.shape[-1]:
+        raise ValueError(
+            f"flash_attention_bwd: K1b takes one width for q, k and v, got "
+            f"{q.shape[-1]} and a value width of {v.shape[-1]}; MLA's (192, "
+            "128) backward comes with its training slice (ROADMAP, Queue 1 "
+            "item 11.3)")
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, dO "
@@ -160,9 +169,9 @@ def _kernel_bwd(q, k, v, o, lse, do, causal, window, logit_cap, q_offset):
 
 
 def _fake(q, k, v, *_):
-    # K1 writes o as [B, Sq, Hq, D]
-    b, hq, sq, d = q.shape
-    return q.new_empty(b, sq, hq, d).transpose(1, 2)
+    # K1 writes o as [B, Sq, Hq, Dv]: V's width, not q's
+    b, hq, sq, _ = q.shape
+    return q.new_empty(b, sq, hq, v.shape[3]).transpose(1, 2)
 
 
 def _fake_lse(q, k, v, *_):
@@ -205,10 +214,11 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     logit_cap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
-    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] (Hq % Hkv == 0)
-    -> [B, Hq, Sq, D].  ``window`` > 0 keeps keys with 0 <= q - k < window
-    (q counted from ``q_offset``); ``logit_cap`` > 0 applies a tanh cap.
-    Differentiable in q, k and v."""
+    """q: [B, Hq, Sq, D]; k: [B, Hkv, Skv, D]; v: [B, Hkv, Skv, Dv] (Hq %
+    Hkv == 0; (D, Dv) one of HEAD_DIM_PAIRS) -> [B, Hq, Sq, Dv], scaled by
+    1/sqrt(D).  ``window`` > 0 keeps keys with 0 <= q - k < window (q
+    counted from ``q_offset``); ``logit_cap`` > 0 applies a tanh cap.
+    Differentiable in q, k and v (on the card only where Dv == D)."""
     return _FlashAttention.apply(q, k, v, bool(causal), int(window),
                                  float(logit_cap), int(q_offset))
 

@@ -45,7 +45,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         logit_cap: float = 0.0,
                         q_offset: int = 0) -> torch.Tensor:
-    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D]."""
+    """q: [B, Hq, Sq, D]; k: [B, Hkv, Skv, D]; v: [B, Hkv, Skv, Dv] ->
+    [B, Hq, Sq, Dv], the scores scaled by 1/sqrt(D)."""
     return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
                                    logit_cap=logit_cap, q_offset=q_offset)[0]
 

@@ -1,4 +1,4 @@
-"""GQA attention (sliding window, softcap, bias, padded heads).
+"""Attention: GQA (sliding window, softcap, bias, padded heads) and MLA.
 
 Three implementations behind one interface, with the JAX package's layouts
 ([B, H, S, D] into attention):
@@ -8,7 +8,8 @@ Three implementations behind one interface, with the JAX package's layouts
               (repro_torch.kernels.flash_attention), same math
 
 Decode (Sq == 1 over the KV cache) stays plain torch, as the reference
-computes it outside any kernel.  MLA waits for the other families.
+computes it outside any kernel: GQA over the K/V cache, MLA in the absorbed
+form over the compressed cache.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
-from .common import softcap
+from .common import dense, rms_norm, softcap
 from .params import ParamSpec
 from .rope import apply_rope
 
@@ -52,6 +53,37 @@ def attention_specs(cfg: ModelConfig, stacked: int = 0) -> dict:
         specs["bk"] = p((kv, hd), ("kv_heads", "qk_dim"), init="zeros")
         specs["bv"] = p((kv, hd), ("kv_heads", "v_dim"), init="zeros")
     return specs
+
+
+def mla_specs(cfg: ModelConfig, stacked: int = 0) -> dict:
+    """MLA projection specs (DeepSeek-V3): the query and the key/value
+    latents' down projections, their norms and the heads' up projections."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dt = cfg.dtype
+    qk = m.qk_nope_head_dim
+
+    def p(shape, axes, **kw):
+        if stacked:
+            return ParamSpec((stacked, *shape), ("layers", *axes),
+                             dtype=dt, **kw)
+        return ParamSpec(shape, axes, dtype=dt, **kw)
+
+    return {
+        "wdq": p((d, m.q_lora_rank), ("embed", "lora"), init="scaled"),
+        "q_norm": p((m.q_lora_rank,), ("norm",), init="ones"),
+        "wuq": p((m.q_lora_rank, h, qk + m.qk_rope_head_dim),
+                 ("lora", "heads", "qk_dim"), init="scaled"),
+        "wdkv": p((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                  ("embed", "lora"), init="scaled"),
+        "kv_norm": p((m.kv_lora_rank,), ("norm",), init="ones"),
+        "wuk": p((m.kv_lora_rank, h, qk), ("lora", "heads", "qk_dim"),
+                 init="scaled"),
+        "wuv": p((m.kv_lora_rank, h, m.v_head_dim),
+                 ("lora", "heads", "v_dim"), init="scaled"),
+        "wo": p((h, m.v_head_dim, d), ("heads", "v_dim", "embed"),
+                init="scaled"),
+    }
 
 
 # --------------------------------------------------------------------------
@@ -263,3 +295,87 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     out = out.reshape(b, hq, 1, -1).transpose(1, 2).to(x.dtype)
     out = _head_mask(cfg, out)
     return _out_proj(p, out), cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# --------------------------------------------------------------------------
+
+def _up(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, r] @ w: [r, H, k] -> [B, S, H, k]."""
+    b, s = x.shape[:2]
+    return torch.matmul(x, w.reshape(w.shape[0], -1)).view(b, s, *w.shape[1:])
+
+
+def _mla_query(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               positions: torch.Tensor):
+    """(q_nope [B, S, H, nope], q_rope [B, S, H, rope] rotated)."""
+    m = cfg.mla
+    cq = rms_norm(dense(x, p["wdq"]), p["q_norm"], cfg.rms_eps)
+    q_nope, q_rope = _up(cq, p["wuq"]).split(
+        [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                positions: torch.Tensor):
+    """(ckv [B, S, rank] normed, k_rope [B, S, 1, rope] rotated)."""
+    m = cfg.mla
+    ckv, k_rope = dense(x, p["wdkv"]).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    # K2 takes contiguous rows: the first kv_lora_rank columns of each
+    # [rank + rope] row are copied out before the norm
+    ckv = rms_norm(ckv.contiguous(), p["kv_norm"], cfg.rms_eps)
+    return ckv, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+
+
+def mla_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Materialised MLA for train/prefill: K1 at a query/key width of
+    nope + rope (192) and a value width of v_head_dim (128)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_query(cfg, p, x, positions)
+    ckv, k_rope = _mla_latent(cfg, p, x, positions)
+    k_nope = _up(ckv, p["wuk"])
+    v = _up(ckv, p["wuv"])
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)],
+                  dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    args = AttnArgs(causal=True, logit_cap=0.0)
+    out = multihead_attention(qf.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), args, impl=cfg.attn_impl,
+                              chunk=cfg.attn_chunk)
+    return _out_proj(p, out.transpose(1, 2))
+
+
+def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               cache_ckv: torch.Tensor, cache_index: torch.Tensor):
+    """Absorbed-form MLA decode against the *compressed* KV cache.
+
+    cache_ckv: [B, S_max, kv_lora_rank + qk_rope_head_dim]: W_uk is absorbed
+    into the query and W_uv into the output, so a step's compute and cache
+    stay in the compressed space.  The new entry is written into
+    ``cache_ckv`` IN PLACE; returns (attn_out [B, 1, d], cache_ckv)."""
+    m = cfg.mla
+    b = x.shape[0]
+    s_max = cache_ckv.shape[1]
+    pos = cache_index.reshape(1, 1).expand(b, 1)
+    q_nope, q_rope = _mla_query(cfg, p, x, pos)
+    # absorb W_uk: q_c [B, 1, H, rank] = q_nope . W_uk^T
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"])
+    ckv, k_rope = _mla_latent(cfg, p, x, pos)
+    entry = torch.cat([ckv, k_rope[:, :, 0, :]], dim=-1)
+    cache_ckv.index_copy_(1, cache_index.reshape(1).long(),
+                          entry.to(cache_ckv.dtype))
+    c_k = cache_ckv[:, :, :m.kv_lora_rank].float()
+    r_k = cache_ckv[:, :, m.kv_lora_rank:].float()
+    scores = (torch.einsum("bshr,btr->bhst", q_c.float(), c_k)
+              + torch.einsum("bshk,btk->bhst", q_rope.float(), r_k))
+    scores = scores / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    valid = torch.arange(s_max, device=x.device) <= cache_index
+    probs = torch.softmax(scores.masked_fill(~valid, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", probs, c_k)       # compressed ctx
+    out = torch.einsum("bshr,rhk->bshk", ctx.to(x.dtype), p["wuv"])
+    return _out_proj(p, out), cache_ckv

@@ -124,6 +124,16 @@ def moe_dispatch(top_e: torch.Tensor, num_experts: int, cap: int):
     return order, stok, keep, slot
 
 
+def expert_ffn(cfg: ModelConfig, p: dict, buf: torch.Tensor) -> torch.Tensor:
+    """The grouped expert GEMMs over the capacity buffer: [E, C, d] ->
+    [E, C, d], each expert's rows through its own gated MLP (bf16 products
+    accumulate in f32).  No expert's rows depend on another's."""
+    act = activation(cfg.act)
+    g = torch.bmm(buf, p["we_gate"])
+    u = torch.bmm(buf, p["we_up"])
+    return torch.bmm(act(g) * u, p["we_down"])
+
+
 def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Sort-based top-k MoE. x: [B, S, d] -> [B, S, d].
 
@@ -134,8 +144,10 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     5. gather back and combine with the routing weights.
 
     Tokens beyond an expert's capacity are dropped (the residual path
-    carries them).  Each scatter-add is exact in any order: a buffer row
-    takes one token's row and zeros, a token the sum of its k rows."""
+    carries them).  The scatter-add into the buffer is exact in any order
+    (a buffer row takes one token's row and zeros); each token's k rows
+    come back by a gather and are summed by one reduction, so the output
+    does not depend on the order of atomic adds."""
     if cfg.moe_ep_shardmap:
         raise NotImplementedError(
             f"{cfg.name}: moe_ep_shardmap (the expert-parallel dispatch) "
@@ -153,20 +165,21 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     sw = top_w.reshape(-1)[order]
 
     # ---- scatter tokens into [E * C, d] ----
-    gathered = torch.where(keep[:, None], xf[stok], 0)
-    buf = torch.zeros(e * cap, d, dtype=x.dtype, device=x.device)
-    buf = buf.index_add(0, slot, gathered).view(e, cap, d)
-
-    # ---- grouped expert GEMMs (bf16 products accumulate in f32) ----
-    act = activation(cfg.act)
-    g = torch.bmm(buf, p["we_gate"])
-    u = torch.bmm(buf, p["we_up"])
-    y = torch.bmm(act(g) * u, p["we_down"]).view(e * cap, d)
+    buf = torch.zeros(e * cap, d, dtype=x.dtype, device=x.device).index_add_(
+        0, slot, torch.where(keep[:, None], xf[stok], 0)).view(e, cap, d)
+    y = expert_ffn(cfg, p, buf).view(e * cap, d)
+    del buf   # at 16384 tokens of 256 experts: 2.3 GB in bf16
 
     # ---- gather back, weighted combine ----
-    out_tokens = y[slot] * (sw * keep)[:, None].to(x.dtype)
-    out = torch.zeros(t, d, dtype=x.dtype, device=x.device
-                      ).index_add(0, stok, out_tokens)
+    # each token's k rows gathered back in its top-k order (the sort undone
+    # by a scatter of the slots and weights) and summed in one reduction:
+    # atomic scatter-adds of bf16 rows would add a token's rows in an order
+    # that varies from run to run (deepseek-v3's top-8 on an H100: prefill
+    # logits 2e-3 apart)
+    flat_slot = torch.empty_like(slot).scatter_(0, order, slot)
+    flat_w = torch.empty_like(sw).scatter_(0, order, sw * keep)
+    out = (y[flat_slot] * flat_w[:, None].to(x.dtype)).view(
+        t, mo.top_k, d).sum(1)
     if mo.num_shared_experts:
         out = out + mlp_forward(cfg, p, xf, suffix="_shared")
     return out.view(b, s, d)

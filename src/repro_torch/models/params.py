@@ -75,9 +75,9 @@ def init_params(tree, generator: torch.Generator, device=None) -> dict:
                             dtype=torch.float32)
             if s.init == "scaled":  # fan-in scaled normal
                 fan_in = s.shape[0] if s.shape else 1
-                v = v / math.sqrt(max(fan_in, 1))
+                v.div_(math.sqrt(max(fan_in, 1)))
             else:
-                v = v * s.scale
+                v.mul_(s.scale)
             v = v.to(dtype)
         values[name] = v
     return _rebuild(tree, values)

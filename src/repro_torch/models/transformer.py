@@ -1,16 +1,18 @@
 """LM assembly: the training and serving paths of the dense Llama family,
 the serving paths of the attention-free SSM family (Mamba2), of the other
 dense families (deepseek-67b, qwen2.5-32b, gemma2-27b, stablelm-12b), of the
-sparse MoE family (mixtral-8x22b) and of the hybrid family (zamba2-2.7b: the
+sparse MoE family (mixtral-8x22b), of the hybrid family (zamba2-2.7b: the
 Mamba2 layers in super-blocks, each closed by one attention block whose
-weights all super-blocks share).
+weights all super-blocks share) and of the MLA family (deepseek-v3-671b:
+multi-head latent attention before a sparse MoE).
 
 Public entry points are plain functions of (cfg, params, batch), with the
 JAX package's names, signatures and layouts (layer-stacked weights [L, ...],
 KV cache [L, B, S_max, kv, hd]; SSM cache ``ssm_state`` [L, B, H, P, N] f32
 and ``conv_state`` [L, B, K-1, conv_ch]; the hybrid's SSM cache over its
 Mamba2 layers and its KV cache [n_super, B, S_max, kv, hd], one slot a
-super-block):
+super-block; MLA's compressed cache ``ckv`` [L, B, S_max, kv_lora_rank +
+qk_rope_head_dim]):
 
   model_specs(cfg)                       -> ParamSpec tree
   forward(cfg, params, batch)            -> (loss, logits)  [train / eval]
@@ -19,8 +21,7 @@ super-block):
   init_cache_specs(cfg, batch, max_len)  -> cache ParamSpec tree
 
 :class:`TransformerLM` is the ``nn.Module`` that owns the parameters and
-calls these functions.  The MLA branch raises ``NotImplementedError``
-until its family is ported.  As in the reference, ``forward`` adds no
+calls these functions.  As in the reference, ``forward`` adds no
 router auxiliary loss for MoE (``moe_aux_loss`` is there for a caller that
 wants it).
 """
@@ -34,19 +35,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import attention_specs, gqa_decode, gqa_forward
+from .attention import (attention_specs, gqa_decode, gqa_forward,
+                        mla_decode, mla_forward, mla_specs)
 from .common import (barrier, embed_lookup, embedding_spec, norm_spec,
                      rms_norm, softcap)
 from .mlp import mlp_forward, mlp_specs, moe_forward, moe_specs
 from .params import DTYPES, ParamSpec, init_params
 from .ssm import mamba2_forward, ssm_specs
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MLA branch is not ported yet (ROADMAP, Queue 1 "
-            "item 11: other families)")
 
 
 # --------------------------------------------------------------------------
@@ -55,7 +50,6 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def _layer_specs(cfg: ModelConfig, stacked: int) -> dict:
     """One block's specs (attention + mlp + norms, or ssm + norm)."""
-    _check_family(cfg)
     dt = cfg.dtype
 
     def n(shape, axes):
@@ -69,7 +63,8 @@ def _layer_specs(cfg: ModelConfig, stacked: int) -> dict:
                 "ln": n((cfg.d_model,), ("norm",))}
     specs = {"ln1": n((cfg.d_model,), ("norm",)),
              "ln2": n((cfg.d_model,), ("norm",)),
-             "attn": attention_specs(cfg, stacked)}
+             "attn": (mla_specs(cfg, stacked) if cfg.mla is not None
+                      else attention_specs(cfg, stacked))}
     if cfg.moe is not None:
         specs["moe"] = moe_specs(cfg, stacked)
     else:
@@ -143,8 +138,11 @@ def ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
 def attn_block(cfg: ModelConfig, lp: dict, h: torch.Tensor,
                positions: torch.Tensor, layer_idx: int) -> torch.Tensor:
     x = rms_norm(h, lp["ln1"], cfg.rms_eps)
-    h = h + gqa_forward(cfg, lp["attn"], x, positions,
-                        layer_window=_layer_window(cfg, layer_idx))
+    if cfg.mla is not None:
+        h = h + mla_forward(cfg, lp["attn"], x, positions)
+    else:
+        h = h + gqa_forward(cfg, lp["attn"], x, positions,
+                            layer_window=_layer_window(cfg, layer_idx))
     x = rms_norm(h, lp["ln2"], cfg.rms_eps)
     return h + ffn(cfg, lp, x)
 
@@ -214,7 +212,6 @@ def _scan_layers(cfg: ModelConfig, params: dict, h: torch.Tensor,
     always unrolled, so an export has no layer loop; as in the reference, a
     barrier follows each layer when ``layer_barriers`` is set and
     ``scan_layers`` is not (the reference's unrolled stack)."""
-    _check_family(cfg)
     if cfg.family == "hybrid":
         return _scan_super_blocks(cfg, params, h, positions)
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
@@ -320,9 +317,8 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int) -> dict:
-    """KV or SSM cache description (shape, dtype, logical axes) for one
-    batch."""
-    _check_family(cfg)
+    """KV, SSM or compressed MLA cache description (shape, dtype, logical
+    axes) for one batch."""
     hd = cfg.resolved_head_dim
     if cfg.family in ("ssm", "hybrid"):
         s = cfg.ssm
@@ -349,6 +345,14 @@ def cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int) -> dict:
                                                  "cache_seq", "kv_heads",
                                                  "v_dim"))
         return shapes
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "index": ((), "int32", ()),
+            "ckv": ((cfg.num_layers, batch_size, max_len,
+                     m.kv_lora_rank + m.qk_rope_head_dim), cfg.dtype,
+                    ("layers", "batch", "cache_seq", "lora")),
+        }
     eff_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
                else max_len)
     kv_shape = (cfg.num_layers, batch_size, eff_len, cfg.num_kv_heads, hd)
@@ -372,10 +376,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
 
     The cache index is carried in ``cache["index"]`` (a 0-d tensor).  The
     K/V tensors of ``cache`` (SSM family: ``ssm_state`` and ``conv_state``;
-    the hybrid: both, the shared block's K/V slot of each super-block) are
-    updated in place; the returned cache holds them and the advanced index.
+    the hybrid: both, the shared block's K/V slot of each super-block; MLA:
+    ``ckv``) are updated in place; the returned cache holds them and the
+    advanced index.
     """
-    _check_family(cfg)
     h = _embed(cfg, params, batch)
     index = cache["index"]
     if cfg.family == "ssm":
@@ -400,9 +404,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     layers = _unstack(params["layers"], cfg.num_layers)
     for i, lp in enumerate(layers):
         x = rms_norm(h, lp["ln1"], cfg.rms_eps)
-        y, _, _ = gqa_decode(cfg, lp["attn"], x, cache["k"][i],
-                             cache["v"][i], index,
-                             layer_window=_layer_window(cfg, i))
+        if cfg.mla is not None:
+            y, _ = mla_decode(cfg, lp["attn"], x, cache["ckv"][i], index)
+        else:
+            y, _, _ = gqa_decode(cfg, lp["attn"], x, cache["k"][i],
+                                 cache["v"][i], index,
+                                 layer_window=_layer_window(cfg, i))
         h = h + y
         x = rms_norm(h, lp["ln2"], cfg.rms_eps)
         h = h + ffn(cfg, lp, x)
@@ -455,8 +462,8 @@ class _ParamTree(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Owns a dense, MoE, SSM or hybrid LM's parameters and serves it (the
-    hybrid's ``shared_attn`` subtree beside its stacked ``layers``).
+    """Owns a dense, MoE, SSM, hybrid or MLA LM's parameters and serves it
+    (the hybrid's ``shared_attn`` subtree beside its stacked ``layers``).
 
     ``params`` (e.g. from :func:`~repro_torch.models.params.params_from_jax`)
     is taken as is; without it the parameters are drawn from ``generator``

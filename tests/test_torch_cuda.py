@@ -4,7 +4,9 @@ each at a few shapes and layouts of the serving paths, and K1's
 log-sum-exp, K3's chunk states, K1b, K2b and K3b (their backwards) and the
 gradients of a small model through them, in f32 and bf16, with the
 tolerances of each kernel's ``ref.py``; a small hybrid (zamba2's head width
-and SSM widths) served through K1, K2 and K3; and the sparse MoE layer on
+and SSM widths) served through K1, K2 and K3; K1 at MLA's widths (query
+192, value 128), K1b refusing them, K2 on MLA's latent rows and a small
+MLA model served through K1 and K2; and the sparse MoE layer on
 the card against its CPU run, and twice to equal bits, forward and
 backward.  Every test is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
@@ -307,8 +309,134 @@ def test_flash_bwd_kernel_refuses_the_widths_it_does_not_take(cuda, d):
     q, k, v = (t.to(cuda, torch.bfloat16)
                for t in _torch(_qkv(3, 1, 2, 2, 64, 64, d)))
     lse = torch.zeros(1, 2, 64, device=cuda)
-    with pytest.raises(ValueError, match="head_dim must be one of"):
+    with pytest.raises(ValueError, match="widths must be one of"):
         flash_attention_bwd(q, k, v, q, lse, torch.ones_like(q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,causal,q_offset,bshd", [
+    # MLA's pair, d 192 (three 64-column blocks) and dv 128: strided as
+    # mla_forward passes it, ragged across 128-row items and 64-key tiles
+    # with an offset; no causal mask; GQA groups; one query row
+    (1, 8, 8, 1000, 1111, True, 111, True),
+    (1, 16, 16, 520, 520, True, 0, True),
+    (2, 4, 2, 300, 333, False, 0, False),
+    (1, 8, 2, 256, 256, True, 0, False),
+    (1, 4, 4, 1, 300, True, 299, False),
+])
+def test_flash_kernel_at_mla_widths_on_card(cuda, dtype, b, hq, hkv, sq, skv,
+                                            causal, q_offset, bshd):
+    # the output is as wide as V; the tolerances are ref.RTOL and
+    # ref.ROW_RTOL, and the lse the training path asks for is held too
+    q, k, v = _normal(30, (b, hq, sq, 192), (b, hkv, skv, 192),
+                      (b, hkv, skv, 128))
+    if bshd:
+        q, k, v = (np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+                   for a in (q, k, v))
+    q, k, v = (t.to(cuda) for t in _torch([q, k, v], dtype))
+    if bshd:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **kw)
+    out_lse, lse = k1_ops._forward(q, k, v, with_lse=True, window=0,
+                                   logit_cap=0.0, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert out.shape == (b, hq, sq, 128) and torch.equal(out, out_lse)
+    _, elem, row = flash_error(out, q, k, v, **kw)
+    assert elem <= 1.0 and row <= 1.0, (elem, row)
+    assert lse_error(lse, q, k, v, **kw)[1] <= 1.0
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_refuses_a_value_width_apart(cuda):
+    # K1b takes one width for q, k and v: MLA's (192, 128) raises, naming
+    # the training slice, and no plain backward runs in its place
+    q, k = (torch.randn(1, 2, 64, 192, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn(1, 2, 64, 128, device=cuda, dtype=torch.bfloat16)
+    o, lse = torch.zeros_like(v), torch.zeros(1, 2, 64, device=cuda)
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match=r"Queue 1 item 11\.3"):
+        flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o))
+    qr = q.detach().requires_grad_(True)
+    out = flash_attention(qr, k, v)
+    with pytest.raises(ValueError, match=r"Queue 1 item 11\.3"):
+        out.sum().backward()
+    assert flash_attention_bwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_on_mla_latent_rows(cuda, dtype):
+    # kv_norm's rows as mla_forward passes them: the first 512 columns of
+    # each 576-wide [rank + rope] row, copied out contiguous; the strided
+    # view itself is refused, not normed by a plain fallback; q_norm at 1536
+    x, wq = _normal(31, (2, 300, 576 + 1536), (1536,))
+    proj = _torch([x], dtype)[0].to(cuda)
+    wkv = (1.0 + 0.1 * torch.randn(512, device=cuda)).to(dtype)
+    wq = (1.0 + 0.1 * _torch([wq], dtype)[0]).to(cuda)
+    latent = proj[..., :576]
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm(latent[..., :512], wkv)
+    ckv = latent[..., :512].contiguous()
+    cq = proj[..., 576:].contiguous()
+    before = rmsnorm.launches
+    out_kv, out_q = rmsnorm(ckv, wkv), rmsnorm(cq, wq)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 2
+    for out, x, w in ((out_kv, ckv, wkv), (out_q, cq, wq)):
+        _, elem = rmsnorm_error(out, x, w)
+        assert elem <= 1.0, elem
+
+
+def _tiny_mla():
+    """deepseek-v3's smoke config at the published attention widths (qk
+    128 + 64, v 128; two heads) with its sigmoid-gated MoE."""
+    from repro_torch.configs.base import MLAConfig
+    return get_smoke_config("deepseek-v3-671b").scaled(
+        num_heads=2, num_kv_heads=2, dtype="bfloat16",
+        mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=128,
+                      qk_rope_head_dim=64, v_head_dim=128))
+
+
+@pytest.mark.cuda
+def test_mla_serves_through_k1_and_k2(cuda, monkeypatch):
+    # bf16 prefill through K1 at (192, 128) and K2 (ln1, q_norm, kv_norm,
+    # ln2 a layer, and the final norm) against the plain bf16 path, both
+    # against an f32 plain run: the kernels' distance within twice the
+    # plain path's.  A prefill launches K1 once a layer and K2 4 L + 1
+    # times; a decode step (the absorbed form over the compressed cache)
+    # K2 as often and no K1
+    cfg = _tiny_mla()
+    params = init_params(model_specs(cfg),
+                         torch.Generator(cuda).manual_seed(4), cuda)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (2, 192)).astype(np.int32)).to(cuda)}
+    counters = (flash_attention, rmsnorm)
+    before = [f.launches for f in counters]
+    logits = prefill(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [2, 9]
+    cache = init_params(init_cache_specs(cfg, 2, 8),
+                        torch.Generator(cuda), cuda)
+    assert set(cache) == {"index", "ckv"}
+    before = [f.launches for f in counters]
+    decode_step(cfg, params, cache, {"tokens": batch["tokens"][:, :1]})
+    assert [f.launches - n for f, n in zip(counters, before)] == [0, 9]
+    assert cache["ckv"][:, :, 0].abs().sum() > 0
+    assert cache["ckv"][:, :, 1:].abs().sum() == 0
+    plain = cfg.scaled(attn_impl="chunked")
+    monkeypatch.setattr(model_common, "rmsnorm", rmsnorm_ref)
+    lp = prefill(plain, params, batch)
+    l32 = prefill(plain.scaled(dtype="float32"),
+                  tree_map(lambda t: t.float(), params), batch)
+    assert torch.isfinite(logits).all()
+    dk = (logits - l32).norm() / l32.norm()
+    dp = (lp - l32).norm() / l32.norm()
+    assert dk <= 2 * dp, (dk.item(), dp.item())
 
 
 @pytest.mark.cuda

@@ -40,9 +40,10 @@ def test_every_module_and_chip_smoke_import_without_jax_or_repro():
         [sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT / "chip_smoke.py")],
         capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # configs (14: with deepseek-67b, qwen2.5-32b, gemma2-27b,
-    # mixtral-8x22b, stablelm-12b and zamba2-2.7b), device, library, api, kernels (11), models (10: with
-    # resnet), serve (3: the package, decode, faults), train (6), launch
+    # configs (15: with deepseek-67b, qwen2.5-32b, gemma2-27b,
+    # mixtral-8x22b, stablelm-12b, zamba2-2.7b and deepseek-v3-671b),
+    # device, library, api, kernels (11), models (10: with resnet), serve
+    # (3: the package, decode, faults), train (6), launch
     # (3: the package, train, mesh), distributed (3: the package,
     # sharding, data_parallel), campaign (8: the package, spec, builders,
     # plans, summary, report, runner, __main__), core (8: the package,
@@ -52,7 +53,7 @@ def test_every_module_and_chip_smoke_import_without_jax_or_repro():
     # search (6: the package, pareto, spec, engine, report, __main__) and
     # tools (2: the package, fit_learned_model)
     names = proc.stdout.split()
-    assert len(names) >= 105
+    assert len(names) >= 106
     assert {"repro_torch.core.executor", "repro_torch.core.slicing.emit",
             "repro_torch.core.estimators.profiling",
             "repro_torch.core.estimators.learned",
@@ -65,7 +66,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_repro():
             "repro_torch.configs.gemma2_27b",
             "repro_torch.configs.mixtral_8x22b",
             "repro_torch.configs.stablelm_12b",
-            "repro_torch.configs.zamba2_2_7b"} <= set(names)
+            "repro_torch.configs.zamba2_2_7b",
+            "repro_torch.configs.deepseek_v3_671b"} <= set(names)
 
 
 @pytest.fixture

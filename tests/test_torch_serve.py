@@ -118,8 +118,7 @@ def test_transformer_lm_module_serves_like_the_functions():
                                                    {"tokens": prompt}))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "hubert-xlarge",
-                                  "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "qwen2-vl-7b"])
 def test_unported_families_raise(arch):
     from repro_torch.models.registry import get_config as tget
     from repro_torch.models.registry import get_smoke_config as tsmoke
@@ -129,16 +128,31 @@ def test_unported_families_raise(arch):
             get(arch)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-12b", "zamba2-2.7b"])
+# (query/key, value) widths of K1's launches: head_dim 160 and 80, and
+# MLA's 128 without rope + 64 with beside values 128 wide
+ATTN_WIDTHS = {"stablelm-12b": (160, 160), "zamba2-2.7b": (80, 80),
+               "deepseek-v3-671b": (192, 128)}
+
+
+def _attn_widths(cfg) -> tuple[int, int]:
+    m = cfg.mla
+    if m is None:
+        return cfg.resolved_head_dim, cfg.resolved_head_dim
+    return m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+
+
+@pytest.mark.parametrize("arch", ["stablelm-12b", "zamba2-2.7b",
+                                  "deepseek-v3-671b"])
 def test_head_dim_and_hybrid_families_serve(arch):
-    """The two ids that waited for K1 at head_dim 160 and 80 and for the
-    hybrid super-block: both configs resolve, and the smoke model
-    generates through ``TransformerLM`` as through ``greedy_decode``
-    (tests/test_torch_hybrid.py holds them against the JAX package)."""
+    """The ids that waited for K1 at head_dim 160 and 80, for the hybrid
+    super-block and for MLA (K1 at a value width apart from the query
+    width, the compressed cache): each config resolves, and the smoke
+    model generates through ``TransformerLM`` as through ``greedy_decode``
+    (tests/test_torch_hybrid.py and tests/test_torch_mla.py hold them
+    against the JAX package)."""
     from repro_torch.models.registry import get_config as tget
     from repro_torch.models.registry import get_smoke_config as tsmoke
-    assert tget(arch).resolved_head_dim == {"stablelm-12b": 160,
-                                            "zamba2-2.7b": 80}[arch]
+    assert _attn_widths(tget(arch)) == ATTN_WIDTHS[arch]
     cfg = tsmoke(arch).scaled(dtype="float32")
     model = transformer.TransformerLM(
         cfg, generator=torch.Generator().manual_seed(0), device="cpu")

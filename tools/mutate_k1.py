@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Show that ``chip_smoke.check_k1`` catches a wrong K1, on an H100:
 
-    python3 tools/mutate_k1.py [--widths]
+    python3 tools/mutate_k1.py [--widths] [--mla]
 
 Each mutant of the bf16 path of ``flash_attention.cu`` is written into its
 own temporary copy of ``src/`` and ``chip_smoke.py``, built there, and run
@@ -18,7 +18,7 @@ every case of ``check_k1``:
 * ``tile_order_off_by_one``: the longest-first work order is shifted by
   one query tile, so the first tile is never computed.
 
-The last four are of the head widths that are not a multiple of 64 (80,
+The next four are of the head widths that are not a multiple of 64 (80,
 padded to 96, and 160), and run only the cases at those widths
 (``chip_smoke.K1_NEW_WIDTHS``); ``--widths`` runs these four alone:
 
@@ -29,6 +29,15 @@ padded to 96, and 160), and run only the cases at those widths
   columns instead of zeros;
 * ``pv_block_stride_of_q``: V's descriptor steps between column blocks by
   the Q tile's 128 rows instead of the K tile's 64 (at d=160).
+
+The last three are of MLA's pair, query/key 192 and value 128, and run
+only its cases (``chip_smoke.K1_MLA``); ``--mla`` runs these three alone:
+
+* ``scale_of_dv``: the softmax scale is 1/sqrt(dv), not 1/sqrt(d);
+* ``qk_without_rope``: Q K^T takes the value width's 128 columns, leaving
+  out the 64 with rope (bf16);
+* ``f32_v_rows_at_qk_width``: the f32 kernel reads V's rows 192 floats
+  wide (f32; the bf16 cases pass, the f32 ones must not).
 
 Prints each mutant's first failing case with its ratios to the tolerances.
 """
@@ -49,8 +58,8 @@ MUTANTS = {
         ("                     kTileK * T::kRowBytes, kSbo, T::kLayout);",
          "                     kTileK * T::kRowBytes, kSbo, T::kLayout ^ 3);")],
     "no_alpha_rescale": [
-        ("    for (int e = 0; e < kDp / 2; ++e) o[e] *= alpha[(e >> 1) & 1];",
-         "    for (int e = 0; e < kDp / 2; ++e) o[e] *= 1.f;")],
+        ("    for (int e = 0; e < kDvp / 2; ++e) o[e] *= alpha[(e >> 1) & 1];",
+         "    for (int e = 0; e < kDvp / 2; ++e) o[e] *= 1.f;")],
     "tile_order_off_by_one": [
         ("  x.q0 = (n_q_tiles - 1 - w / n_bh) * kTileQ;",
          "  x.q0 = (n_q_tiles - w / n_bh) * kTileQ;")],
@@ -58,24 +67,42 @@ MUTANTS = {
 WIDTH_MUTANTS = {
     "scale_of_padded_d": [
         ("  const float scale_log2 = p.scale * kLog2e;",
-         "  const float scale_log2 = rsqrtf(static_cast<float>(T::kDp)) * "
+         "  const float scale_log2 = rsqrtf(static_cast<float>(T::kDqp)) * "
          "kLog2e;")],
     "qk_drops_last_block": [
-        ("    for (int ks = 0; ks < D / 16; ++ks)\n"
+        ("    for (int ks = 0; ks < DQK / 16; ++ks)\n"
          "      wgmma_qk<kTileK>",
-         "    for (int ks = 0; ks < (T::kColBlocks - 1) * T::kCols / 16; "
+         "    for (int ks = 0; ks < (T::kQColBlocks - 1) * T::kCols / 16; "
          "++ks)\n      wgmma_qk<kTileK>")],
     "padded_columns_unzeroed": [
-        ("    for (int ks = 0; ks < D / 16; ++ks)\n"
+        ("    for (int ks = 0; ks < DQK / 16; ++ks)\n"
          "      wgmma_qk<kTileK>",
-         "    for (int ks = 0; ks < kDp / 16; ++ks)\n      wgmma_qk<kTileK>"),
-        ("  if (!tensor_map(&tq, q, D, p.sq,",
-         "  if (!tensor_map(&tq, q, T::kDp, p.sq,"),
-        ("      !tensor_map(&tk, k, D, p.skv,",
-         "      !tensor_map(&tk, k, T::kDp, p.skv,")],
+         "    for (int ks = 0; ks < T::kDqp / 16; ++ks)\n"
+         "      wgmma_qk<kTileK>"),
+        ("  if (!tensor_map(&tq, q, DQK, p.sq,",
+         "  if (!tensor_map(&tq, q, T::kDqp, p.sq,"),
+        ("      !tensor_map(&tk, k, DQK, p.skv,",
+         "      !tensor_map(&tk, k, T::kDqp, p.skv,")],
     "pv_block_stride_of_q": [
         ("                     kTileK * T::kRowBytes, kSbo, T::kLayout);",
          "                     kTileQ * T::kRowBytes, kSbo, T::kLayout);")],
+}
+# MLA's pair (query/key 192, value 128), run on chip_smoke.K1_MLA only
+MLA_MUTANTS = {
+    # the softmax scale of the value width, 1/sqrt(128), not 1/sqrt(192)
+    "scale_of_dv": [
+        ("                  1.0f / sqrtf(static_cast<float>(d)),",
+         "                  1.0f / sqrtf(static_cast<float>(dv)),")],
+    # Q K^T over the value width: the 64 rope columns left out (bf16)
+    "qk_without_rope": [
+        ("    for (int ks = 0; ks < DQK / 16; ++ks)\n"
+         "      wgmma_qk<kTileK>",
+         "    for (int ks = 0; ks < DV / 16; ++ks)\n      wgmma_qk<kTileK>")],
+    # V's rows read at the query/key width (f32): each 192 floats from a
+    # 128-wide row, so a tile's rows run into the next head's columns
+    "f32_v_rows_at_qk_width": [
+        ("      const int r = i / (DV / 4), c = (i % (DV / 4)) * 4;",
+         "      const int r = i / (DQK / 4), c = (i % (DQK / 4)) * 4;")],
 }
 RUN = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as cs; "
        "cs._build.build(); "
@@ -86,10 +113,14 @@ def main() -> int:
     """Returns 1 when a mutant passed ``check_k1``, else 0."""
     missed = 0
     os.chdir(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-    runs = [(name, subs, "") for name, subs in MUTANTS.items()
-            if "--widths" not in sys.argv[1:]]
-    runs += [(name, subs, ", cs.K1_NEW_WIDTHS")
-             for name, subs in WIDTH_MUTANTS.items()]
+    only = [a for a in sys.argv[1:] if a in ("--widths", "--mla")]
+    runs = [(name, subs, "") for name, subs in MUTANTS.items() if not only]
+    if not only or "--widths" in only:
+        runs += [(name, subs, ", cs.K1_NEW_WIDTHS")
+                 for name, subs in WIDTH_MUTANTS.items()]
+    if not only or "--mla" in only:
+        runs += [(name, subs, ", cs.K1_MLA")
+                 for name, subs in MLA_MUTANTS.items()]
     for name, subs, names in runs:
         tmp = tempfile.mkdtemp(prefix=f"k1_{name}_")
         try:
