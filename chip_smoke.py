@@ -284,7 +284,8 @@ from repro_torch.train.data import (DataConfig, ShardedLoader,  # noqa: E402
 from repro_torch.train.loop import (  # noqa: E402
     _value_and_grad as value_and_grad, make_train_step, train_step_exports)
 from repro_torch.train.optimizer import (  # noqa: E402
-    OptimizerConfig, adamw_init, adamw_update, tree_leaves)
+    OptimizerConfig, adamw_init, adamw_update, make_optimizer,
+    opt_state_abstract, tree_leaves)
 from repro_torch.train.optimizer import tree_map as map_leaves  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
@@ -652,35 +653,46 @@ def check_k2(gen) -> dict:
     return entry
 
 
-K1B_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, q_offset
+K1B_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, Dv, causal, window, cap,
+    #             q_offset
     # llama3-1b's training step: one card's share of fig6's 4 x 2048 cell
-    ("train", 4, 32, 8, 2048, 2048, 64, True, 0, 0.0, 0),
+    ("train", 4, 32, 8, 2048, 2048, 64, 64, True, 0, 0.0, 0),
     # the strided [B, S, H, D] layout gqa_forward passes, and its dO
-    ("train_bshd", 2, 32, 8, 1024, 1024, 64, True, 0, 0.0, 0),
+    ("train_bshd", 2, 32, 8, 1024, 1024, 64, 64, True, 0, 0.0, 0),
     # phase 10's per-rank step (1 x 2048 of llama3-1b on [4, 1]): at B=1
     # the persistent dK/dV grid has 128 items, fewer than the 132 SMs
-    ("rank_bshd", 1, 32, 8, 2048, 2048, 64, True, 0, 0.0, 0),
-    ("window", 1, 8, 2, 700, 700, 64, True, 100, 0.0, 0),
+    ("rank_bshd", 1, 32, 8, 2048, 2048, 64, 64, True, 0, 0.0, 0),
+    ("window", 1, 8, 2, 700, 700, 64, 64, True, 100, 0.0, 0),
     # a strong cap: its derivative 1 - tanh^2 is far from 1
-    ("cap1", 2, 8, 2, 300, 300, 64, True, 0, 1.0, 0),
-    ("ragged_offset", 1, 8, 2, 1000, 1111, 64, True, 0, 0.0, 111),
-    ("bidir_d32", 2, 4, 4, 300, 333, 32, False, 0, 0.0, 0),
-    ("d128_group8", 1, 8, 1, 520, 520, 128, True, 0, 0.0, 0),
+    ("cap1", 2, 8, 2, 300, 300, 64, 64, True, 0, 1.0, 0),
+    ("ragged_offset", 1, 8, 2, 1000, 1111, 64, 64, True, 0, 0.0, 111),
+    ("bidir_d32", 2, 4, 4, 300, 333, 32, 32, False, 0, 0.0, 0),
+    ("d128_group8", 1, 8, 1, 520, 520, 128, 128, True, 0, 0.0, 0),
     # q_offset past the window: no query sees a key (lse = -inf)
-    ("no_visible_key", 1, 4, 2, 64, 64, 64, True, 8, 0.0, 100),
+    ("no_visible_key", 1, 4, 2, 64, 64, 64, 64, True, 8, 0.0, 100),
     # stablelm-12b's 160 (five 32-column blocks) and zamba2-2.7b's 80
     # (padded to 96 in shared memory): a window, no causal mask, a strong
     # cap, ragged across the 128-row and 128-key items with an offset
-    ("window_d160", 1, 8, 2, 700, 700, 160, True, 100, 0.0, 0),
-    ("bidir_d80", 2, 4, 4, 300, 333, 80, False, 0, 0.0, 0),
-    ("cap_d80_bshd", 2, 8, 8, 300, 300, 80, True, 0, 1.0, 0),
-    ("ragged_d160_bshd", 1, 8, 2, 1000, 1111, 160, True, 0, 0.0, 111),
-    ("ragged_d80_bshd", 1, 8, 2, 1000, 1111, 80, True, 0, 0.0, 111),
+    ("window_d160", 1, 8, 2, 700, 700, 160, 160, True, 100, 0.0, 0),
+    ("bidir_d80", 2, 4, 4, 300, 333, 80, 80, False, 0, 0.0, 0),
+    ("cap_d80_bshd", 2, 8, 8, 300, 300, 80, 80, True, 0, 1.0, 0),
+    ("ragged_d160_bshd", 1, 8, 2, 1000, 1111, 160, 160, True, 0, 0.0, 111),
+    ("ragged_d80_bshd", 1, 8, 2, 1000, 1111, 80, 80, True, 0, 0.0, 111),
+    # deepseek-v3-671b's MLA: query/key 192 (three 64-column blocks) beside
+    # a value width of 128 (two), in the strided layout mla_forward passes,
+    # ragged across the 128-key items and 64-key dQ steps with an offset;
+    # its group 1, and group 2
+    ("mla_ragged_bshd", 1, 8, 8, 1000, 1111, 192, 128, True, 0, 0.0, 111),
+    ("mla_ragged_g2_bshd", 1, 8, 4, 1000, 1111, 192, 128, True, 0, 0.0,
+     111),
 ]
 # the cases at head_dim 80 and 160 (tools/mutate_k1b.py --widths runs these
 # alone)
 K1B_NEW_WIDTHS = ("window_d160", "bidir_d80", "cap_d80_bshd",
                   "ragged_d160_bshd", "ragged_d80_bshd")
+# the cases at MLA's (192, 128) (tools/mutate_k1b.py --mla runs these
+# alone), each also launched twice to equal bits
+K1B_MLA = ("mla_ragged_bshd", "mla_ragged_g2_bshd")
 
 
 def check_k1b(gen, names=None) -> dict:
@@ -690,31 +702,41 @@ def check_k1b(gen, names=None) -> dict:
     backward as the yardstick."""
     entry = None
     for dtype in (torch.bfloat16, torch.float32):
-        for name, b, hq, hkv, sq, skv, d, causal, window, cap, off in \
+        for name, b, hq, hkv, sq, skv, d, dv, causal, window, cap, off in \
                 K1B_CASES:
             if names is not None and name not in names:
                 continue
             kw = dict(causal=causal, window=window, logit_cap=cap,
                       q_offset=off)
             layout = "x_bshd" if name.endswith("_bshd") else "x"
-            q, k, v = k1_inputs(gen, layout, b, hq, hkv, sq, skv, d, dtype)
-            do, _, _ = k1_inputs(gen, layout, b, hq, hkv, sq, skv, d, dtype)
+            q, k, v = k1_inputs(gen, layout, b, hq, hkv, sq, skv, d, dtype,
+                                dv)
+            # dO as wide as o and V
+            do, _, _ = k1_inputs(gen, layout, b, hq, hkv, sq, skv, dv, dtype)
             o, lse = k1_ops._forward(q, k, v, with_lse=True, **kw)
             grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
             errs = k1b_error(grads, q, k, v, o, lse, do, **kw)
             finite = all(bool(torch.isfinite(g).all()) for g in grads)
             worst = max(max(e[1], e[2]) for e in errs)
-            ok = finite and math.isfinite(worst) and worst <= 1.0
+            same = True
+            if name in K1B_MLA:
+                again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                same = all(torch.equal(x, y) for x, y in zip(grads, again))
+                del again
+            ok = finite and same and math.isfinite(worst) and worst <= 1.0
             log(f"  K1b {name:<14} {str(dtype)[6:]:<8} B={b} Hq={hq} "
-                f"Hkv={hkv} Sq={sq} Skv={skv} d={d}; max_abs_err, element "
-                f"and row in units of the tolerance: " + "; ".join(
+                f"Hkv={hkv} Sq={sq} Skv={skv} d={d} dv={dv}; max_abs_err, "
+                f"element and row in units of the tolerance: " + "; ".join(
                     f"d{n} {e[0]:.3e} {e[1]:.3f} {e[2]:.3f}"
                     for n, e in zip("qkv", errs))
+                + ("; a second launch "
+                   f"{'bit-identical' if same else 'DIFFERENT'}"
+                   if name in K1B_MLA else "")
                 + f" {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K1b {name} {dtype}: {errs}, finite "
-                                     f"{finite}")
+                                     f"{finite}, bit-identical {same}")
             if name != "train" or names is not None:
                 continue
             again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -759,22 +781,24 @@ def check_k1b(gen, names=None) -> dict:
     return entry
 
 
-K1B_FAMILY_CASES = [  # name, B, Hq, Hkv, S, window, cap, D
+K1B_FAMILY_CASES = [  # name, B, Hq, Hkv, S, window, cap, D, Dv
     # phase 15's train steps, in the strided [B, S, H, D] layout the
     # training path hands K1b: mixtral-8x22b's window, gemma2-27b's local
     # and global layers with its tanh cap of 50, qwen2.5-32b's and
     # deepseek-67b's groups of 5 and 8 (D 128); stablelm-12b's D 160 (group
-    # 4) and zamba2-2.7b's shared block at D 80 (group 1)
-    ("mixtral", 1, 48, 8, 8192, 4096, 0.0, 128),
-    ("gemma2_local", 1, 32, 16, 8192, 4096, 50.0, 128),
-    ("gemma2_global", 1, 32, 16, 8192, 0, 50.0, 128),
-    ("qwen2.5", 2, 40, 8, 4096, 0, 0.0, 128),
-    ("deepseek", 2, 64, 8, 4096, 0, 0.0, 128),
-    ("stablelm", 2, 32, 8, 4096, 0, 0.0, 160),
-    ("zamba2", 2, 32, 32, 4096, 0, 0.0, 80),
+    # 4) and zamba2-2.7b's shared block at D 80 (group 1); deepseek-v3-671b's
+    # MLA, query/key 192 beside a value width of 128 at 128 heads (group 1)
+    ("mixtral", 1, 48, 8, 8192, 4096, 0.0, 128, 128),
+    ("gemma2_local", 1, 32, 16, 8192, 4096, 50.0, 128, 128),
+    ("gemma2_global", 1, 32, 16, 8192, 0, 50.0, 128, 128),
+    ("qwen2.5", 2, 40, 8, 4096, 0, 0.0, 128, 128),
+    ("deepseek", 2, 64, 8, 4096, 0, 0.0, 128, 128),
+    ("stablelm", 2, 32, 8, 4096, 0, 0.0, 160, 160),
+    ("zamba2", 2, 32, 32, 4096, 0, 0.0, 80, 80),
+    ("mla_train", 2, 128, 128, 4096, 0, 0.0, 192, 128),
 ]
 # the family cases held in f32 too (untimed): the new head widths
-K1B_FAMILY_F32 = ("stablelm", "zamba2")
+K1B_FAMILY_F32 = ("stablelm", "zamba2", "mla_train")
 
 
 def k1b_error_by_head(grads, q, k, v, o, lse, do, **kw):
@@ -795,8 +819,8 @@ def k1b_error_by_head(grads, q, k, v, o, lse, do, **kw):
 
 def k1b_library_ms(q, k, v, do, window, cap):
     """One SDPA call's backward computing what K1b computes (causal, or a
-    boolean mask for a window with K and V repeated over the query heads),
-    timed; None with a tanh cap."""
+    boolean mask for a window with K and V repeated over the query heads;
+    V as wide as it is), timed; None with a tanh cap."""
     if cap > 0:
         return None
     lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -827,11 +851,11 @@ def check_k1b_families(gen) -> None:
     runs = [(case, torch.bfloat16) for case in K1B_FAMILY_CASES] + [
         (case, torch.float32) for case in K1B_FAMILY_CASES
         if case[0] in K1B_FAMILY_F32]
-    for (name, b, hq, hkv, s, window, cap, d), dtype in runs:
+    for (name, b, hq, hkv, s, window, cap, d, dv), dtype in runs:
         t0 = time.perf_counter()
         kw = dict(causal=True, window=window, logit_cap=cap, q_offset=0)
-        q, k, v = k1_inputs(gen, "x_bshd", b, hq, hkv, s, s, d, dtype)
-        do, _, _ = k1_inputs(gen, "x_bshd", b, hq, hkv, s, s, d, dtype)
+        q, k, v = k1_inputs(gen, "x_bshd", b, hq, hkv, s, s, d, dtype, dv)
+        do, _, _ = k1_inputs(gen, "x_bshd", b, hq, hkv, s, s, dv, dtype)
         o, lse = k1_ops._forward(q, k, v, with_lse=True, **kw)
         grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
         again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -843,7 +867,8 @@ def check_k1b_families(gen) -> None:
         worst = max(max(e[1], e[2]) for e in errs)
         ok = finite and same and math.isfinite(worst) and worst <= 1.0
         held = (f"  K1b {name:<13} {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} "
-                f"S={s} d={d} window {window} cap {cap:g}; max_abs_err, "
+                f"S={s} d={d} dv={dv} window {window} cap {cap:g}; "
+                "max_abs_err, "
                 "element and row in units of the tolerance: " + "; ".join(
                     f"d{n} {e[0]:.3e} {e[1]:.3f} {e[2]:.3f}"
                     for n, e in zip("qkv", errs))
@@ -866,8 +891,13 @@ def check_k1b_families(gen) -> None:
             for hs, qh, kh, vh in by_kv_head(q, k, v)], batches=2,
             per_batch=1)
         lib_ms = k1b_library_ms(q, k, v, do, window, cap)
+        if dv != d and lib_ms is not None:
+            log(f"  K1b {name}: SDPA at Ev={dv} takes the "
+                f"{sdpa_backend(q, k, v)} backend")
         pairs = k1_visible_pairs(s, s, True, window, 0) * b * hq
-        flops = 5 * 2 * d * pairs
+        # S and dQ, dK over d columns, dP and dV over dv: 2 operations a
+        # product, each a pair
+        flops = 2 * (3 * d + 2 * dv) * pairs
         nbytes = sum(t.numel() * t.element_size()
                      for t in (q, k, v, o, do, lse, *grads))
         bound_ms, bound_by = bound(flops, nbytes, dtype)
@@ -902,9 +932,15 @@ K2B_CASES = [  # name, rows, d, offset
     ("deepseek", 8192, 8192, 0.0),
     # zamba2-2.7b's norms at 2 x 4096 (3 groups of 160 threads a block)
     ("zamba2", 8192, 2560, 0.0),
+    # deepseek-v3-671b's at 2 x 4096: ln1, ln2 and the final norm at
+    # d_model 7168, MLA's q_norm at 1536 and kv_norm at 512 (32 threads a
+    # row, below the groups kernel's 64: the block kernel)
+    ("deepseek-v3", 8192, 7168, 0.0),
+    ("mla_q_norm", 8192, 1536, 0.0),
+    ("mla_kv_norm", 8192, 512, 0.0),
 ]
 K2B_TIMED = ("train", "mamba_ln", "decode", "mixtral", "gemma2", "qwen2.5",
-             "deepseek", "zamba2")
+             "deepseek", "zamba2", "deepseek-v3", "mla_q_norm", "mla_kv_norm")
 
 
 def k2b_route(fn) -> str:
@@ -3245,28 +3281,36 @@ def families_phase() -> list:
 # phase 15: the families' training paths
 # --------------------------------------------------------------------------
 
-# (id, layers kept of the published depth, batch, seq): each at its
-# published width with random weights from the seed, AdamW with bf16
-# parameters and gradients and f32 moments (12 bytes a parameter) updated
-# in place (``donate=True``, the reference's donate_argnums), its depth cut
-# for one card's memory (PERF.md section 4), remat off so that each
-# kernel's forward runs once a step.  gemma2-27b takes 6144 tokens, still
-# past its 4096-token window: its f32 logits over a 256000-token vocabulary
-# are 8.4 GB at 8192 tokens, and the head's backward holds three such
-# tensors beside the state (out of memory at 8192 on an 80 GB card)
-FAMILY_TRAIN = [  # arch, layers, B, S, remat
-    ("mamba2-370m", 48, 4, 2048, "none"),
-    ("mixtral-8x22b", 1, 1, 8192, "none"),
-    ("gemma2-27b", 2, 1, 6144, "none"),
-    ("qwen2.5-32b", 1, 2, 4096, "none"),
-    ("deepseek-67b", 1, 2, 4096, "none"),
+# (id, layers kept of the published depth, batch, seq, remat, optimizer):
+# each at its published width with random weights from the seed, bf16
+# parameters and gradients, updated in place (``donate=True``, the
+# reference's donate_argnums), its depth cut for one card's memory (PERF.md
+# section 4), remat off so that each kernel's forward runs once a step;
+# AdamW with f32 moments (12 bytes a parameter), or Adafactor (factored f32
+# moments) where the reference's dry run picks it.  gemma2-27b takes 6144
+# tokens, still past its 4096-token window: its f32 logits over a
+# 256000-token vocabulary are 8.4 GB at 8192 tokens, and the head's backward
+# holds three such tensors beside the state (out of memory at 8192 on an 80
+# GB card)
+FAMILY_TRAIN = [  # arch, layers, B, S, remat, optimizer
+    ("mamba2-370m", 48, 4, 2048, "none", "adamw"),
+    ("mixtral-8x22b", 1, 1, 8192, "none", "adamw"),
+    ("gemma2-27b", 2, 1, 6144, "none", "adamw"),
+    ("qwen2.5-32b", 1, 2, 4096, "none", "adamw"),
+    ("deepseek-67b", 1, 2, 4096, "none", "adamw"),
     # K1 and K1b at head_dim 160: 4 of 40 layers (the untied 100352-token
     # head and embedding are 1.03 B parameters, the f32 logits 3.3 GB)
-    ("stablelm-12b", 4, 2, 4096, "none"),
+    ("stablelm-12b", 4, 2, 4096, "none", "adamw"),
     # the hybrid at full depth with its published remat="full": 54 Mamba2
     # layers (K3, K3b) and 9 uses of the shared attention block (K1, K1b at
     # head_dim 80), each super-block recomputed in the backward
-    ("zamba2-2.7b", 54, 2, 4096, "full"),
+    ("zamba2-2.7b", 54, 2, 4096, "full", "adamw"),
+    # MLA (K1 and K1b at query/key 192, value 128) and 256 experts at
+    # top-8: one layer is 11.51 B parameters, with the untied head and
+    # embedding 13.36 B, 26.7 GB in bf16 and as much again of gradients;
+    # AdamW's f32 moments (107 GB) would not fit, Adafactor's do
+    # (src/repro/launch/dryrun.py:123 picks it for this id)
+    ("deepseek-v3-671b", 1, 2, 4096, "none", "adafactor"),
 ]
 FAMILY_WARMUP, FAMILY_STEPS = 2, 3
 # the hybrid's gradient gate runs on its first super-blocks and
@@ -3275,6 +3319,10 @@ FAMILY_WARMUP, FAMILY_STEPS = 2, 3
 # and a gate there holds nothing
 GATE_SUPER_BLOCKS = 2
 GATE_SSM_LAYERS = 4
+# deepseek-v3-671b's gate: the routed experts cut from 256 to this (top-8
+# kept) and its batch to one row, since the f32 run of the step's model
+# alone would need 2 x 53 GB (PERF.md section 4)
+GATE_EXPERTS = 32
 # the export's operators -> the launch counters
 EXPORT_COUNTERS = dict(EXPORT_OPS, ssd_scan_states="ssd_scan",
                        ssd_scan_bwd="ssd_scan_bwd")
@@ -3301,40 +3349,79 @@ def masked_grads(cfg, params, batch, keep=None):
     return map_leaves(lambda _: next(grads), params)
 
 
-def gate_distances(cfg, params, batch) -> dict:
+def routings(cfg, params, batch, f32: bool) -> list:
+    """Each MoE layer's routing ([T, E], after the capacity drops) through
+    the K1 path, the plain path (chunked attention, plain norms) and, with
+    ``f32``, an f32 plain run of the same weights: a tuple of those for
+    each layer."""
+    plain = cfg.scaled(attn_impl="chunked", remat="full")
+    confs = [(cfg, False), (plain, False)]
+    if f32:
+        confs.append((plain.scaled(dtype="float32"), True))
+    runs = []
+    with torch.no_grad():
+        for c, as_f32 in confs:
+            with plain_norms() if c is not cfg else \
+                    contextlib.nullcontext(), routes_recorded() as seen:
+                p = tree_map(params, lambda t: t.float()) if as_f32 else \
+                    params
+                _scan_layers(c, p, _embed(c, p, batch), _positions(batch))
+                del p
+            runs.append([routed(cfg, e) for e in seen])
+    return list(zip(*runs))
+
+
+def flip_gate(cfg, params, batch) -> None:
+    """The routing-flip gate alone, on bf16 runs: at every MoE layer the
+    share of tokens routed otherwise by the K1 and the plain path at most
+    ROUTING_FLIP_TOL."""
+    for layer, (r, rp) in enumerate(routings(cfg, params, batch, False)):
+        flip = (r != rp).any(-1)
+        share = flip.float().mean().item()
+        log(f"    MoE layer {layer}: experts differ between the K1 and the "
+            f"plain path for {int(flip.sum())} of {flip.numel()} tokens "
+            f"({share:.4%}, tol {ROUTING_FLIP_TOL:.0%})")
+        if share > ROUTING_FLIP_TOL:
+            raise AssertionError(f"{cfg.name} MoE layer {layer}: "
+                                 f"{share:.4%} of tokens flip")
+
+
+def gate_distances(cfg, params, batch, flips_from: str = "plain") -> dict:
     """Each parameter's bf16 gradient through the kernels and through the
     plain bf16 path, as distances from an f32 plain run relative to its
     norm: {name: (kernels, plain)}; raises if a parameter got no gradient
-    through the kernels.  With an MoE, first the share of tokens routed
-    otherwise by the K1 and the plain path (held at ROUTING_FLIP_TOL),
-    then the loss taken only over the tokens that all three runs routed
-    alike at every layer."""
+    through the kernels.  With an MoE, first each layer's routing flips:
+    the share of tokens routed otherwise by the K1 and the plain path
+    (``flips_from="plain"``: held at ROUTING_FLIP_TOL), or by each path
+    and the f32 run (``"f32"``: the K1 path's share within LOGIT_FACTOR
+    times the plain path's, as the gradients are held); then the loss
+    taken only over the tokens that all three runs routed alike at every
+    layer."""
     plain = cfg.scaled(attn_impl="chunked", remat="full")
     cfg32 = plain.scaled(dtype="float32")
     keep = None
     if cfg.moe is not None:
-        runs = []
-        with torch.no_grad():
-            for c, f32 in ((cfg, False), (plain, False), (cfg32, True)):
-                with plain_norms() if c is not cfg else \
-                        contextlib.nullcontext(), routes_recorded() as seen:
-                    p = tree_map(params, lambda t: t.float()) if f32 else \
-                        params
-                    _scan_layers(c, p, _embed(c, p, batch), _positions(batch))
-                    del p
-                runs.append([routed(cfg, e) for e in seen])
         keep = torch.ones(batch["tokens"].numel(), dtype=torch.bool,
                           device="cuda")
-        for layer, (r, rp, r32) in enumerate(zip(*runs)):
-            flip = (r != rp).any(-1)
-            share = flip.float().mean().item()
-            keep &= ~(flip | (r != r32).any(-1))
+        for layer, (r, rp, r32) in enumerate(routings(cfg, params, batch,
+                                                      True)):
+            flip, flip_k, flip_p = ((a != b).any(-1) for a, b in
+                                    ((r, rp), (r, r32), (rp, r32)))
+            share, share_k, share_p = (x.float().mean().item() for x in
+                                       (flip, flip_k, flip_p))
+            keep &= ~(flip | flip_k)
+            tol = (f"tol {ROUTING_FLIP_TOL:.0%}" if flips_from == "plain"
+                   else f"the K1 path's from f32 held within {LOGIT_FACTOR:g}"
+                   " x the plain path's")
             log(f"    MoE layer {layer}: experts differ between the K1 and "
                 f"the plain path for {int(flip.sum())} of {flip.numel()} "
-                f"tokens ({share:.4%}, tol {ROUTING_FLIP_TOL:.0%})")
-            if share > ROUTING_FLIP_TOL:
-                raise AssertionError(f"{cfg.name} MoE layer {layer}: "
-                                     f"{share:.4%} of tokens flip")
+                f"tokens ({share:.4%}); from the f32 run the K1 path's "
+                f"{share_k:.4%}, the plain path's {share_p:.4%} ({tol})")
+            if (share > ROUTING_FLIP_TOL if flips_from == "plain" else
+                    share_k > LOGIT_FACTOR * share_p):
+                raise AssertionError(
+                    f"{cfg.name} MoE layer {layer}: {share:.4%} of tokens "
+                    f"flip ({share_k:.4%} and {share_p:.4%} from f32)")
         keep = keep.view(batch["tokens"].shape)
         log(f"    the gate's loss over the {int(keep.sum())} of "
             f"{keep.numel()} tokens routed alike by all three runs")
@@ -3354,11 +3441,11 @@ def gate_distances(cfg, params, batch) -> dict:
     return rows
 
 
-def family_gate(cfg, params, batch) -> None:
+def family_gate(cfg, params, batch, flips_from: str = "plain") -> None:
     """The gradient gate of phase 7 on the step's model: every parameter's
     bf16 gradient through the kernels within LOGIT_FACTOR times the plain
     bf16 path's distance from an f32 plain run (:func:`gate_distances`)."""
-    rows = gate_distances(cfg, params, batch)
+    rows = gate_distances(cfg, params, batch, flips_from)
     name, (dk, dp) = max(rows.items(), key=lambda r: r[1][0] / r[1][1])
     failed = [f"{n} kernels {k} > {LOGIT_FACTOR} x plain {p}"
               for n, (k, p) in rows.items() if not k <= LOGIT_FACTOR * p]
@@ -3373,9 +3460,10 @@ def family_gate(cfg, params, batch) -> None:
 
 def train_launches(cfg) -> dict:
     """The launches of one train step of ``cfg``: each layer's mixer (K1
-    or K3) and norms (two a layer, and the hybrid's shared block two more a
-    super-block), forward and backward; under remat="full" every block's
-    forward runs again in the backward; the final norm once each way."""
+    or K3) and norms (two a layer, four with MLA, and the hybrid's shared
+    block two more a super-block), forward and backward; under
+    remat="full" every block's forward runs again in the backward; the
+    final norm once each way."""
     n = cfg.num_layers
     if cfg.family == "hybrid":
         n_attn = n // cfg.hybrid_attn_every
@@ -3384,7 +3472,9 @@ def train_launches(cfg) -> dict:
     elif cfg.family == "ssm":
         mixers, norms = {"ssd_scan": n}, 2 * n
     else:
-        mixers, norms = {"flash_attention": n}, 2 * n
+        # MLA's layers norm four times: ln1, q_norm, kv_norm, ln2
+        mixers, norms = {"flash_attention": n}, (
+            4 if cfg.mla is not None else 2) * n
     again = 2 if cfg.remat == "full" else 1
     expected = {k: 0 for k in COUNTERS}
     for k, m in mixers.items():
@@ -3393,34 +3483,73 @@ def train_launches(cfg) -> dict:
     return expected
 
 
+def train_memory(cfg, specs, b: int, s: int, opt: str) -> float:
+    """The reckoning of a train step's peak device memory, printed before
+    the step runs: parameters and gradients in bf16, the optimizer's
+    state, the head's f32 logits (about three live in its backward), the
+    head cast to f32 (an f32 GEMM: the reference's bf16 x bf16 -> f32
+    product) and an MoE layer's capacity buffer.  The layers' other
+    activations are left out.  Returns the sum in bytes."""
+    n_params = param_count(specs)
+    state = sum(t.numel() * t.element_size() for t in tree_leaves(
+        opt_state_abstract(specs, opt)))
+    tokens = b * s
+    terms = {"parameters and gradients (bf16)": 4 * n_params,
+             f"{opt} state": state}
+    if cfg.loss_vocab_chunk <= 0:
+        terms["3 x the head's f32 logits"] = 3 * 4 * tokens * cfg.vocab_size
+    terms["the head in f32"] = 4 * cfg.vocab_size * cfg.d_model
+    if cfg.moe is not None:
+        terms["an MoE capacity buffer (bf16)"] = (
+            2 * cfg.moe.num_experts * cfg.d_model
+            * moe_capacity(tokens, cfg.moe))
+    total = sum(terms.values())
+    log("  memory reckoned before the run: " + "; ".join(
+        f"{k} {v / 1e9:.2f} GB" for k, v in terms.items())
+        + f"; {total / 1e9:.2f} GB ({total / 2**30:.2f} GiB) of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB"
+        " (the layers' other activations not counted)")
+    return total
+
+
 def train_family(arch: str, layers: int, b: int, s: int, gen,
-                 remat: str = "none") -> dict:
+                 remat: str = "none", opt: str = "adamw") -> dict:
     """One id's train step at full width, ``layers`` deep: FAMILY_WARMUP +
-    FAMILY_STEPS AdamW steps on one repeated batch, the launch counts read
-    around the counted ones; then the step's export on fake ``cuda``
-    tensors and its prediction on ``h100``, the gradient gate (the hybrid's
-    on its first GATE_SUPER_BLOCKS super-blocks) and one profiled step.
-    Returns the launch counts."""
+    FAMILY_STEPS steps of ``opt`` (donated) on one repeated batch, the
+    launch counts read around the counted ones; then, for Adafactor, the
+    step's two halves timed alone; one profiled step, the step's export on
+    fake ``cuda`` tensors and its prediction on ``h100``, and the gradient
+    gate (the hybrid's on its first GATE_SUPER_BLOCKS super-blocks,
+    mamba2-370m's on its first GATE_SSM_LAYERS layers, deepseek-v3-671b's
+    with GATE_EXPERTS routed experts on one row of the batch).  Returns the
+    launch counts."""
     cfg = get_config(arch).scaled(num_layers=layers, remat=remat)
     assert cfg.attn_impl == "kernel" and cfg.dtype == "bfloat16"
     torch.cuda.empty_cache()
     specs = model_specs(cfg)
-    params = init_params(specs, gen, "cuda")
-    opt_cfg = OptimizerConfig(warmup_steps=1)
-    opt_state = adamw_init(params, opt_cfg)
-    step_fn = make_train_step(cfg, opt_cfg, donate=True)
-    batch = {k: torch.from_numpy(x).cuda() for k, x in next(SyntheticSource(
-        DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
-                   seed=0))).items()}
     n_params = param_count(specs)
     log(f"  {arch}: {layers} of {get_config(arch).num_layers} layers, "
         f"d_model {cfg.d_model}, "
         + ("" if cfg.family == "ssm" else
            f"head_dim {cfg.resolved_head_dim}, ")
-        + f"{n_params / 1e9:.3f} B parameters ({cfg.dtype}), AdamW with f32 "
-        f"moments, remat {remat}, batch {b}x{s}; reduced: "
+        + (f"MLA query/key {cfg.mla.qk_nope_head_dim} + "
+           f"{cfg.mla.qk_rope_head_dim}, value {cfg.mla.v_head_dim}, "
+           if cfg.mla is not None else "")
+        + f"{n_params / 1e9:.3f} B parameters ({cfg.dtype}), "
+        + ("AdamW with f32 moments" if opt == "adamw" else
+           "Adafactor with factored f32 moments, a slice of a leaf at a time")
+        + f", remat {remat}, batch {b}x{s}; reduced: "
         + ("none" if layers == get_config(arch).num_layers else
            f"num_layers {get_config(arch).num_layers} -> {layers}"))
+    train_memory(cfg, specs, b, s, opt)
+    params = init_params(specs, gen, "cuda")
+    opt_cfg = OptimizerConfig(name=opt, warmup_steps=1)
+    init_fn, update_fn = make_optimizer(opt_cfg)
+    opt_state = init_fn(params, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, donate=True)
+    batch = {k: torch.from_numpy(x).cuda() for k, x in next(SyntheticSource(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                   seed=0))).items()}
     losses, times = [], []
     for i in range(FAMILY_WARMUP + FAMILY_STEPS):
         if i == FAMILY_WARMUP:
@@ -3454,6 +3583,21 @@ def train_family(arch: str, layers: int, b: int, s: int, gen,
             losses[0]:
         raise AssertionError(f"{arch} losses {losses}: not finite, or not "
                              "falling on a repeated batch")
+    if opt != "adamw":
+        # the step's halves, each the median of 2 synchronised runs: the
+        # forward and backward, and the optimizer (its clip included) on
+        # their gradients, in place
+        fwd_bwd_ms = 1e3 * statistics.median(
+            timed(lambda: value_and_grad(cfg, params, batch)) for _ in
+            range(2))
+        grads = value_and_grad(cfg, params, batch)[1]
+        opt_ms = 1e3 * statistics.median(
+            timed(lambda: update_fn(params, grads, opt_state, opt_cfg,
+                                    donate=True)) for _ in range(2))
+        del grads
+        log(f"  of a step: forward and backward {fwd_bwd_ms:.2f} ms, {opt} "
+            f"(clip included) {opt_ms:.2f} ms "
+            f"({opt_ms / (fwd_bwd_ms + opt_ms):.1%} of their sum; {card()})")
     profile_window(f"{arch} train step {b}x{s}",
                    lambda: float(step_fn(params, opt_state, batch)[2]["loss"]),
                    top=12, groups=FAMILY_TRAIN_GROUPS)
@@ -3461,7 +3605,7 @@ def train_family(arch: str, layers: int, b: int, s: int, gen,
     torch.cuda.empty_cache()
 
     # the step's export on fake cuda tensors, and its prediction
-    step, args = train_step_exports(cfg, s, b)
+    step, args = train_step_exports(cfg, s, b, opt_cfg=opt_cfg)
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in COUNTERS.items()}
     mem = torch.cuda.memory_allocated()
@@ -3497,6 +3641,28 @@ def train_family(arch: str, layers: int, b: int, s: int, gen,
     # (0.1 to 4.8 of the norm), so that a gate there holds nothing and
     # passes or fails with the draw (tools/gate_draws.py, PERF.md); at
     # fan-in init they are within 0.08 of it on the gates' models
+    flips_from = "plain"
+    if cfg.moe is not None and cfg.moe.num_experts > GATE_EXPERTS and \
+            cfg.mla is not None:
+        # the routing-flip gate on the trained model and its batch; on the
+        # gate's model (top-8 of 32 at fan-in init) both bf16 paths route
+        # 1.5-2.8% of tokens otherwise than f32 (PERF.md section 6), so there
+        # the K1 path's flips from f32 are held to the plain path's
+        log(f"    the routing-flip gate on the step's model ("
+            f"{cfg.moe.num_experts} experts, batch {b}x{s})")
+        flip_gate(cfg, params, batch)
+        flips_from = "f32"
+        del params
+        torch.cuda.empty_cache()
+        cfg = cfg.scaled(moe=replace(cfg.moe, num_experts=GATE_EXPERTS))
+        specs = model_specs(cfg)
+        batch = {k: x[:1] for k, x in batch.items()}
+        params = init_params(specs, gen, "cuda")
+        log(f"    the gate's model: {cfg.moe.num_experts} routed experts of "
+            f"{get_config(arch).moe.num_experts} (top-{cfg.moe.top_k}), "
+            f"batch 1x{s}, {param_count(specs) / 1e9:.3f} B parameters; "
+            f"reduced: moe.num_experts {get_config(arch).moe.num_experts} -> "
+            f"{cfg.moe.num_experts}, batch {b} -> 1")
     fan_in_init(specs, params, gen)
     log("    the gate's weights: the step's model redrawn at fan-in init")
     cut = None
@@ -3509,7 +3675,7 @@ def train_family(arch: str, layers: int, b: int, s: int, gen,
         cut = GATE_SSM_LAYERS
         log(f"    the gate's model: the first {cut} layers")
     if cut is None:
-        family_gate(cfg, params, batch)
+        family_gate(cfg, params, batch, flips_from)
     else:
         family_gate(cfg.scaled(num_layers=cut), dict(params, layers=tree_map(
             params["layers"], lambda t: t[:cut])), batch)
@@ -3519,13 +3685,13 @@ def train_family(arch: str, layers: int, b: int, s: int, gen,
 
 
 def families_train_phase() -> list:
-    """Phase 15: the seven ids' train steps, each id's weights drawn from a
+    """Phase 15: the eight ids' train steps, each id's weights drawn from a
     generator of its own; their launch counts."""
     runs = []
-    for arch, layers, b, s, remat in FAMILY_TRAIN:
+    for arch, layers, b, s, remat, opt in FAMILY_TRAIN:
         t1 = time.perf_counter()
         runs.append(train_family(arch, layers, b, s, seeded(f"train {arch}"),
-                                 remat))
+                                 remat, opt))
         log(f"  {arch}: {time.perf_counter() - t1:.1f} s")
     return runs
 
@@ -3569,8 +3735,9 @@ PORT_KERNELS = {
 # PROFILE_WARM_LAUNCHES small launches of its own, which take that loss;
 # PORT_KERNELS' counts then show that the call lost nothing.  64 did not
 # always do: a stablelm-12b step profiled after deepseek-67b's in a process
-# of its own lost one K2 record too.
-PROFILE_WARM_LAUNCHES = 256
+# of its own lost one K2 record too; nor did 256: mixtral-8x22b's prefill,
+# the first window of phase 14, lost all 256 and one K2 record.
+PROFILE_WARM_LAUNCHES = 2048
 
 
 def profile_window(name: str, fn, top: int = 10, groups=None,
@@ -3769,7 +3936,8 @@ def main() -> int:
     log("[15] the families' training paths: mamba2-370m (K3, K3b), "
         "mixtral-8x22b, gemma2-27b, qwen2.5-32b, deepseek-67b, stablelm-12b "
         "(K1b at head_dim 160), zamba2-2.7b (K3b, K1b at head_dim 80, "
-        "remat full)")
+        "remat full), deepseek-v3-671b (MLA, K1b at query/key 192 and "
+        "value 128; Adafactor)")
     runs += families_train_phase()
     phase_done("phase 15")
     # launches on the main paths: K1 and K2 run on several

@@ -77,6 +77,21 @@
 //   * the producer loads an item's first stages before its K and V (dK/dV)
 //     or Q and dO (dQ), so the next item's loads overlap the current one's
 //     last products and its output.
+//   * MLA (deepseek-v3-671b) gives q and k a width of 192 (128 without rope
+//     + 64 with) and v, o and dO one of 128, so every template takes the
+//     pair (DQK, DV): delta sums over DV columns; S and S^T contract over
+//     DQK (twelve k-steps), dP and dP^T over DV (eight); dV accumulates DV
+//     wide, dK and dQ DQK wide (wgmma at N = 192); Q and K tiles are three
+//     64-column blocks, V and dO two, all under the 128-byte swizzle; the
+//     scale is 1/sqrt(DQK), as K1's.  A dK/dV consumer then holds dK (96
+//     f32 registers a thread) and dV (64), the 160 of D = 160, so it takes
+//     D = 160's steps of 16 query rows in 8 stages: K 48 KB + V 32 KB + 8 x
+//     (Q 6 KB + dO 4 KB + lse, delta) = 163 KB.  A dQ item holds dQ (96)
+//     beside S and dP at 64 keys (32 + 32): Q 48 KB + dO 32 KB + 3 stages
+//     x (K 24 KB + V 16 KB) = 201 KB.  At 2 x 128 heads x 4096 tokens,
+//     causal, the five products over 2.148 G visible pairs are 3.574 TFLOP
+//     (2 x (192 + 128 + 128 + 192 + 192) a pair), 3.614 ms at 989 TFLOP/s;
+//     the 2.68 GB of tensors take 0.80 ms.
 // What is left (tools/trace_k1b.py): the consumers' exponentials and dS,
 // 2 to 3 times their special-function floor, not the tensor cores.
 // f32 (bwd_dkdv_f32, bwd_dq_f32) runs f32 FMAs, four threads a row each
@@ -240,59 +255,80 @@ constexpr int kBarTurn = 1;  // named barriers 1, 2: whose turn at wgmma
 // what both warp-specialised kernels share: 384 threads, the registers
 // given from the producer to the consumers (384 threads at 168 each fill
 // the SM), and the swizzled column blocks of their tiles: 64 columns (the
-// 128-byte swizzle) where they divide D, else 32 (the 64-byte swizzle);
-// D padded to whole blocks (80 -> 96) is the tiles' width
-template <int D>
+// 128-byte swizzle) where they divide both widths, else 32 (the 64-byte
+// swizzle).  Q and K (and dQ, dK) are DQK wide, V and dO (and dV) DV wide,
+// each padded to whole blocks (80 -> 96) in shared memory and registers
+template <int DQK, int DV>
 struct WsTiles {
   static constexpr int kConsumers = 2;
   static constexpr int kThreads = 128 * (1 + kConsumers);
   static constexpr int kProducerRegs = 40;
   static constexpr int kConsumerRegs = 232;
-  static constexpr int kCols = D % 64 == 0 ? 64 : 32;  // a block's columns
-  static constexpr int kDp = (D + kCols - 1) / kCols * kCols;
-  static constexpr int kColBlocks = kDp / kCols;
+  // a block's columns
+  static constexpr int kCols = DQK % 64 == 0 && DV % 64 == 0 ? 64 : 32;
+  static constexpr int kDqkp = (DQK + kCols - 1) / kCols * kCols;
+  static constexpr int kDvp = (DV + kCols - 1) / kCols * kCols;
+  static constexpr int kQkBlocks = kDqkp / kCols;  // Q's, K's column blocks
+  static constexpr int kVBlocks = kDvp / kCols;    // V's, dO's
   static constexpr int kRowBytes = kCols * 2;    // one row of a block
   static constexpr int kLayout = kCols == 64 ? 1 : 2;  // wgmma: 128 or 64 B
   static constexpr uint32_t kSbo = 8 * kRowBytes;      // 8 rows of a block
 };
 
-template <int D>
-struct DkdvTiles : WsTiles<D> {
-  using WsTiles<D>::kDp;
+template <int DQK, int DV>
+struct DkdvTiles : WsTiles<DQK, DV> {
+  using WsTiles<DQK, DV>::kDqkp;
+  using WsTiles<DQK, DV>::kDvp;
   static constexpr int kKeys = kWgRows * 2;  // keys of an item
-  // query rows a step: dK and dV take kDp f32 registers a thread beside
-  // S^T, dP^T and the cap's derivative (3 kRowsQ / 2) and their bf16
-  // fragments (kRowsQ / 4), within the consumers' 232
-  static constexpr int kRowsQ = D == 160 ? 16 : D >= 80 ? 32 : 64;
-  static constexpr int kStages = D == 80 || D == 160 ? 8 : 4;
-  static constexpr int kKVBytes = kKeys * kDp * 2;  // K or V of an item
-  static constexpr int kQBytes = kRowsQ * kDp * 2;  // Q or dO of a step
+  // query rows a step: dK and dV take (kDqkp + kDvp) / 2 f32 registers a
+  // thread beside S^T, dP^T and the cap's derivative (3 kRowsQ / 2) and
+  // their bf16 fragments (kRowsQ / 4), within the consumers' 232: 160 at
+  // D = 160 and at MLA's (192, 128) (dK 96, dV 64), so 16 rows there
+  static constexpr int kAccRegs = (kDqkp + kDvp) / 2;
+  static constexpr int kRowsQ = kAccRegs >= 160 ? 16 : kAccRegs >= 96 ? 32
+                                                                      : 64;
+  static constexpr int kStages = kRowsQ == 16 || DQK == 80 ? 8 : 4;
+  static constexpr int kKBytes = kKeys * kDqkp * 2;  // K of an item
+  static constexpr int kVBytes = kKeys * kDvp * 2;   // V of an item
+  static constexpr int kQBytes = kRowsQ * kDqkp * 2;   // Q of a step
+  static constexpr int kDOBytes = kRowsQ * kDvp * 2;   // dO of a step
   static constexpr int kLDBytes = kRowsQ * 4;     // lse or delta of a step
   static constexpr int kBarBytes = 8 * (2 + 2 * kStages);
-  static constexpr int kSmem = 2 * kKVBytes +
-                               kStages * (2 * kQBytes + 2 * kLDBytes) +
-                               kBarBytes + 1024;
+  static constexpr int kSmem =
+      kKBytes + kVBytes +
+      kStages * (kQBytes + kDOBytes + 2 * kLDBytes) + kBarBytes + 1024;
   static_assert(kSmem <= 232448, "at most 227 KB of shared memory a block");
 };
 
-template <int D>
-struct DqTiles : WsTiles<D> {
-  using WsTiles<D>::kDp;
-  static constexpr int kRows = kWgRows * 2;         // query rows of an item
-  static constexpr int kKeys = D > 64 ? 64 : 128;  // keys a step
-  static constexpr int kStages = D >= 128 ? 3 : 4;
-  static constexpr int kQBytes = kRows * kDp * 2;   // Q or dO of an item
-  static constexpr int kKVBytes = kKeys * kDp * 2;  // K or V of a step
+template <int DQK, int DV>
+struct DqTiles : WsTiles<DQK, DV> {
+  using WsTiles<DQK, DV>::kDqkp;
+  using WsTiles<DQK, DV>::kDvp;
+  static constexpr int kRows = kWgRows * 2;           // query rows of an item
+  static constexpr int kKeys = DQK > 64 ? 64 : 128;  // keys a step
+  static constexpr int kStages = DQK >= 128 ? 3 : 4;
+  static constexpr int kQBytes = kRows * kDqkp * 2;   // Q of an item
+  static constexpr int kDOBytes = kRows * kDvp * 2;   // dO of an item
+  static constexpr int kKBytes = kKeys * kDqkp * 2;   // K of a step
+  static constexpr int kVBytes = kKeys * kDvp * 2;    // V of a step
   static constexpr int kBarBytes = 8 * (2 + 2 * kStages);
-  static constexpr int kSmem =
-      2 * kQBytes + 2 * kStages * kKVBytes + kBarBytes + 1024;
+  static constexpr int kSmem = kQBytes + kDOBytes +
+                               kStages * (kKBytes + kVBytes) + kBarBytes +
+                               1024;
   static_assert(kSmem <= 232448, "at most 227 KB of shared memory a block");
 };
+
+// the (query/key, value) width pairs K1b takes: each head_dim with itself,
+// and MLA's 192 (128 without rope + 64 with) beside a value width of 128
+template <int DQK, int DV>
+constexpr bool kPair = (DQK == DV && (DQK == 32 || DQK == 64 || DQK == 80 ||
+                                      DQK == 128 || DQK == 160)) ||
+                       (DQK == 192 && DV == 128);
 
 // D[64 x N] (+)= A[64 x 16] B[N x 16]^T (both K-major in shared memory),
 // N in {16, 32, 64, 128} (query rows or keys of a step), and D[64 x N] +=
 // A[64 x 16] B[16 x N] (A from registers, B MN-major), N in {32, 64, 96,
-// 128, 160} (the padded head_dim)
+// 128, 160, 192} (a padded width: dV's DV, dK's and dQ's DQK)
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
                                        uint64_t db, int accumulate) {
@@ -312,8 +348,9 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 32 || N == 64 || N == 96 || N == 128 || N == 160,
-                "N is 32, 64, 96, 128 or 160");
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128 || N == 160 ||
+                    N == 192,
+                "N is 32, 64, 96, 128, 160 or 192");
   if constexpr (N == 32) {
     wgmma_rs_n32(d, a, db);
   } else if constexpr (N == 64) {
@@ -322,8 +359,10 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
     wgmma_rs_n96(d, a, db);
   } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, db);
-  } else {
+  } else if constexpr (N == 160) {
     wgmma_rs_n160(d, a, db);
+  } else {
+    wgmma_rs_n192(d, a, db);
   }
 }
 
@@ -392,27 +431,27 @@ __device__ __forceinline__ KvItem kv_item(const Bwd& p, int w, int n_bhk) {
   return x;
 }
 
-template <int D>
-__global__ void __launch_bounds__(DkdvTiles<D>::kThreads, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(DkdvTiles<DQK, DV>::kThreads, 1)
 bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tdo,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ dk,
             bf16* __restrict__ dv, Bwd p, int n_bhk, int n_work) {
-  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 160,
-                "head_dim 32, 64, 80, 128 or 160");
-  using T = DkdvTiles<D>;
+  static_assert(kPair<DQK, DV>,
+                "head_dim 32, 64, 80, 128 or 160, or (192, 128)");
+  using T = DkdvTiles<DQK, DV>;
   constexpr int kS = T::kStages, kC = T::kConsumers, kKeys = T::kKeys,
                 kRowsQ = T::kRowsQ, kCols = T::kCols, kRowBytes = T::kRowBytes,
-                kDp = T::kDp;
+                kDqkp = T::kDqkp, kDvp = T::kDvp;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sK = (raw + 1023u) & ~1023u;
-  const uint32_t sV = sK + T::kKVBytes;
-  const uint32_t sQ = sV + T::kKVBytes;        // stage st at + st * kQBytes
-  const uint32_t sDO = sQ + kS * T::kQBytes;   // likewise
-  const uint32_t sLD = sDO + kS * T::kQBytes;  // st: lse at + 2 st kLDBytes,
-                                               // delta kLDBytes after it
+  const uint32_t sV = sK + T::kKBytes;
+  const uint32_t sQ = sV + T::kVBytes;         // stage st at + st * kQBytes
+  const uint32_t sDO = sQ + kS * T::kQBytes;   // + st * kDOBytes
+  const uint32_t sLD = sDO + kS * T::kDOBytes;  // st: lse at + 2 st
+                                                // kLDBytes, delta after it
   const uint32_t bar_kvf = sLD + kS * 2 * T::kLDBytes;  // K, V have landed
   const uint32_t bar_kve = bar_kvf + 8;  // the consumers are done with K, V
   const uint32_t bar_f = bar_kve + 8;    // + 8 st: stage st has landed
@@ -452,13 +491,13 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
           const int h = x.hk * p.group + i / x.nq;
           const int q0 = x.lo + (i % x.nq) * kRowsQ;
           const uint32_t full = bar_f + 8 * st;
-          mbar_expect_tx(full, 2 * T::kQBytes + 2 * T::kLDBytes);
-          for (int cb = 0; cb < T::kColBlocks; ++cb) {
+          mbar_expect_tx(full, T::kQBytes + T::kDOBytes + 2 * T::kLDBytes);
+          for (int cb = 0; cb < T::kQkBlocks; ++cb)
             tma_load(sQ + st * T::kQBytes + cb * kRowsQ * kRowBytes, &tq, full,
                      cb * kCols, q0, h, x.b);
-            tma_load(sDO + st * T::kQBytes + cb * kRowsQ * kRowBytes, &tdo,
+          for (int cb = 0; cb < T::kVBlocks; ++cb)
+            tma_load(sDO + st * T::kDOBytes + cb * kRowsQ * kRowBytes, &tdo,
                      full, cb * kCols, q0, h, x.b);
-          }
           const long long bh = static_cast<long long>(x.b) * p.hq + h;
           const uint32_t ld = sLD + st * 2 * T::kLDBytes;
           bulk_load(ld, lse2_row(p, bh) + q0, T::kLDBytes, full);
@@ -468,13 +507,13 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
         const int pre = n < kS ? n : kS;
         for (int i = 0; i < pre; ++i) load_step(i);
         mbar_wait(bar_kve, (j & 1) ^ 1);  // the consumers are done with K, V
-        mbar_expect_tx(bar_kvf, 2 * T::kKVBytes);
-        for (int cb = 0; cb < T::kColBlocks; ++cb) {
+        mbar_expect_tx(bar_kvf, T::kKBytes + T::kVBytes);
+        for (int cb = 0; cb < T::kQkBlocks; ++cb)
           tma_load(sK + cb * kKeys * kRowBytes, &tk, bar_kvf, cb * kCols,
                    x.k0, x.hk, x.b);
+        for (int cb = 0; cb < T::kVBlocks; ++cb)
           tma_load(sV + cb * kKeys * kRowBytes, &tv, bar_kvf, cb * kCols,
                    x.k0, x.hk, x.b);
-        }
         for (int i = pre; i < n; ++i) load_step(i);
         it += n;
       }
@@ -507,35 +546,38 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
                      T::kLayout);
   };
 
-  float s[kRowsQ / 2], dp[kRowsQ / 2], dc[kRowsQ / 2], dk_acc[kDp / 2],
-      dv_acc[kDp / 2];
+  float s[kRowsQ / 2], dp[kRowsQ / 2], dc[kRowsQ / 2], dk_acc[kDqkp / 2],
+      dv_acc[kDvp / 2];
   uint32_t pf[kRowsQ / 16][4] = {}, df[kRowsQ / 16][4] = {};
 #pragma unroll
   for (int e = 0; e < kRowsQ / 2; ++e) s[e] = dp[e] = dc[e] = 0.f;
 
-  // S^T = K Q^T and dP^T = V dO^T of the query tile in stage st over the D
-  // real columns, two commit groups; dV += P^T dO and dK += dS^T Q of the
-  // tile in stage st, kDp wide, one
+  // S^T = K Q^T over the DQK real columns and dP^T = V dO^T over the DV
+  // real columns of the query tile in stage st, two commit groups; dV +=
+  // P^T dO (kDvp wide) and dK += dS^T Q (kDqkp wide) of the tile in stage
+  // st, one
   auto issue_scores = [&](int st) {
-    const uint32_t tq_st = sQ + st * T::kQBytes, tdo_st = sDO + st * T::kQBytes;
+    const uint32_t tq_st = sQ + st * T::kQBytes,
+                   tdo_st = sDO + st * T::kDOBytes;
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
+    for (int ks = 0; ks < DQK / 16; ++ks)
       mma_ss<kRowsQ>(s, kv_desc(sK, ks * 16), kmajor(tq_st, ks * 16), ks > 0);
     wgmma_commit();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
+    for (int ks = 0; ks < DV / 16; ++ks)
       mma_ss<kRowsQ>(dp, kv_desc(sV, ks * 16), kmajor(tdo_st, ks * 16),
                      ks > 0);
     wgmma_commit();
   };
   auto issue_grads = [&](int st) {
-    const uint32_t tq_st = sQ + st * T::kQBytes, tdo_st = sDO + st * T::kQBytes;
+    const uint32_t tq_st = sQ + st * T::kQBytes,
+                   tdo_st = sDO + st * T::kDOBytes;
 #pragma unroll
     for (int kk = 0; kk < kRowsQ / 16; ++kk)
-      mma_rs<kDp>(dv_acc, pf[kk], mnmajor(tdo_st, kk));
+      mma_rs<kDvp>(dv_acc, pf[kk], mnmajor(tdo_st, kk));
 #pragma unroll
     for (int kk = 0; kk < kRowsQ / 16; ++kk)
-      mma_rs<kDp>(dk_acc, df[kk], mnmajor(tq_st, kk));
+      mma_rs<kDqkp>(dk_acc, df[kk], mnmajor(tq_st, kk));
     wgmma_commit();
   };
   // The consumers take turns at the tensor cores, in order: consumer c
@@ -562,7 +604,9 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
     const int k_first = x.k0 + c * kWgRows;  // this consumer's first key
     const int kj0 = k_first + warp * 16 + g;  // this thread's keys: + 0, + 8
 #pragma unroll
-    for (int e = 0; e < kDp / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+    for (int e = 0; e < kDqkp / 2; ++e) dk_acc[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kDvp / 2; ++e) dv_acc[e] = 0.f;
 
     // after step i's products are issued: P^T and dS^T of its query tile,
     // into pf and df for the next turn
@@ -653,10 +697,10 @@ bwd_dkdv_ws(const __grid_constant__ CUtensorMap tq,
     }
     it += n;
     // dK and dV summed over the group: scaled and written once
-    store_rows<D, kDp>(dk + x.b * p.dks.b + x.hk * p.dks.h, p.dks.s,
-                       k_first, p.skv, dk_acc, p.scale);
-    store_rows<D, kDp>(dv + x.b * p.dvs.b + x.hk * p.dvs.h, p.dvs.s,
-                       k_first, p.skv, dv_acc, 1.f);
+    store_rows<DQK, kDqkp>(dk + x.b * p.dks.b + x.hk * p.dks.h, p.dks.s,
+                           k_first, p.skv, dk_acc, p.scale);
+    store_rows<DV, kDvp>(dv + x.b * p.dvs.b + x.hk * p.dvs.h, p.dvs.s,
+                         k_first, p.skv, dv_acc, 1.f);
   }
   if (c == 0) named_sync(kBarTurn, 256);  // the last consumer's hand-over
 }
@@ -682,25 +726,25 @@ __device__ __forceinline__ QItem q_item(const Bwd& p, int w, int n_bh,
   return x;
 }
 
-template <int D>
-__global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(DqTiles<DQK, DV>::kThreads, 1)
 bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tdo,
           const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ dq,
           Bwd p, int n_bh, int n_q_tiles) {
-  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 160,
-                "head_dim 32, 64, 80, 128 or 160");
-  using T = DqTiles<D>;
+  static_assert(kPair<DQK, DV>,
+                "head_dim 32, 64, 80, 128 or 160, or (192, 128)");
+  using T = DqTiles<DQK, DV>;
   constexpr int kS = T::kStages, kC = T::kConsumers, kRows = T::kRows,
                 kKeys = T::kKeys, kCols = T::kCols, kRowBytes = T::kRowBytes,
-                kDp = T::kDp;
+                kDqkp = T::kDqkp;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sDO = sQ + T::kQBytes;
-  const uint32_t sK = sDO + T::kQBytes;        // stage st at + st * kKVBytes
-  const uint32_t sV = sK + kS * T::kKVBytes;   // likewise
-  const uint32_t bar_qf = sV + kS * T::kKVBytes;  // Q, dO have landed
+  const uint32_t sK = sDO + T::kDOBytes;       // stage st at + st * kKBytes
+  const uint32_t sV = sK + kS * T::kKBytes;    // + st * kVBytes
+  const uint32_t bar_qf = sV + kS * T::kVBytes;  // Q, dO have landed
   const uint32_t bar_qe = bar_qf + 8;  // the consumers are done with Q, dO
   const uint32_t bar_f = bar_qe + 8;   // + 8 st: stage st has landed
   const uint32_t bar_e = bar_f + 8 * kS;  // + 8 st: stage st is free
@@ -733,24 +777,24 @@ bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
           mbar_wait(bar_e + 8 * st, ((cur / kS) & 1) ^ 1);  // stage free
           const uint32_t full = bar_f + 8 * st;
           const int k0 = x.lo + i * kKeys;
-          mbar_expect_tx(full, 2 * T::kKVBytes);
-          for (int cb = 0; cb < T::kColBlocks; ++cb) {
-            tma_load(sK + st * T::kKVBytes + cb * kKeys * kRowBytes, &tk, full,
+          mbar_expect_tx(full, T::kKBytes + T::kVBytes);
+          for (int cb = 0; cb < T::kQkBlocks; ++cb)
+            tma_load(sK + st * T::kKBytes + cb * kKeys * kRowBytes, &tk, full,
                      cb * kCols, k0, x.hk, x.b);
-            tma_load(sV + st * T::kKVBytes + cb * kKeys * kRowBytes, &tv, full,
+          for (int cb = 0; cb < T::kVBlocks; ++cb)
+            tma_load(sV + st * T::kVBytes + cb * kKeys * kRowBytes, &tv, full,
                      cb * kCols, k0, x.hk, x.b);
-          }
         };
         const int pre = x.n < kS ? x.n : kS;
         for (int i = 0; i < pre; ++i) load_step(i);
         mbar_wait(bar_qe, (j & 1) ^ 1);  // the consumers are done with Q, dO
-        mbar_expect_tx(bar_qf, 2 * T::kQBytes);
-        for (int cb = 0; cb < T::kColBlocks; ++cb) {
+        mbar_expect_tx(bar_qf, T::kQBytes + T::kDOBytes);
+        for (int cb = 0; cb < T::kQkBlocks; ++cb)
           tma_load(sQ + cb * kRows * kRowBytes, &tq, bar_qf, cb * kCols, x.q0,
                    x.h, x.b);
+        for (int cb = 0; cb < T::kVBlocks; ++cb)
           tma_load(sDO + cb * kRows * kRowBytes, &tdo, bar_qf, cb * kCols,
                    x.q0, x.h, x.b);
-        }
         for (int i = pre; i < x.n; ++i) load_step(i);
         it += x.n;
       }
@@ -783,29 +827,29 @@ bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
                      T::kLayout);
   };
 
-  float s[kKeys / 2], dp[kKeys / 2], dq_acc[kDp / 2];
+  float s[kKeys / 2], dp[kKeys / 2], dq_acc[kDqkp / 2];
   uint32_t df[kKeys / 16][4] = {};
 #pragma unroll
   for (int e = 0; e < kKeys / 2; ++e) s[e] = dp[e] = 0.f;
 
-  // S = Q K^T and dP = dO V^T of the key tile in stage st over the D real
-  // columns, two commit groups; dQ += dS K of the tile in stage st, kDp
-  // wide, one
+  // S = Q K^T over the DQK real columns and dP = dO V^T over the DV real
+  // columns of the key tile in stage st, two commit groups; dQ += dS K of
+  // the tile in stage st, kDqkp wide, one
   auto issue_scores = [&](int st) {
-    const uint32_t tk_st = sK + st * T::kKVBytes, tv_st = sV + st * T::kKVBytes;
+    const uint32_t tk_st = sK + st * T::kKBytes, tv_st = sV + st * T::kVBytes;
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
+    for (int ks = 0; ks < DQK / 16; ++ks)
       mma_ss<kKeys>(s, q_desc(sQ, ks * 16), kmajor(tk_st, ks * 16), ks > 0);
     wgmma_commit();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
+    for (int ks = 0; ks < DV / 16; ++ks)
       mma_ss<kKeys>(dp, q_desc(sDO, ks * 16), kmajor(tv_st, ks * 16), ks > 0);
     wgmma_commit();
   };
   auto issue_grads = [&](int st) {
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk)
-      mma_rs<kDp>(dq_acc, df[kk], mnmajor(sK + st * T::kKVBytes, kk));
+      mma_rs<kDqkp>(dq_acc, df[kk], mnmajor(sK + st * T::kKBytes, kk));
     wgmma_commit();
   };
   // turns at the tensor cores as in bwd_dkdv_ws: a turn issues the previous
@@ -830,7 +874,7 @@ bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
     const float lse[2] = {lse2_row(p, bh)[r0], lse2_row(p, bh)[r0 + 8]};
     const float delta[2] = {delta_row(p, bh)[r0], delta_row(p, bh)[r0 + 8]};
 #pragma unroll
-    for (int e = 0; e < kDp / 2; ++e) dq_acc[e] = 0.f;
+    for (int e = 0; e < kDqkp / 2; ++e) dq_acc[e] = 0.f;
 
     // after key tile i's products are issued: dS into df for the next turn
     auto step = [&](int i) {
@@ -907,8 +951,8 @@ bwd_dq_ws(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(bar_e + 8 * (last % kS));
     }
     it += x.n;
-    store_rows<D, kDp>(dq + x.b * p.dqs.b + x.h * p.dqs.h, p.dqs.s, wg_first,
-                       p.sq, dq_acc, p.scale);
+    store_rows<DQK, kDqkp>(dq + x.b * p.dqs.b + x.h * p.dqs.h, p.dqs.s,
+                           wg_first, p.sq, dq_acc, p.scale);
   }
   if (c == 0) named_sync(kBarTurn, 256);  // the last consumer's hand-over
 }
@@ -944,27 +988,41 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreadsF32)
 bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              float* __restrict__ dk, float* __restrict__ dv, Bwd p) {
-  constexpr int kC = D / 4;
-  __shared__ __align__(16) float sQ[kRowsF32 * D];
-  __shared__ __align__(16) float sDO[kRowsF32 * D];
+  constexpr int kCq = DQK / 4, kCv = DV / 4;  // a thread's columns of each
+  __shared__ __align__(16) float sQ[kRowsF32 * DQK];
+  __shared__ __align__(16) float sDO[kRowsF32 * DV];
   __shared__ float sL[kRowsF32], sD[kRowsF32];
   const int hkv = p.hq / p.group;
   const int b = blockIdx.y / hkv, hk = blockIdx.y % hkv;
   const int k0 = blockIdx.x * kTile;
   const int kj = k0 + threadIdx.x / 4, j0 = threadIdx.x % 4;
-  float kr[kC], vr[kC], dka[kC], dva[kC];
+  // every loop over a thread's columns runs over K's (kCq); its first kCv
+  // also take V's, so that at DQK = DV the loops are one.  At (192, 128)
+  // the thread's K row is read through L1 at each use instead of held in
+  // registers: with it, dK, dV and the V row (48 + 48 + 32 + 32) ptxas
+  // spills at its 255 registers
+  static_assert(kCv <= kCq, "V no wider than K");
+  constexpr bool kRowInRegs = DQK == DV;
+  const float* krow_l1 =
+      k + b * p.ks.b + hk * p.ks.h + (kj < p.skv ? kj : 0) * p.ks.s + j0;
+  float kr[kCq], vr[kCv], dka[kCq], dva[kCv];
 #pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    kr[c] = kj < p.skv ? k[b * p.ks.b + hk * p.ks.h + kj * p.ks.s + 4 * c + j0]
-                       : 0.f;
-    vr[c] = kj < p.skv ? v[b * p.vs.b + hk * p.vs.h + kj * p.vs.s + 4 * c + j0]
-                       : 0.f;
-    dka[c] = dva[c] = 0.f;
+  for (int c = 0; c < kCq; ++c) {
+    if (kRowInRegs)
+      kr[c] = kj < p.skv
+                  ? k[b * p.ks.b + hk * p.ks.h + kj * p.ks.s + 4 * c + j0]
+                  : 0.f;
+    if (c < kCv)
+      vr[c] = kj < p.skv
+                  ? v[b * p.vs.b + hk * p.vs.h + kj * p.vs.s + 4 * c + j0]
+                  : 0.f;
+    dka[c] = 0.f;
+    if (c < kCv) dva[c] = 0.f;
   }
   int q_lo, q_hi;
   query_range<kTile, kTile>(p, k0, &q_lo, &q_hi);
@@ -974,9 +1032,9 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     const long long row0 = bh * p.sq;
     for (int q0 = q_lo; q0 < q_hi; q0 += kRowsF32) {
       __syncthreads();
-      load_rows_f32<D>(sQ, q + b * p.qs.b + h * p.qs.h, p.qs.s, q0, p.sq);
-      load_rows_f32<D>(sDO, dout + b * p.dos.b + h * p.dos.h, p.dos.s, q0,
-                       p.sq);
+      load_rows_f32<DQK>(sQ, q + b * p.qs.b + h * p.qs.h, p.qs.s, q0, p.sq);
+      load_rows_f32<DV>(sDO, dout + b * p.dos.b + h * p.dos.h, p.dos.s, q0,
+                        p.sq);
       if (threadIdx.x < kRowsF32) {
         const int qi = q0 + threadIdx.x;
         sL[threadIdx.x] = qi < p.sq ? p.lse[row0 + qi] : 0.f;
@@ -984,13 +1042,14 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncthreads();
       for (int r = 0; r < kRowsF32; ++r) {
-        const float* qrow = sQ + r * D;
-        const float* drow = sDO + r * D;
+        const float* qrow = sQ + r * DQK;
+        const float* drow = sDO + r * DV;
         float s = 0.f, dp = 0.f;
 #pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          s = fmaf(qrow[4 * c + j0], kr[c], s);
-          dp = fmaf(drow[4 * c + j0], vr[c], dp);
+        for (int c = 0; c < kCq; ++c) {
+          s = fmaf(qrow[4 * c + j0],
+                   kRowInRegs ? kr[c] : __ldg(krow_l1 + 4 * c), s);
+          if (c < kCv) dp = fmaf(drow[4 * c + j0], vr[c], dp);
         }
         s = quad_sum(s);
         dp = quad_sum(dp);
@@ -999,8 +1058,8 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
         const float pr = visible(p, q0 + r, kj) ? expf(sc - sL[r]) : 0.f;
         const float ds = pr * (dp - sD[r]) * dcap;
 #pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          dva[c] = fmaf(pr, drow[4 * c + j0], dva[c]);
+        for (int c = 0; c < kCq; ++c) {
+          if (c < kCv) dva[c] = fmaf(pr, drow[4 * c + j0], dva[c]);
           dka[c] = fmaf(ds, qrow[4 * c + j0], dka[c]);
         }
       }
@@ -1008,35 +1067,38 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   if (kj < p.skv) {
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
+    for (int c = 0; c < kCq; ++c) {
       dk[b * p.dks.b + hk * p.dks.h + kj * p.dks.s + 4 * c + j0] =
           dka[c] * p.scale;
-      dv[b * p.dvs.b + hk * p.dvs.h + kj * p.dvs.s + 4 * c + j0] = dva[c];
+      if (c < kCv)
+        dv[b * p.dvs.b + hk * p.dvs.h + kj * p.dvs.s + 4 * c + j0] = dva[c];
     }
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreadsF32)
 bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            float* __restrict__ dq, Bwd p) {
-  constexpr int kC = D / 4;
-  __shared__ __align__(16) float sK[kRowsF32 * D];
-  __shared__ __align__(16) float sV[kRowsF32 * D];
+  constexpr int kCq = DQK / 4, kCv = DV / 4;
+  __shared__ __align__(16) float sK[kRowsF32 * DQK];
+  __shared__ __align__(16) float sV[kRowsF32 * DV];
   const int b = blockIdx.y / p.hq, h = blockIdx.y % p.hq, hk = h / p.group;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const int qi = q0 + threadIdx.x / 4, j0 = threadIdx.x % 4;
   const long long bh = static_cast<long long>(b) * p.hq + h;
   const long long row0 = bh * p.sq;
-  float qr[kC], dor[kC], dqa[kC];
+  static_assert(kCv <= kCq, "V no wider than K");
+  float qr[kCq], dor[kCv], dqa[kCq];
 #pragma unroll
-  for (int c = 0; c < kC; ++c) {
+  for (int c = 0; c < kCq; ++c) {
     qr[c] = qi < p.sq ? q[b * p.qs.b + h * p.qs.h + qi * p.qs.s + 4 * c + j0]
                       : 0.f;
-    dor[c] = qi < p.sq
-                 ? dout[b * p.dos.b + h * p.dos.h + qi * p.dos.s + 4 * c + j0]
-                 : 0.f;
+    if (c < kCv)
+      dor[c] = qi < p.sq ? dout[b * p.dos.b + h * p.dos.h + qi * p.dos.s +
+                                4 * c + j0]
+                         : 0.f;
     dqa[c] = 0.f;
   }
   const float lse = qi < p.sq ? p.lse[row0 + qi] : 0.f;
@@ -1045,17 +1107,17 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   key_range<kTile, kRowsF32>(p, q0, &kv_lo, &kv_hi);
   for (int k0 = kv_lo; k0 < kv_hi; k0 += kRowsF32) {
     __syncthreads();
-    load_rows_f32<D>(sK, k + b * p.ks.b + hk * p.ks.h, p.ks.s, k0, p.skv);
-    load_rows_f32<D>(sV, v + b * p.vs.b + hk * p.vs.h, p.vs.s, k0, p.skv);
+    load_rows_f32<DQK>(sK, k + b * p.ks.b + hk * p.ks.h, p.ks.s, k0, p.skv);
+    load_rows_f32<DV>(sV, v + b * p.vs.b + hk * p.vs.h, p.vs.s, k0, p.skv);
     __syncthreads();
     for (int r = 0; r < kRowsF32; ++r) {
-      const float* krow = sK + r * D;
-      const float* vrow = sV + r * D;
+      const float* krow = sK + r * DQK;
+      const float* vrow = sV + r * DV;
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
+      for (int c = 0; c < kCq; ++c) {
         s = fmaf(qr[c], krow[4 * c + j0], s);
-        dp = fmaf(dor[c], vrow[4 * c + j0], dp);
+        if (c < kCv) dp = fmaf(dor[c], vrow[4 * c + j0], dp);
       }
       s = quad_sum(s);
       dp = quad_sum(dp);
@@ -1064,12 +1126,13 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float pr = visible(p, qi, k0 + r) ? expf(sc - lse) : 0.f;
       const float ds = pr * (dp - delta) * dcap;
 #pragma unroll
-      for (int c = 0; c < kC; ++c) dqa[c] = fmaf(ds, krow[4 * c + j0], dqa[c]);
+      for (int c = 0; c < kCq; ++c)
+        dqa[c] = fmaf(ds, krow[4 * c + j0], dqa[c]);
     }
   }
   if (qi < p.sq) {
 #pragma unroll
-    for (int c = 0; c < kC; ++c)
+    for (int c = 0; c < kCq; ++c)
       dq[b * p.dqs.b + h * p.dqs.h + qi * p.dqs.s + 4 * c + j0] =
           dqa[c] * p.scale;
   }
@@ -1092,30 +1155,32 @@ cudaError_t sm_count(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t run_bf16(const void* q, const void* k, const void* v,
                      const void* dout, void* dq, void* dk, void* dv, int b,
                      const Bwd& p, cudaStream_t stream) {
-  using TK = DkdvTiles<D>;
-  using TQ = DqTiles<D>;
+  using TK = DkdvTiles<DQK, DV>;
+  using TQ = DqTiles<DQK, DV>;
   const int hkv = p.hq / p.group;
   const CUtensorMapSwizzle swizzle = TK::kCols == 64
                                          ? CU_TENSOR_MAP_SWIZZLE_128B
                                          : CU_TENSOR_MAP_SWIZZLE_64B;
   constexpr int kC = TK::kCols;
   // dK/dV: Q and dO by steps of kRowsQ rows, K and V by items of 128 keys;
-  // dQ: Q and dO by items of 128 rows, K and V by steps of 64 keys
+  // dQ: Q and dO by items of 128 rows, K and V by steps of 64 keys.  Q and
+  // K are DQK wide, V and dO DV wide
   CUtensorMap kq, kdo, kk, kv, qq, qdo, qk, qv;
-  if (!tensor_map(&kq, q, D, p.sq, p.hq, b, p.qs, kC, TK::kRowsQ, swizzle) ||
-      !tensor_map(&kdo, dout, D, p.sq, p.hq, b, p.dos, kC, TK::kRowsQ,
+  if (!tensor_map(&kq, q, DQK, p.sq, p.hq, b, p.qs, kC, TK::kRowsQ,
                   swizzle) ||
-      !tensor_map(&kk, k, D, p.skv, hkv, b, p.ks, kC, TK::kKeys, swizzle) ||
-      !tensor_map(&kv, v, D, p.skv, hkv, b, p.vs, kC, TK::kKeys, swizzle) ||
-      !tensor_map(&qq, q, D, p.sq, p.hq, b, p.qs, kC, TQ::kRows, swizzle) ||
-      !tensor_map(&qdo, dout, D, p.sq, p.hq, b, p.dos, kC, TQ::kRows,
+      !tensor_map(&kdo, dout, DV, p.sq, p.hq, b, p.dos, kC, TK::kRowsQ,
                   swizzle) ||
-      !tensor_map(&qk, k, D, p.skv, hkv, b, p.ks, kC, TQ::kKeys, swizzle) ||
-      !tensor_map(&qv, v, D, p.skv, hkv, b, p.vs, kC, TQ::kKeys, swizzle))
+      !tensor_map(&kk, k, DQK, p.skv, hkv, b, p.ks, kC, TK::kKeys, swizzle) ||
+      !tensor_map(&kv, v, DV, p.skv, hkv, b, p.vs, kC, TK::kKeys, swizzle) ||
+      !tensor_map(&qq, q, DQK, p.sq, p.hq, b, p.qs, kC, TQ::kRows, swizzle) ||
+      !tensor_map(&qdo, dout, DV, p.sq, p.hq, b, p.dos, kC, TQ::kRows,
+                  swizzle) ||
+      !tensor_map(&qk, k, DQK, p.skv, hkv, b, p.ks, kC, TQ::kKeys, swizzle) ||
+      !tensor_map(&qv, v, DV, p.skv, hkv, b, p.vs, kC, TQ::kKeys, swizzle))
     return cudaErrorInvalidValue;
   const long long n_bhk = static_cast<long long>(b) * hkv;
   const long long kv_work = n_bhk * ((p.skv + TK::kKeys - 1) / TK::kKeys);
@@ -1126,37 +1191,38 @@ cudaError_t run_bf16(const void* q, const void* k, const void* v,
   int sms = 0;
   cudaError_t e;
   if ((e = sm_count(&sms)) != cudaSuccess ||
-      (e = allow_smem(bwd_dkdv_ws<D>, TK::kSmem)) != cudaSuccess ||
-      (e = allow_smem(bwd_dq_ws<D>, TQ::kSmem)) != cudaSuccess)
+      (e = allow_smem(bwd_dkdv_ws<DQK, DV>, TK::kSmem)) != cudaSuccess ||
+      (e = allow_smem(bwd_dq_ws<DQK, DV>, TQ::kSmem)) != cudaSuccess)
     return e;
   // one persistent block on each SM, or one for each work item if fewer
   const int kv_blocks = static_cast<int>(kv_work < sms ? kv_work : sms);
-  bwd_dkdv_ws<D><<<kv_blocks, TK::kThreads, TK::kSmem, stream>>>(
+  bwd_dkdv_ws<DQK, DV><<<kv_blocks, TK::kThreads, TK::kSmem, stream>>>(
       kq, kdo, kk, kv, static_cast<bf16*>(dk), static_cast<bf16*>(dv), p,
       static_cast<int>(n_bhk), static_cast<int>(kv_work));
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const long long q_work = n_bh * n_q_tiles;
   const int q_blocks = static_cast<int>(q_work < sms ? q_work : sms);
-  bwd_dq_ws<D><<<q_blocks, TQ::kThreads, TQ::kSmem, stream>>>(
+  bwd_dq_ws<DQK, DV><<<q_blocks, TQ::kThreads, TQ::kSmem, stream>>>(
       qq, qdo, qk, qv, static_cast<bf16*>(dq), p, static_cast<int>(n_bh),
       static_cast<int>(n_q_tiles));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t run(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, void* dq, void* dk, void* dv, int b,
                 const Bwd& p, cudaStream_t stream) {
-  // grid: (batch, query head) x the padded rows' blocks
-  constexpr int kDeltaRows = DeltaShape<T, D>::kRows;
+  // grid: (batch, query head) x the padded rows' blocks; delta sums over
+  // o's and dO's DV columns
+  constexpr int kDeltaRows = DeltaShape<T, DV>::kRows;
   const dim3 grid(b * p.hq, p.sqp / kDeltaRows);
   if (p.sqp / kDeltaRows > 65535) return cudaErrorInvalidValue;
-  bwd_delta<T, D><<<grid, 256, 0, stream>>>(static_cast<const T*>(o),
-                                            static_cast<const T*>(dout), p);
+  bwd_delta<T, DV><<<grid, 256, 0, stream>>>(static_cast<const T*>(o),
+                                             static_cast<const T*>(dout), p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if constexpr (sizeof(T) == 2) {
-    return run_bf16<D>(q, k, v, dout, dq, dk, dv, b, p, stream);
+    return run_bf16<DQK, DV>(q, k, v, dout, dq, dk, dv, b, p, stream);
   } else {
     if (static_cast<long long>(b) * p.hq > 65535)  // grid.y of bwd_dq_f32
       return cudaErrorInvalidValue;
@@ -1167,44 +1233,46 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* o,
     const T* tk = static_cast<const T*>(k);
     const T* tv = static_cast<const T*>(v);
     const T* tdo = static_cast<const T*>(dout);
-    bwd_dkdv_f32<D><<<grid_kv, kThreadsF32, 0, stream>>>(
+    bwd_dkdv_f32<DQK, DV><<<grid_kv, kThreadsF32, 0, stream>>>(
         tq, tk, tv, tdo, static_cast<T*>(dk), static_cast<T*>(dv), p);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    bwd_dq_f32<D><<<grid_q, kThreadsF32, 0, stream>>>(
+    bwd_dq_f32<DQK, DV><<<grid_q, kThreadsF32, 0, stream>>>(
         tq, tk, tv, tdo, static_cast<T*>(dq), p);
     return cudaGetLastError();
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t dispatch_dtype(int dtype, const void* q, const void* k,
                            const void* v, const void* o, const void* dout,
                            void* dq, void* dk, void* dv, int b, const Bwd& p,
                            cudaStream_t stream) {
   if (dtype == 0)
-    return run<float, D>(q, k, v, o, dout, dq, dk, dv, b, p, stream);
+    return run<float, DQK, DV>(q, k, v, o, dout, dq, dk, dv, b, p, stream);
   if (dtype == 1)
-    return run<bf16, D>(q, k, v, o, dout, dq, dk, dv, b, p, stream);
+    return run<bf16, DQK, DV>(q, k, v, o, dout, dq, dk, dv, b, p, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The gradients of K1's forward.  q, o, dout, dq: [B, Hq, Sq, D]; k, v, dk,
-// dv: [B, Hkv, Skv, D]; each given by its (batch, head, seq) strides in
-// elements, in `strides` in that order (q, k, v, o, dout, dq, dk, dv; 24
-// values), with the last dim contiguous and every stride and base 16-byte
-// aligned.  lse: K1's [B, Hq, Sq] f32 log-sum-exp; delta: f32 scratch of
-// B * Hq * 2 * (Sq rounded up to 128) values, 16-byte aligned.  dtype: 0 =
-// float32, 1 = bfloat16, the same for every tensor but lse and delta.  d in
-// {32, 64, 80, 128, 160} (80: zamba2-2.7b; 160: stablelm-12b); Hq % Hkv ==
-// 0.  Launches bwd_delta, then the dK/dV and the
-// dQ kernels, in that order on `stream`; returns the first launch error, or
-// cudaGetLastError() after the last.
+// The gradients of K1's forward.  q, dq: [B, Hq, Sq, D]; k, dk: [B, Hkv,
+// Skv, D]; v, dv: [B, Hkv, Skv, Dv]; o, dout: [B, Hq, Sq, Dv]; each given
+// by its (batch, head, seq) strides in elements, in `strides` in that order
+// (q, k, v, o, dout, dq, dk, dv; 24 values), with the last dim contiguous
+// and every stride and base 16-byte aligned.  lse: K1's [B, Hq, Sq] f32
+// log-sum-exp; delta: f32 scratch of B * Hq * 2 * (Sq rounded up to 128)
+// values, 16-byte aligned.  dtype: 0 = float32, 1 = bfloat16, the same for
+// every tensor but lse and delta.  (d, dv): (d, d) with d in {32, 64, 80,
+// 128, 160} (80: zamba2-2.7b; 160: stablelm-12b), or (192, 128)
+// (deepseek-v3-671b's MLA); the scores are scaled by 1/sqrt(d); Hq % Hkv ==
+// 0.  Launches bwd_delta, then the dK/dV and the dQ kernels, in that order
+// on `stream`; returns the first launch error, or cudaGetLastError() after
+// the last.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int b, int hq, int hkv, int sq, int skv, int d,
+    void* dv, int b, int hq, int hkv, int sq, int skv, int d, int dv_width,
     const long long* strides, int causal, int window, float logit_cap,
     int q_offset, int dtype, void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || skv <= 0 ||
@@ -1232,19 +1300,26 @@ extern "C" int repro_flash_attention_bwd(
               delta,
               (sq + kAuxRows - 1) / kAuxRows * kAuxRows};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 192 && dv_width == 128)
+    return dispatch_dtype<192, 128>(dtype, q, k, v, o, dout, dq, dk, dv, b, p,
+                                    st);
+  if (dv_width != d) return cudaErrorInvalidValue;
   switch (d) {
     case 32:
-      return dispatch_dtype<32>(dtype, q, k, v, o, dout, dq, dk, dv, b, p, st);
+      return dispatch_dtype<32, 32>(dtype, q, k, v, o, dout, dq, dk, dv, b, p,
+                                    st);
     case 64:
-      return dispatch_dtype<64>(dtype, q, k, v, o, dout, dq, dk, dv, b, p, st);
+      return dispatch_dtype<64, 64>(dtype, q, k, v, o, dout, dq, dk, dv, b, p,
+                                    st);
     case 80:
-      return dispatch_dtype<80>(dtype, q, k, v, o, dout, dq, dk, dv, b, p, st);
+      return dispatch_dtype<80, 80>(dtype, q, k, v, o, dout, dq, dk, dv, b, p,
+                                    st);
     case 128:
-      return dispatch_dtype<128>(dtype, q, k, v, o, dout, dq, dk, dv, b, p,
-                                 st);
+      return dispatch_dtype<128, 128>(dtype, q, k, v, o, dout, dq, dk, dv, b,
+                                      p, st);
     case 160:
-      return dispatch_dtype<160>(dtype, q, k, v, o, dout, dq, dk, dv, b, p,
-                                 st);
+      return dispatch_dtype<160, 160>(dtype, q, k, v, o, dout, dq, dk, dv, b,
+                                      p, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -32,7 +32,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                  + [ctypes.c_void_p]
                  + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                     ctypes.c_int, ctypes.c_void_p])
@@ -98,18 +98,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         logit_cap: float = 0.0, q_offset: int = 0):
     """K1b: (dq, dk, dv) of :func:`flash_attention` from q, k, v, its output
-    o, its log-sum-exp lse ([B, Hq, Sq] f32) and dO; on CUDA tensors only.
-    Each gradient has its input's shape, dtype and strides."""
-    if v.shape[-1] != q.shape[-1]:
-        raise ValueError(
-            f"flash_attention_bwd: K1b takes one width for q, k and v, got "
-            f"{q.shape[-1]} and a value width of {v.shape[-1]}; MLA's (192, "
-            "128) backward comes with its training slice (ROADMAP, Queue 1 "
-            "item 11.3)")
+    o, its log-sum-exp lse ([B, Hq, Sq] f32) and dO ([B, Hq, Sq, Dv], V's
+    width as o); on CUDA tensors only, at the (query/key, value) widths K1
+    takes.  Each gradient has its input's shape, dtype and strides."""
     _check(q, k, v)
-    if o.shape != q.shape or do.shape != q.shape:
+    out_shape = q.shape[:3] + (v.shape[3],)
+    if o.shape != out_shape or do.shape != out_shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, dO "
-                         f"{tuple(do.shape)} for q {tuple(q.shape)}")
+                         f"{tuple(do.shape)} for q {tuple(q.shape)} and v "
+                         f"{tuple(v.shape)}")
     if (lse.dtype != torch.float32 or lse.device != q.device
             or lse.shape != q.shape[:3] or not lse.is_contiguous()):
         raise ValueError("flash_attention_bwd: lse must be a contiguous "
@@ -118,7 +115,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o, do = (t if t.dtype == q.dtype and _aligned(t)
              else t.to(q.dtype).contiguous() for t in (o, do))
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    hkv, skv, dv_width = k.shape[1], k.shape[2], v.shape[3]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     # the kernels' scratch: lse in log2 units and delta = rowsum(dO o), for
     # each (batch, query head), each padded to whole 128-row tiles
@@ -130,7 +127,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _build.function("repro_flash_attention_bwd", _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d,
+             dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d, dv_width,
              ctypes.cast(strides, ctypes.c_void_p), int(causal), int(window),
              float(logit_cap), int(q_offset), _DTYPE_CODES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
@@ -218,7 +215,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hkv == 0; (D, Dv) one of HEAD_DIM_PAIRS) -> [B, Hq, Sq, Dv], scaled by
     1/sqrt(D).  ``window`` > 0 keeps keys with 0 <= q - k < window (q
     counted from ``q_offset``); ``logit_cap`` > 0 applies a tanh cap.
-    Differentiable in q, k and v (on the card only where Dv == D)."""
+    Differentiable in q, k and v, on the card through K1b at every pair."""
     return _FlashAttention.apply(q, k, v, bool(causal), int(window),
                                  float(logit_cap), int(q_offset))
 

@@ -62,10 +62,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     """Builds ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with ``loss``, ``grad_norm`` and ``lr`` in ``metrics``.  The
     inputs are not modified; the new parameters and state are new
-    tensors.  With ``donate`` (AdamW on one device) the new parameters and
-    state are written into the given ones and returned, as the reference's
-    ``jax.jit(step, donate_argnums=(0, 1))`` reuses their buffers: a step
-    then holds one copy of them, which a model near a card's memory needs.
+    tensors.  With ``donate`` (AdamW or Adafactor, on one device) the new
+    parameters and state are written into the given ones and returned, as
+    the reference's ``jax.jit(step, donate_argnums=(0, 1))`` reuses their
+    buffers: a step then holds one copy of them, which a model near a
+    card's memory needs.
 
     With a ``mesh`` (a data mesh: any other axis of size above 1 raises) the
     step is one rank's program: it takes the rank's shards of the
@@ -75,10 +76,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     taken over all of them (``distributed/data_parallel.py``)."""
     _, update_fn = make_optimizer(opt_cfg)
     if donate:
-        if opt_cfg.name != "adamw" or mesh is not None:
+        if mesh is not None:
             raise NotImplementedError(
-                "a donated step takes AdamW on one device; Adafactor's and a "
-                "mesh's updates return new tensors")
+                "a donated step runs on one device; a mesh's update returns "
+                "new shards (ROADMAP, Queue 1 item 10: tensor parallelism, "
+                "the pod axis and sharded serving)")
         update_fn = functools.partial(update_fn, donate=True)
     dp = None
     if mesh is not None:

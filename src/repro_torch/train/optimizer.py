@@ -5,11 +5,16 @@ The counterpart of the JAX package's ``train/optimizer.py``, with its
 arithmetic and dtypes: every update runs in f32, in the reference's order of
 operations, and each result is cast back to its parameter's or moment's
 dtype.  ``torch.optim`` is not used: its AdamW orders the arithmetic
-differently.  The update takes one tensor at a time with fresh outputs, so
-its temporaries stay within a few copies of the largest parameter.
+differently.  AdamW takes one tensor at a time; the global norm and
+Adafactor take a leaf larger than ``SLICE_ELEMENTS`` a slice of its leading
+(layer, expert) dims at a time, so that their f32 temporaries stay within a
+few such slices (deepseek-v3-671b's stacked expert leaves are 3.76 G
+elements, 15 GB in f32).  With ``donate`` the results are written into the
+given tensors.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -70,11 +75,37 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.learning_rate * warm
 
 
+# the elements of a leaf the global norm and Adafactor take at a time, past
+# which a leaf is cut into slices of its leading dims: 2^28, 1 GiB in f32
+SLICE_ELEMENTS = 1 << 28
+
+
+def _per_slice(shape, inner: int):
+    """How many of a leaf's [*inner dims] matrices one slice takes, or None
+    when the leaf is taken whole (it has at most SLICE_ELEMENTS elements,
+    or no dim before its last ``inner``)."""
+    if math.prod(shape) <= SLICE_ELEMENTS or len(shape) <= inner:
+        return None
+    return max(1, SLICE_ELEMENTS // math.prod(shape[len(shape) - inner:]))
+
+
+def _slices(t: torch.Tensor, inner: int, n) -> list:
+    """``t`` whole (``n`` None), or as views of ``n`` of its [*last ``inner``
+    dims] matrices at a time, its leading dims flattened."""
+    if n is None:
+        return [t]
+    return list(t.flatten(0, t.dim() - inner - 1).split(n))
+
+
 def _global_norm(tree) -> torch.Tensor:
+    """The f32 norm of all leaves, each leaf's squares summed a slice at a
+    time (rows of a 2-D leaf, matrices of a stacked one)."""
     total = None
     for x in tree_leaves(tree):
-        sq = torch.sum(torch.square(x.to(torch.float32)))
-        total = sq if total is None else total + sq
+        inner = 1 if x.dim() == 2 else 2
+        for part in _slices(x, inner, _per_slice(x.shape, inner)):
+            sq = torch.sum(torch.square(part.to(torch.float32)))
+            total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
@@ -205,38 +236,82 @@ def adafactor_init(params, cfg: OptimizerConfig):
 
 
 @torch.no_grad()
-def adafactor_update(params, grads, state, cfg: OptimizerConfig):
+def adafactor_update(params, grads, state, cfg: OptimizerConfig,
+                     donate: bool = False):
+    """One Adafactor step: (new params, new state, metrics), in the
+    reference's arithmetic, a slice of a leaf's leading dims at a time.
+    The row and column means of a factored leaf's moments are exact per
+    slice; the update's RMS clip spans the whole leaf, so a leaf takes two
+    passes: the first sums each slice's squared update, the second
+    recomputes each slice's update from the old moments and the gradient,
+    clips it by that RMS and writes the slice's moments and parameter.  The
+    global clip's scale is applied to each gradient slice as it is read.
+    With ``donate`` the results are written into the given tensors, which
+    are returned (as ``adamw_update``); otherwise they are new tensors, the
+    same bits."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    gnorm = _global_norm(grads)
+    scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     decay = 1.0 - step.to(torch.float32) ** -0.8
 
-    def upd(p, g, v):
-        gf = g.to(torch.float32)
+    def update_of(g, v):
+        """A slice's update and new f32 moments from its gradient ``g``
+        (clipped here, as clip_by_global_norm would) and old moments."""
+        gf = (g.to(torch.float32) * scale).to(g.dtype).to(torch.float32)
         g2 = gf * gf + 1e-30
         if "vr" in v:
             vr = decay * v["vr"].to(torch.float32) + \
                 (1 - decay) * g2.mean(dim=-1)
             vc = decay * v["vc"].to(torch.float32) + \
                 (1 - decay) * g2.mean(dim=-2)
+            del g2
             denom = (vr[..., None] * vc[..., None, :]
                      / torch.clamp_min(vr.mean(dim=-1, keepdim=True)
                                        [..., None], 1e-30))
-            update = gf / torch.sqrt(denom + 1e-30)
-            new_v = {"vr": vr.to(v["vr"].dtype), "vc": vc.to(v["vc"].dtype)}
-        else:
-            vv = decay * v["v"].to(torch.float32) + (1 - decay) * g2
-            update = gf / torch.sqrt(vv + 1e-30)
-            new_v = {"v": vv.to(v["v"].dtype)}
+            return gf / torch.sqrt(denom + 1e-30), {"vr": vr, "vc": vc}
+        vv = decay * v["v"].to(torch.float32) + (1 - decay) * g2
+        del g2
+        return gf / torch.sqrt(vv + 1e-30), {"v": vv}
+
+    def upd(p, g, v):
+        n = _per_slice(p.shape, 2)
+        inner = {"vr": 1, "vc": 1, "v": 2}
+        parts = list(zip(_slices(p, 2, n), _slices(g, 2, n),
+                         *(_slices(v[k], inner[k], n) for k in v)))
+        total = None
+        for _, gs, *vs in parts:
+            update, _ = update_of(gs, dict(zip(v, vs)))
+            sq = torch.sum(update * update)
+            total = sq if total is None else total + sq
+            del update
         # update clipping (RMS <= 1) as in the Adafactor paper
-        rms = torch.sqrt(torch.mean(update * update) + 1e-30)
-        update = update / torch.clamp_min(rms, 1.0)
-        p_new = (p.to(torch.float32)
-                 - lr * update - lr * cfg.weight_decay * p.to(torch.float32))
-        return p_new.to(p.dtype), new_v
+        rms = torch.sqrt(total / p.numel() + 1e-30)
+        out = {"p": [], **{k: [] for k in v}}
+        for ps, gs, *vs in parts:
+            update, moments = update_of(gs, dict(zip(v, vs)))
+            update = update / torch.clamp_min(rms, 1.0)
+            p_new = (ps.to(torch.float32) - lr * update
+                     - lr * cfg.weight_decay * ps.to(torch.float32))
+            del update
+            for k, dst, x in (("p", ps, p_new),
+                              *((k, d, moments[k]) for k, d in zip(v, vs))):
+                if donate:
+                    dst.copy_(x)
+                else:
+                    out[k].append(x.to(dst.dtype))
+            del p_new, moments
+        if donate:
+            return p, v
+        whole = {k: xs[0] if len(xs) == 1 else torch.cat(xs).view(like.shape)
+                 for (k, xs), like in zip(out.items(), (p, *v.values()))}
+        return whole.pop("p"), whole
 
     out = tree_map(upd, params, grads, state["v"])
     new_params, new_v = _unzip(out, 2)
+    if donate:
+        state["step"].copy_(step)
+        step = state["step"]
     return new_params, {"step": step, "v": new_v}, \
         {"grad_norm": gnorm, "lr": lr}
 

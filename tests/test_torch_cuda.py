@@ -5,8 +5,9 @@ log-sum-exp, K3's chunk states, K1b, K2b and K3b (their backwards) and the
 gradients of a small model through them, in f32 and bf16, with the
 tolerances of each kernel's ``ref.py``; a small hybrid (zamba2's head width
 and SSM widths) served through K1, K2 and K3; K1 at MLA's widths (query
-192, value 128), K1b refusing them, K2 on MLA's latent rows and a small
-MLA model served through K1 and K2; and the sparse MoE layer on
+192, value 128) and K1b at them, K2 on MLA's latent rows, a small MLA
+model served through K1 and K2, and its donated Adafactor step equal to
+the functional one; and the sparse MoE layer on
 the card against its CPU run, and twice to equal bits, forward and
 backward.  Every test is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
@@ -351,21 +352,44 @@ def test_flash_kernel_at_mla_widths_on_card(cuda, dtype, b, hq, hkv, sq, skv,
 
 
 @pytest.mark.cuda
-def test_flash_bwd_kernel_refuses_a_value_width_apart(cuda):
-    # K1b takes one width for q, k and v: MLA's (192, 128) raises, naming
-    # the training slice, and no plain backward runs in its place
-    q, k = (torch.randn(1, 2, 64, 192, device=cuda, dtype=torch.bfloat16)
-            for _ in range(2))
-    v = torch.randn(1, 2, 64, 128, device=cuda, dtype=torch.bfloat16)
-    o, lse = torch.zeros_like(v), torch.zeros(1, 2, 64, device=cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,causal,q_offset,bshd", [
+    # K1b at MLA's pair (q and k 192 wide, v, o and dO 128): strided as
+    # mla_forward passes it, ragged across the 128-key items and 64-key dQ
+    # steps with an offset; GQA group 2; no causal mask
+    (1, 8, 8, 1000, 1111, True, 111, True),
+    (1, 8, 4, 333, 461, True, 128, False),
+    (2, 4, 4, 300, 333, False, 0, True),
+])
+def test_flash_bwd_kernel_at_mla_widths_on_card(cuda, dtype, b, hq, hkv, sq,
+                                                skv, causal, q_offset, bshd):
+    # against the plain backward in double (ref.BWD_RTOL, BWD_ROW_RTOL), two
+    # launches to equal bits, and autograd through flash_attention on K1b
+    q, k, v, do = _normal(31, (b, hq, sq, 192), (b, hkv, skv, 192),
+                          (b, hkv, skv, 128), (b, hq, sq, 128))
+    if bshd:
+        q, k, v = (np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+                   for a in (q, k, v))
+    q, k, v, do = (t.to(cuda) for t in _torch([q, k, v, do], dtype))
+    if bshd:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(causal=causal, window=0, logit_cap=0.0, q_offset=q_offset)
+    o, lse = k1_ops._forward(q, k, v, with_lse=True, **kw)
     before = flash_attention_bwd.launches
-    with pytest.raises(ValueError, match=r"Queue 1 item 11\.3"):
-        flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o))
-    qr = q.detach().requires_grad_(True)
-    out = flash_attention(qr, k, v)
-    with pytest.raises(ValueError, match=r"Queue 1 item 11\.3"):
-        out.sum().backward()
-    assert flash_attention_bwd.launches == before
+    grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    for dx, x in zip(grads, (q, k, v)):
+        assert dx.shape == x.shape and dx.dtype == x.dtype
+    for err, elem, row in k1b_error(grads, q, k, v, o, lse, do, **kw):
+        assert elem <= 1.0 and row <= 1.0, (elem, row)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(flash_attention(*leaves, causal=causal,
+                                               q_offset=q_offset), leaves, do)
+    assert flash_attention_bwd.launches == before + 3
+    assert all(torch.equal(x, y) for x, y in zip(auto, grads))
 
 
 @pytest.mark.cuda
@@ -437,6 +461,47 @@ def test_mla_serves_through_k1_and_k2(cuda, monkeypatch):
     dk = (logits - l32).norm() / l32.norm()
     dp = (lp - l32).norm() / l32.norm()
     assert dk <= 2 * dp, (dk.item(), dp.item())
+
+
+@pytest.mark.cuda
+def test_mla_donated_adafactor_step_on_the_card(cuda, monkeypatch):
+    # the train step deepseek-v3-671b takes on the card, on the small MLA
+    # model: K1 and K1b at (192, 128), K2 and K2b 4 L + 1 times a step, and
+    # Adafactor (factored at 16, a leaf's slices of at most 8192 elements)
+    # written in place, equal bit for bit to the functional step over two
+    # steps, with a falling loss on a repeated batch
+    from repro_torch.train import loop, optimizer
+    monkeypatch.setattr(optimizer, "SLICE_ELEMENTS", 8192)
+    cfg = _tiny_mla()
+    opt_cfg = optimizer.OptimizerConfig(name="adafactor", warmup_steps=1,
+                                        min_dim_size_to_factor=16)
+    params = init_params(model_specs(cfg),
+                         torch.Generator(cuda).manual_seed(5), cuda)
+    state = optimizer.adafactor_init(params, opt_cfg)
+    p1, s1 = tree_map(torch.clone, [params, state])
+    toks = torch.from_numpy(np.random.default_rng(18).integers(
+        0, cfg.vocab_size, (2, 129)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    plain = loop.make_train_step(cfg, opt_cfg)
+    donated = loop.make_train_step(cfg, opt_cfg, donate=True)
+    counters = (flash_attention, flash_attention_bwd, rmsnorm, rmsnorm_bwd)
+    losses = []
+    for _ in range(2):
+        p1, s1, m1 = plain(p1, s1, batch)
+        before = [f.launches for f in counters]
+        leaves = tree_leaves([params, state])
+        params, state, m2 = donated(params, state, batch)
+        torch.cuda.synchronize()
+        n = cfg.num_layers
+        assert [f.launches - c for f, c in zip(counters, before)] == [
+            n, n, 4 * n + 1, 4 * n + 1]
+        assert all(a is b for a, b in zip(tree_leaves([params, state]),
+                                          leaves))
+        assert float(m1["loss"]) == float(m2["loss"])
+        losses.append(float(m2["loss"]))
+    for a, b in zip(tree_leaves([p1, s1]), tree_leaves([params, state])):
+        assert torch.equal(a, b)
+    assert np.isfinite(losses).all() and losses[1] < losses[0]
 
 
 @pytest.mark.cuda

@@ -18,7 +18,8 @@ through both packages:
   the ``ckv`` cache) and greedy tokens;
 * K1's plain version at value widths apart from the query width against the
   reference's ``_dense_attention`` and ``_chunked_attention``, and its fake
-  operator's output shape;
+  operator's output shape; K1b's operator at (192, 128) (its plain
+  backward here);
 * the forward export's ``dot_general`` FLOPs equal to the JAX export's, and
   the serving synth text in prefill and decode mode.
 
@@ -57,7 +58,8 @@ from repro_torch.configs.base import MLAConfig
 from repro_torch.core import ir
 from repro_torch.core.pipeline import export_workload
 from repro_torch.kernels.flash_attention import ops as k1_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref, flash_attention_fwd_ref, flash_attention_ref)
 from repro_torch.models import attention, common, mlp, params, registry
 from repro_torch.models import transformer
 from repro_torch.serve.decode import greedy_decode
@@ -377,17 +379,35 @@ def test_k1_fake_output_is_as_wide_as_v():
             q, k, v, True, 0, 0.0, 0)[1].shape == (2, 8, 40)
 
 
-def test_k1b_refuses_a_value_width_apart():
-    """K1 takes (192, 128) beside the (d, d) pairs; K1b's backward raises a
-    ValueError for dv != dqk, naming the training slice, before any launch
-    (it never falls back to the plain backward)."""
+def test_k1b_takes_a_value_width_apart():
+    """K1 and K1b take (192, 128) beside the (d, d) pairs.  On CPU tensors
+    K1b's operator is its plain backward at that pair: gradients of q's,
+    k's and v's shapes, equal to ``flash_attention_bwd_ref`` (held against
+    ``jax.grad`` in tests/test_torch_train.py), and its fake (what an
+    export records) gives the same shapes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
     assert (192, 128) in k1_ops.HEAD_DIM_PAIRS
     assert (128, 192) not in k1_ops.HEAD_DIM_PAIRS
     assert all((d, d) in k1_ops.HEAD_DIM_PAIRS for d in k1_ops.HEAD_DIMS)
-    q, k, v = (torch.zeros(1, 2, 8, w) for w in (192, 192, 128))
-    o, lse = torch.zeros(1, 2, 8, 128), torch.zeros(1, 2, 8)
-    with pytest.raises(ValueError, match=r"Queue 1 item 11\.3"):
-        k1_ops.flash_attention_bwd(q, k, v, o, lse, o)
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 8, w)).astype(
+        np.float32)) for w in (192, 192, 128))
+    do = torch.from_numpy(rng.standard_normal((1, 2, 8, 128)).astype(
+        np.float32))
+    o, lse = flash_attention_fwd_ref(q, k, v)
+    got = torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    True, 0, 0.0, 0)
+    for g, x, r in zip(got, (q, k, v),
+                       flash_attention_bwd_ref(q, k, v, o, lse, do)):
+        assert g.shape == x.shape and torch.equal(g, r)
+    with FakeTensorMode():
+        fq, fk, fv, fdo = (torch.empty(t.shape) for t in (q, k, v, do))
+        fake = torch.ops.repro_torch.flash_attention_bwd(
+            fq, fk, fv, torch.empty(fdo.shape), torch.empty(1, 2, 8), fdo,
+            True, 0, 0.0, 0)
+        assert [tuple(g.shape) for g in fake] == [(1, 2, 8, 192),
+                                                  (1, 2, 8, 192),
+                                                  (1, 2, 8, 128)]
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,13 @@
 """The port's training slice against the JAX package, on the CPU in f32: the
-plain backwards of K1 and K2 against ``jax.grad`` of the JAX references, the
-optimizers, the data source, the losses, and ``make_train_step`` on two
-Llama smoke configs; then the loop's checkpoint/restart, the checkpoint's
-bf16 round trip and the CLI.  Inputs come from numpy's seeded generator;
-JAX parameters and optimizer state carry across with ``params_from_jax``."""
+plain backwards of K1 (also at MLA's query/key width 192 beside a value
+width of 128) and K2 against ``jax.grad`` of the JAX references, the
+optimizers (Adafactor also a slice of a leaf at a time), the data source,
+the losses, and ``make_train_step`` on two Llama smoke configs and the
+families' (deepseek-v3-671b's MLA under AdamW and Adafactor, factored and
+sliced); a donated step against the functional one bit for bit; then the
+loop's checkpoint/restart, the checkpoint's bf16 round trip and the CLI.
+Inputs come from numpy's seeded generator; JAX parameters and optimizer
+state carry across with ``params_from_jax``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +37,8 @@ from repro_torch.train import data, loop, optimizer
 from repro_torch.train.checkpoint import CheckpointManager
 from test_torch_families import _assert_routing_cannot_flip
 from test_torch_hybrid import WIDE, _fan_in
+from test_torch_mla import \
+    _assert_routing_cannot_flip as _assert_mla_routing_cannot_flip
 
 # one f32 function in two libraries: sums of at most a few hundred terms in
 # another order
@@ -63,26 +69,33 @@ def _assert_tree_close(ours, ref, **tol):
 # kernels' plain backwards
 # --------------------------------------------------------------------------
 
-ATTN_CASES = {  # B, Hq, Hkv, Sq, Skv, D, causal, window, cap, q_offset
-    "causal_d64": (2, 4, 4, 24, 24, 64, True, 0, 0.0, 0),
-    "gqa_d32": (1, 8, 2, 20, 20, 32, True, 0, 0.0, 0),
-    "window_gqa": (2, 4, 2, 32, 32, 64, True, 7, 0.0, 0),
-    "cap_d128": (1, 4, 2, 16, 16, 128, True, 0, 2.0, 0),
-    "offset_bidir": (1, 4, 2, 8, 40, 32, False, 0, 0.0, 0),
-    "offset_causal": (1, 4, 1, 12, 40, 64, True, 16, 1.5, 28),
+ATTN_CASES = {  # B, Hq, Hkv, Sq, Skv, D, Dv, causal, window, cap, q_offset
+    "causal_d64": (2, 4, 4, 24, 24, 64, 64, True, 0, 0.0, 0),
+    "gqa_d32": (1, 8, 2, 20, 20, 32, 32, True, 0, 0.0, 0),
+    "window_gqa": (2, 4, 2, 32, 32, 64, 64, True, 7, 0.0, 0),
+    "cap_d128": (1, 4, 2, 16, 16, 128, 128, True, 0, 2.0, 0),
+    "offset_bidir": (1, 4, 2, 8, 40, 32, 32, False, 0, 0.0, 0),
+    "offset_causal": (1, 4, 1, 12, 40, 64, 64, True, 16, 1.5, 28),
     # the head widths K1b takes for stablelm-12b (160) and zamba2-2.7b (80)
-    "d160_gqa_cap": (1, 4, 1, 20, 20, 160, True, 0, 2.0, 0),
-    "d160_window_offset": (1, 4, 2, 12, 30, 160, True, 9, 0.0, 18),
-    "d80_bidir": (2, 2, 2, 18, 26, 80, False, 0, 0.0, 0),
-    "d80_causal": (1, 4, 4, 24, 24, 80, True, 0, 0.0, 0),
+    "d160_gqa_cap": (1, 4, 1, 20, 20, 160, 160, True, 0, 2.0, 0),
+    "d160_window_offset": (1, 4, 2, 12, 30, 160, 160, True, 9, 0.0, 18),
+    "d80_bidir": (2, 2, 2, 18, 26, 80, 80, False, 0, 0.0, 0),
+    "d80_causal": (1, 4, 4, 24, 24, 80, 80, True, 0, 0.0, 0),
+    # MLA's value width apart from its query/key width: deepseek-v3-671b's
+    # (192, 128), causal; the smoke config's (24, 16), ragged with an
+    # offset; and (192, 128) at GQA group 2, which K1b also takes
+    "mla_causal": (1, 4, 4, 20, 20, 192, 128, True, 0, 0.0, 0),
+    "mla_smoke_offset": (2, 4, 4, 12, 30, 24, 16, True, 0, 0.0, 18),
+    "mla_group2": (1, 4, 2, 16, 22, 192, 128, True, 0, 0.0, 6),
 }
 
 
 def _attn_inputs(case, seed=0):
-    b, hq, hkv, sq, skv, d, causal, window, cap, off = ATTN_CASES[case]
+    b, hq, hkv, sq, skv, d, dv, causal, window, cap, off = ATTN_CASES[case]
     rng = np.random.default_rng(seed)
     q, k, v, do = (rng.standard_normal(s).astype(np.float32) for s in (
-        (b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d), (b, hq, sq, d)))
+        (b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, dv),
+        (b, hq, sq, dv)))
     kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=off)
     return q, k, v, do, kw
 
@@ -124,7 +137,7 @@ def test_flash_attention_autograd_is_the_plain_backward(case):
     scores, _, mask = _scores(ref_leaves[0], ref_leaves[1], **kw)
     probs = torch.softmax(scores.masked_fill(~mask, -2.0e38), dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, ref_leaves[2])
-    refs = torch.autograd.grad(out.reshape(q.shape), ref_leaves, _t(do))
+    refs = torch.autograd.grad(out.reshape(do.shape), ref_leaves, _t(do))
     for name, x, ref in zip("qkv", grads, refs):
         np.testing.assert_allclose(x.numpy(), ref.numpy(), err_msg=f"d{name}",
                                    **GRAD_TOL)
@@ -200,8 +213,13 @@ def _opt_tree(rng):
                 jnp.bfloat16)}}
 
 
-@pytest.mark.parametrize("name", ["adamw", "adafactor"])
-def test_optimizer_update_matches_jax_over_three_steps(name):
+@pytest.mark.parametrize("name", ["adamw", "adafactor", "adafactor-sliced"])
+def test_optimizer_update_matches_jax_over_three_steps(name, monkeypatch):
+    if name.endswith("-sliced"):
+        # each 128 x 160 matrix of "w" a slice: the global norm and
+        # Adafactor's two passes over a leaf's slices
+        monkeypatch.setattr(optimizer, "SLICE_ELEMENTS", 128 * 160)
+        name = name.removesuffix("-sliced")
     rng = np.random.default_rng(5)
     cfg_j = jax_opt.OptimizerConfig(name=name, warmup_steps=2)
     cfg_t = optimizer.OptimizerConfig(name=name, warmup_steps=2)
@@ -340,6 +358,10 @@ STEP_CONFIGS = {
     "zamba2-2.7b": ("zamba2-2.7b", {}),
     "stablelm-12b-head-width": ("stablelm-12b", WIDE["stablelm-12b"]),
     "zamba2-2.7b-head-width": ("zamba2-2.7b", WIDE["zamba2-2.7b"]),
+    # MLA (query/key 16 + 8, value 16: K1b's plain backward at a value
+    # width apart) before the sigmoid-gated MoE; the card trains it under
+    # Adafactor
+    "deepseek-v3-671b": ("deepseek-v3-671b", {}),
 }
 STEP_VARIANTS = {
     "adamw": ({}, {}),
@@ -348,18 +370,30 @@ STEP_VARIANTS = {
     "int8_grads": ({"gradient_compression": True}, {}),
     "vocab_chunk": ({"loss_vocab_chunk": 96}, {}),
     "remat_full": ({"remat": "full"}, {}),
+    # no smoke leaf reaches 128 in both of its last dims: at 16 Adafactor
+    # factors the stacked matrices, and SLICE_BOUND cuts them into slices
+    "adafactor_factored": ({}, {"name": "adafactor",
+                                "min_dim_size_to_factor": 16}),
 }
+# the optimizer's slice bound for a variant (each of deepseek-v3-smoke's
+# 64 x 32 expert matrices is 2048 elements: two a slice)
+SLICE_BOUND = {"adafactor_factored": 4096}
 # the Llama configs under every variant, the families under AdamW with and
-# without remat
+# without remat, deepseek-v3-671b also under Adafactor (the card trains it
+# so), whole and factored a slice at a time
 STEP_CASES = [(c, v) for c in ("llama3-1b", "llama3-500m-pad")
-              for v in STEP_VARIANTS] + [
+              for v in STEP_VARIANTS if v != "adafactor_factored"] + [
     (c, v) for c in STEP_CONFIGS if not c.startswith("llama")
-    for v in ("adamw", "remat_full")]
+    for v in ("adamw", "remat_full")] + [
+    ("deepseek-v3-671b", v) for v in ("adafactor", "adafactor_factored")]
 
 
 @pytest.mark.parametrize("config,variant", [
     pytest.param(c, v, id=f"{c}-{v}") for c, v in sorted(STEP_CASES)])
-def test_make_train_step_matches_jax_over_three_steps(config, variant):
+def test_make_train_step_matches_jax_over_three_steps(config, variant,
+                                                     monkeypatch):
+    if variant in SLICE_BOUND:
+        monkeypatch.setattr(optimizer, "SLICE_ELEMENTS", SLICE_BOUND[variant])
     arch, model_kw = STEP_CONFIGS[config]
     step_kw, opt_kw = (dict(kw) for kw in STEP_VARIANTS[variant])
     cfg_kw = dict(model_kw, dtype="float32")
@@ -385,8 +419,11 @@ def test_make_train_step_matches_jax_over_three_steps(config, variant):
         batch = next(source)
         if tcfg.moe is not None:
             # the routing of this step's batch cannot flip between the
-            # packages (as tests/test_torch_families.py holds it)
-            _assert_routing_cannot_flip(jcfg, jp, tcfg, tp, batch["tokens"])
+            # packages (as tests/test_torch_families.py and, for MLA,
+            # tests/test_torch_mla.py hold it)
+            (_assert_mla_routing_cannot_flip if tcfg.mla is not None else
+             _assert_routing_cannot_flip)(jcfg, jp, tcfg, tp,
+                                          batch["tokens"])
         jp, js, jm = jstep(jp, js, jax.tree.map(jnp.asarray, batch))
         tp, ts, tm = tstep(tp, ts, {k: _t(v) for k, v in batch.items()})
         # f32 forward and backward of a 2-layer model in two libraries.
@@ -406,13 +443,25 @@ def test_make_train_step_matches_jax_over_three_steps(config, variant):
         share=0.99 if step_kw.get("gradient_compression") else 0.999)
 
 
-@pytest.mark.parametrize("arch", ["llama3-1b", "mamba2-370m"])
-def test_a_donated_step_writes_the_functional_steps_values_in_place(arch):
+@pytest.mark.parametrize("arch,opt", [
+    pytest.param("llama3-1b", "adamw", id="llama3-1b"),
+    pytest.param("mamba2-370m", "adamw", id="mamba2-370m"),
+    pytest.param("llama3-1b", "adafactor", id="llama3-1b-adafactor"),
+    pytest.param("deepseek-v3-671b", "adafactor_factored",
+                 id="deepseek-v3-671b-adafactor-factored-sliced")])
+def test_a_donated_step_writes_the_functional_steps_values_in_place(
+        arch, opt, monkeypatch):
     """``donate=True`` (the reference's ``donate_argnums=(0, 1)``) returns
     the tensors it was given, holding bit for bit what the functional step
-    returns as new tensors, over two steps; Adafactor refuses it."""
+    returns as new tensors, over two steps: AdamW, and Adafactor (one
+    implementation writing its slices in place or into new tensors), also
+    factored a slice at a time; with a mesh it raises, naming Queue 1
+    item 10."""
+    if opt in SLICE_BOUND:
+        monkeypatch.setattr(optimizer, "SLICE_ELEMENTS", SLICE_BOUND[opt])
     cfg = get_smoke_config(arch).scaled(dtype="float32")
-    opt_cfg = optimizer.OptimizerConfig(warmup_steps=1)
+    opt_cfg = optimizer.OptimizerConfig(warmup_steps=1,
+                                        **STEP_VARIANTS[opt][1])
     init, _ = optimizer.make_optimizer(opt_cfg)
     params = loop.init_params(transformer.model_specs(cfg),
                               torch.Generator().manual_seed(0), "cpu")
@@ -435,9 +484,19 @@ def test_a_donated_step_writes_the_functional_steps_values_in_place(arch):
     for a, b in zip(optimizer.tree_leaves([p1, s1]),
                     optimizer.tree_leaves([p2, s2])):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="AdamW"):
-        loop.make_train_step(cfg, optimizer.OptimizerConfig(
-            name="adafactor"), donate=True)
+    if opt == "adafactor_factored":
+        # the factored branch ran, on leaves past the slice bound
+        big = [p for p in optimizer.tree_leaves(p2)
+               if p.numel() > SLICE_BOUND[opt]]
+        assert big and _has_factored(s2["v"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        # any mesh: the donated step refuses it before looking at it
+        loop.make_train_step(cfg, opt_cfg, mesh=object(), donate=True)
+
+
+def _has_factored(tree) -> bool:
+    return isinstance(tree, dict) and ("vr" in tree or any(
+        _has_factored(v) for v in tree.values()))
 
 
 def _assert_params_close(ours, ref, *, lr, steps, share):

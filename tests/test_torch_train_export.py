@@ -6,8 +6,9 @@ StableHLO: mixtral-8x22b (the MoE's backward: the gradient of its
 gemma2-27b, qwen2.5-32b, deepseek-67b, mamba2-370m (its ``split`` of
 the projection into slices, softplus's ``log_plus_one``, the depthwise
 causal conv as the reference writes it, the backward of ``cumsum`` as a
-``reverse``), stablelm-12b and zamba2-2.7b (the hybrid: Mamba2 layers and
-one shared attention block, whose weights' gradient sums its uses).  At
+``reverse``), stablelm-12b, zamba2-2.7b (the hybrid: Mamba2 layers and
+one shared attention block, whose weights' gradient sums its uses) and
+deepseek-v3-671b (MLA before a sigmoid-gated MoE).  At
 smoke size in f32, with two SSD chunks so that the states' gradients are
 taken as JAX takes them:
 
@@ -15,7 +16,8 @@ taken as JAX takes them:
   mamba2's forward, reads through both front ends to the JAX export's
   ``dot_general`` FLOPs;
 * (e) XLA runs mixtral's and mamba2's train texts on the CPU to the eager
-  step's outputs: loss, gradient norm, new parameters and moments;
+  step's outputs: loss, gradient norm, new parameters and moments; and
+  deepseek-v3-671b's under Adafactor taken a slice of a leaf at a time;
 * (f) the executor (``core/executor.py``) runs each op these texts added
   to XLA's values, alone and in the whole mamba2 and mixtral texts; the
   card's configuration's mamba2 text has one ``call`` of
@@ -40,12 +42,13 @@ from repro_torch.core.pipeline import export_workload
 from repro_torch.models import registry
 from repro_torch.train.loop import (forward_exports, make_train_step,
                                     train_step_exports)
+from repro_torch.train import optimizer
 from repro_torch.train.optimizer import OptimizerConfig
 from test_torch_export import XLA_RTOL, _run_xla
 from test_torch_profiling import _assert_close, _module
 
 FAMILIES = ["mixtral-8x22b", "gemma2-27b", "qwen2.5-32b", "deepseek-67b",
-            "mamba2-370m", "stablelm-12b", "zamba2-2.7b"]
+            "mamba2-370m", "stablelm-12b", "zamba2-2.7b", "deepseek-v3-671b"]
 # two of mamba2-smoke's 32-row chunks: with one chunk no state reaches a
 # later chunk, and autograd prunes the gradients JAX's scan still takes
 SEQ, BATCH = 64, 2
@@ -99,7 +102,8 @@ def test_the_cards_configuration_calls_each_kernel_once_a_layer(arch):
     each mixer's forward and backward operator once a layer, the norms'
     twice and once more for the final norm.  The hybrid's Mamba2 layers
     call the SSD scan's, and its shared attention block, once a
-    super-block, K1's and two more norms."""
+    super-block, K1's and two more norms.  MLA's layers call the norms four
+    times (ln1, q_norm, kv_norm, ln2)."""
     cfg = registry.get_smoke_config(arch)
     ops = _text(arch, "kernel").meta["kernel_ops"]
     n = cfg.num_layers
@@ -112,7 +116,7 @@ def test_the_cards_configuration_calls_each_kernel_once_a_layer(arch):
     else:
         mixers = ssd if cfg.family == "ssm" else {
             "flash_attention_lse": n, "flash_attention_bwd": n}
-        norms = 2 * n + 1
+        norms = (4 if cfg.mla is not None else 2) * n + 1
     assert ops == dict(mixers, rmsnorm=norms, rmsnorm_bwd=norms)
 
 
@@ -158,6 +162,31 @@ def test_xla_runs_the_train_text_to_the_eager_step(arch):
         scale = max(float(np.abs(w).max()), 1e-30)
         assert float(np.abs(g - w).max()) <= XLA_RTOL * scale, name
     assert {"[2]['loss']", "[2]['grad_norm']", "[1]['step']"} <= names
+
+
+def test_xla_runs_the_sliced_adafactor_text_to_the_eager_step(monkeypatch):
+    """deepseek-v3-671b's train step under Adafactor as the card runs it, a
+    leaf's slices in two passes (here factored at 16 and cut at 4096
+    elements, so that the smoke config's stacked leaves take both), exported
+    in f32 and run by XLA to the eager step's outputs."""
+    monkeypatch.setattr(optimizer, "SLICE_ELEMENTS", 4096)
+    cfg = registry.get_smoke_config("deepseek-v3-671b").scaled(
+        attn_impl="chunked", dtype="float32")
+    ocfg = OptimizerConfig(name="adafactor", min_dim_size_to_factor=16)
+    params, opt, batch = _step_inputs(cfg, ocfg)
+    assert any(t.numel() > 4096 and t.dim() > 2
+               for t in pytree.tree_leaves(params))
+    step, args = train_step_exports(cfg, SEQ, BATCH, opt_cfg=ocfg)
+    text = export_workload(step, *args, name="deepseek-v3-adafactor",
+                           device="cpu").stablehlo_text
+    got = _run_xla(text, pytree.tree_leaves((params, opt, batch)))
+    want = pytree.tree_leaves(make_train_step(cfg, ocfg)(params, opt, batch))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = w.detach().numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert float(np.abs(g - w).max()) <= XLA_RTOL * scale
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Show that ``chip_smoke.check_k1b`` catches a wrong K1b, on an H100:
 
-    python3 tools/mutate_k1b.py [--widths]
+    python3 tools/mutate_k1b.py [--widths | --mla]
 
 Each mutant of ``flash_attention_bwd.cu`` is written into its own temporary
 copy of ``src/`` and ``chip_smoke.py``, built there, and run through
@@ -29,6 +29,17 @@ padded to 96, and 160), and run only the cases at those widths
 * ``scale_of_padded_d``: the scale is 1/sqrt(96) at d=80;
 * ``scores_drop_last_block``: S^T, dP^T, S and dP leave out the last
   32-column block of the head.
+
+The last three are of MLA's pair, query/key 192 beside a value width of
+128, and run only the cases at that pair (``chip_smoke.K1B_MLA``);
+``--mla`` runs these three alone:
+
+* ``scale_of_dv``: the scores are scaled by 1/sqrt(128), the value width,
+  not the query/key width's 1/sqrt(192);
+* ``delta_over_dqk``: delta = rowsum(dO o) runs over 192 columns of the
+  128-wide o and dO rows (the next row's first 64 in their place);
+* ``dk_written_dv_wide``: the dK/dV kernel writes only dK's first 128
+  columns.
 
 Prints each mutant's first failing case with its ratios to the tolerances.
 """
@@ -69,8 +80,23 @@ WIDTH_MUTANTS = {
          "              1.0f / sqrtf(static_cast<float>(d == 80 ? 96 : d)),",
          1)],
     "scores_drop_last_block": [
-        ("    for (int ks = 0; ks < D / 16; ++ks)",
-         "    for (int ks = 0; ks < (D - 32) / 16; ++ks)", 4)],
+        ("    for (int ks = 0; ks < DQK / 16; ++ks)",
+         "    for (int ks = 0; ks < (DQK - 32) / 16; ++ks)", 2),
+        ("    for (int ks = 0; ks < DV / 16; ++ks)",
+         "    for (int ks = 0; ks < (DV - 32) / 16; ++ks)", 2)],
+}
+MLA_MUTANTS = {
+    "scale_of_dv": [
+        ("              1.0f / sqrtf(static_cast<float>(d)),",
+         "              1.0f / sqrtf(static_cast<float>(dv_width)),", 1)],
+    "delta_over_dqk": [
+        ("  constexpr int kDeltaRows = DeltaShape<T, DV>::kRows;",
+         "  constexpr int kDeltaRows = DeltaShape<T, DQK>::kRows;", 1),
+        ("  bwd_delta<T, DV><<<grid, 256, 0, stream>>>(",
+         "  bwd_delta<T, DQK><<<grid, 256, 0, stream>>>(", 1)],
+    "dk_written_dv_wide": [
+        ("    store_rows<DQK, kDqkp>(dk + x.b * p.dks.b",
+         "    store_rows<DV, kDqkp>(dk + x.b * p.dks.b", 1)],
 }
 RUN = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as cs; "
        "cs._build.build(); "
@@ -127,8 +153,14 @@ def run_mutants(src: str, mutants: dict, check: str, tag: str,
 
 
 if __name__ == "__main__":
+    args = sys.argv[1:]
+    mla = 0 if "--widths" in args else run_mutants(
+        SRC, MLA_MUTANTS, "check_k1b", "  K1b ", "cs.K1B_MLA")
+    if "--mla" in args:
+        sys.exit(mla)
     widths = run_mutants(SRC, WIDTH_MUTANTS, "check_k1b", "  K1b ",
                          "cs.K1B_NEW_WIDTHS")
-    if "--widths" in sys.argv[1:]:
+    if "--widths" in args:
         sys.exit(widths)
-    sys.exit(run_mutants(SRC, MUTANTS, "check_k1b", "  K1b ") or widths)
+    sys.exit(run_mutants(SRC, MUTANTS, "check_k1b", "  K1b ")
+             or widths or mla)
