@@ -28,7 +28,10 @@ prints no result line):
    beside a value width of 128 (phase 14's deepseek-v3-671b prefill,
    strided, and ragged with an offset), timed beside SDPA at the same
    widths (the backend torch picks named), and K2 at MLA's norms (q_norm
-   1536, kv_norm 512) and at deepseek-v3's d_model 7168;
+   1536, kv_norm 512) and at deepseek-v3's d_model 7168; K1 and K1b at
+   qwen2-vl-7b's GQA group of 7 (D 128) and at hubert-xlarge's D 80
+   without a causal mask (phases 14 and 15's shapes, beside SDPA causal or
+   not), K2 and K2b at 3584 and 1280 (K2b's block kernel at 1280);
 4. two serving paths at full width in bf16 with seeded random weights,
    llama3-1b (K1, K2) and mamba2-370m (K3, K2): ``prefill`` on 4 prompts of
    2048 tokens and ``greedy_decode`` on 8 prompts of 64 tokens (32 new
@@ -147,8 +150,8 @@ prints no result line):
 14. other families serving, at their published widths with depth cut:
    mixtral-8x22b (4 of 56 layers; the sparse MoE, window 4096), gemma2-27b
    (8 of 46; local and global layers, tanh caps), qwen2.5-32b and
-   deepseek-67b (2 layers each), and at full depth stablelm-12b (40
-   layers, head_dim 160) and the hybrid zamba2-2.7b (54 Mamba2 layers in 9
+   deepseek-67b (2 layers each), stablelm-12b (10 of 40 layers, head_dim
+   160) and the hybrid zamba2-2.7b (18 of 54 Mamba2 layers in 3 of 9
    super-blocks, each closed by the shared attention block, head_dim 80;
    K3 once a Mamba2 layer, K1 once a super-block, K2 2 L + 2 n_super + 1):
    ``prefill`` on 2 prompts of 8192 tokens (K1 once a layer, K2 2L+1), and
@@ -169,7 +172,12 @@ prints no result line):
    top-8; K2 four times a layer, ln1, q_norm, kv_norm and ln2, and once at
    the end, in prefill and in each step of the absorbed-form decode over
    the compressed cache), with the same gates, its f32 walk casting the
-   experts a group at a time.
+   experts a group at a time; then qwen2-vl-7b (28 of 28 layers: M-RoPE,
+   its prompts carrying one image's three position streams, 512 text
+   tokens, a 32 x 32 patch grid, then text; GQA group 7; ``generate``,
+   whose decode puts a step's position on all three streams) and the
+   encoder hubert-xlarge (48 of 48: frame embeddings in, no causal mask,
+   no decode), with the same gates.
    Phase 3 holds K1 at these prefills' shapes and K2 at their widths;
 15. the families' training paths, each at its published width with its
    depth cut for one card (AdamW, bf16 parameters, f32 moments, updated in
@@ -186,7 +194,10 @@ prints no result line):
    gate of phase 7 on the step's model with its weights redrawn at fan-in
    init (for mixtral after the share of tokens routed otherwise by the K1
    and the plain path, held at 1%, with the loss over the tokens all three
-   runs routed alike).
+   runs routed alike); and qwen2-vl-7b (4 of 28 layers,
+   2 x 4096, one image's streams in the batch) and hubert-xlarge (48 of
+   48, 2 x 4096, frame embeddings; its gate leaves out the embedding
+   table, which takes no gradient).
 
 Each check, phase and id draws its inputs and weights from a generator
 seeded from its own name (``seeded``).  Each phase's seconds are printed
@@ -415,7 +426,7 @@ K1_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, Dv, causal, window, cap,
      0),
     ("gemma2_global_bshd", 1, 32, 16, 8192, 8192, 128, 128, True, 0, 50.0,
      0),
-    # phase 14's full-depth prefills at the head widths that are not a
+    # phase 14's prefills at the head widths that are not a
     # multiple of 64: stablelm-12b's 160 (32/8 heads; five 32-column blocks,
     # 64-key tiles) and zamba2-2.7b's shared block at 80 (32/32 heads; padded
     # to 96 inside the kernel), in the strided layout
@@ -435,15 +446,24 @@ K1_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, Dv, causal, window, cap,
     # an offset
     ("mla_bshd", 1, 128, 128, 8192, 8192, 192, 128, True, 0, 0.0, 0),
     ("mla_ragged_bshd", 1, 8, 8, 1000, 1111, 192, 128, True, 0, 0.0, 111),
+    # phase 14's qwen2-vl-7b prefill (one of its two prompts): D 128 in GQA
+    # groups of 7 (28/4 heads), causal; and hubert-xlarge's: D 80, 16/16
+    # heads, no causal mask over the whole 8192 frames; strided
+    ("qwen2_vl_bshd", 1, 28, 4, 8192, 8192, 128, 128, True, 0, 0.0, 0),
+    ("hubert_bshd", 1, 16, 16, 8192, 8192, 80, 80, False, 0, 0.0, 0),
 ]
 # the cases at head_dim 80 and 160, and at MLA's pair (tools/mutate_k1.py
 # runs these alone)
 K1_NEW_WIDTHS = ("stablelm_bshd", "zamba2_bshd", "d160_ragged_bshd",
                  "d80_ragged_bshd", "d160_window_cap", "d80_bidir")
 K1_MLA = ("mla_bshd", "mla_ragged_bshd")
+# qwen2-vl-7b's group of 7 and hubert-xlarge's non-causal D 80 (run alone
+# with check_k1(gen, K1_LAST))
+K1_LAST = ("qwen2_vl_bshd", "hubert_bshd")
 # the rows timed beside their bound (bf16; "prefill" in f32 too)
 K1_TIMED = ("prefill", "mixtral_bshd", "gemma2_local_bshd",
-            "gemma2_global_bshd", "stablelm_bshd", "zamba2_bshd", "mla_bshd")
+            "gemma2_global_bshd", "stablelm_bshd", "zamba2_bshd", "mla_bshd",
+            "qwen2_vl_bshd", "hubert_bshd")
 
 
 def k1_inputs(gen, name, b, hq, hkv, sq, skv, d, dtype, dv=None):
@@ -459,16 +479,16 @@ def k1_inputs(gen, name, b, hq, hkv, sq, skv, d, dtype, dv=None):
 
 def k1_library_ms(q, k, v, causal, window, cap, q_offset):
     """One SDPA call computing what K1 computes, timed (a yardstick the
-    port never calls): causal, or a boolean mask for a window (with K and
-    V repeated over the query heads, outside the timing, so that the
-    memory-efficient kernel takes the mask); None with a tanh cap, which
-    no PyTorch call applies."""
-    if cap > 0 or q_offset or not causal:
+    port never calls): causal or not, or a boolean mask for a causal
+    window (with K and V repeated over the query heads, outside the
+    timing, so that the memory-efficient kernel takes the mask); None with
+    a tanh cap, which no PyTorch call applies."""
+    if cap > 0 or q_offset or (window and not causal):
         return None
     if not window:
         gqa = q.shape[1] != k.shape[1]
         return device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=gqa))
+            q, k, v, is_causal=causal, enable_gqa=gqa))
     g = q.shape[1] // k.shape[1]
     kr, vr = (t.repeat_interleave(g, dim=1) for t in (k, v))
     diff = (torch.arange(q.shape[2], device=q.device)[:, None]
@@ -480,18 +500,19 @@ def k1_library_ms(q, k, v, causal, window, cap, q_offset):
     return ms
 
 
-def sdpa_backend(q, k, v) -> str:
-    """The backend one causal SDPA call takes on these inputs: the first of
-    torch's priority order that runs when it is the only one allowed, as
-    torch's own selection does.  (No profiler here: one more profiled call
-    in phase 3 left a later one, K2b's route, without its kernel records.)"""
+def sdpa_backend(q, k, v, causal: bool = True) -> str:
+    """The backend one SDPA call (causal or not) takes on these inputs: the
+    first of torch's priority order that runs when it is the only one
+    allowed, as torch's own selection does.  (No profiler here: one more
+    profiled call in phase 3 left a later one, K2b's route, without its
+    kernel records.)"""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     gqa = q.shape[1] != k.shape[1]
     for code in torch._C._get_sdp_priority_order():
         backend = SDPBackend(code)
         try:
             with sdpa_kernel([backend]):
-                F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                enable_gqa=gqa)
         except RuntimeError:
             continue
@@ -558,9 +579,10 @@ def check_k1(gen, names=None) -> dict:
                                      for _, qh, kh, vh in by_kv_head(q, k, v)]),
                                  batches=3, per_batch=2)
             lib_ms = k1_library_ms(q, k, v, causal, window, cap, off)
-            if dv != d and lib_ms is not None:
-                log(f"  K1 {name}: SDPA at Ev={dv} takes the "
-                    f"{sdpa_backend(q, k, v)} backend")
+            if (dv != d or not causal) and lib_ms is not None:
+                log(f"  K1 {name}: SDPA "
+                    f"{'at Ev=%d' % dv if dv != d else 'without a causal mask'}"
+                    f" takes the {sdpa_backend(q, k, v, causal)} backend")
             scores = k1_visible_pairs(sq, skv, causal, window, off) * b * hq
             # Q K^T over d columns and P V over dv, 2 operations a product
             flops = 2 * (d + dv) * scores
@@ -607,6 +629,12 @@ K2_CASES = [  # name, rows, d, offset
     ("deepseek-v3_decode", 8, 7168, 0.0),
     ("mla_q_norm", 16384, 1536, 0.0),
     ("mla_kv_norm", 16384, 512, 0.0),
+    # qwen2-vl-7b's d_model at the prefill's 2 x 8192 rows (over 2048: the
+    # block-a-row kernel) and a decode step's 8; hubert-xlarge's 1280 at
+    # the prefill's rows (the warp-a-row kernel)
+    ("qwen2-vl", 16384, 3584, 0.0),
+    ("qwen2-vl_decode", 8, 3584, 0.0),
+    ("hubert", 16384, 1280, 0.0),
     ("scalar_path", 37, 1001, 1.0),
 ]
 
@@ -781,24 +809,29 @@ def check_k1b(gen, names=None) -> dict:
     return entry
 
 
-K1B_FAMILY_CASES = [  # name, B, Hq, Hkv, S, window, cap, D, Dv
+K1B_FAMILY_CASES = [  # name, B, Hq, Hkv, S, causal, window, cap, D, Dv
     # phase 15's train steps, in the strided [B, S, H, D] layout the
     # training path hands K1b: mixtral-8x22b's window, gemma2-27b's local
     # and global layers with its tanh cap of 50, qwen2.5-32b's and
     # deepseek-67b's groups of 5 and 8 (D 128); stablelm-12b's D 160 (group
     # 4) and zamba2-2.7b's shared block at D 80 (group 1); deepseek-v3-671b's
-    # MLA, query/key 192 beside a value width of 128 at 128 heads (group 1)
-    ("mixtral", 1, 48, 8, 8192, 4096, 0.0, 128, 128),
-    ("gemma2_local", 1, 32, 16, 8192, 4096, 50.0, 128, 128),
-    ("gemma2_global", 1, 32, 16, 8192, 0, 50.0, 128, 128),
-    ("qwen2.5", 2, 40, 8, 4096, 0, 0.0, 128, 128),
-    ("deepseek", 2, 64, 8, 4096, 0, 0.0, 128, 128),
-    ("stablelm", 2, 32, 8, 4096, 0, 0.0, 160, 160),
-    ("zamba2", 2, 32, 32, 4096, 0, 0.0, 80, 80),
-    ("mla_train", 2, 128, 128, 4096, 0, 0.0, 192, 128),
+    # MLA, query/key 192 beside a value width of 128 at 128 heads (group 1);
+    # qwen2-vl-7b's group of 7 (D 128) and hubert-xlarge's D 80 without a
+    # causal mask (group 1)
+    ("mixtral", 1, 48, 8, 8192, True, 4096, 0.0, 128, 128),
+    ("gemma2_local", 1, 32, 16, 8192, True, 4096, 50.0, 128, 128),
+    ("gemma2_global", 1, 32, 16, 8192, True, 0, 50.0, 128, 128),
+    ("qwen2.5", 2, 40, 8, 4096, True, 0, 0.0, 128, 128),
+    ("deepseek", 2, 64, 8, 4096, True, 0, 0.0, 128, 128),
+    ("stablelm", 2, 32, 8, 4096, True, 0, 0.0, 160, 160),
+    ("zamba2", 2, 32, 32, 4096, True, 0, 0.0, 80, 80),
+    ("mla_train", 2, 128, 128, 4096, True, 0, 0.0, 192, 128),
+    ("qwen2-vl", 2, 28, 4, 4096, True, 0, 0.0, 128, 128),
+    ("hubert", 2, 16, 16, 4096, False, 0, 0.0, 80, 80),
 ]
-# the family cases held in f32 too (untimed): the new head widths
-K1B_FAMILY_F32 = ("stablelm", "zamba2", "mla_train")
+# the family cases held in f32 too (untimed): the new head widths, the
+# group of 7 and the non-causal mask
+K1B_FAMILY_F32 = ("stablelm", "zamba2", "mla_train", "qwen2-vl", "hubert")
 
 
 def k1b_error_by_head(grads, q, k, v, o, lse, do, **kw):
@@ -817,11 +850,11 @@ def k1b_error_by_head(grads, q, k, v, o, lse, do, **kw):
     return worst
 
 
-def k1b_library_ms(q, k, v, do, window, cap):
-    """One SDPA call's backward computing what K1b computes (causal, or a
-    boolean mask for a window with K and V repeated over the query heads;
-    V as wide as it is), timed; None with a tanh cap."""
-    if cap > 0:
+def k1b_library_ms(q, k, v, do, window, cap, causal):
+    """One SDPA call's backward computing what K1b computes (causal or not,
+    or a boolean mask for a causal window with K and V repeated over the
+    query heads; V as wide as it is), timed; None with a tanh cap."""
+    if cap > 0 or (window and not causal):
         return None
     lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
     if window:
@@ -832,7 +865,7 @@ def k1b_library_ms(q, k, v, do, window, cap):
         out = F.scaled_dot_product_attention(
             lq, kr, vr, attn_mask=(diff >= 0) & (diff < window))
     else:
-        out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+        out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
                                              enable_gqa=True)
     ms = device_ms(lambda: torch.autograd.grad(out, (lq, lk, lv), do,
                                                retain_graph=True),
@@ -851,9 +884,9 @@ def check_k1b_families(gen) -> None:
     runs = [(case, torch.bfloat16) for case in K1B_FAMILY_CASES] + [
         (case, torch.float32) for case in K1B_FAMILY_CASES
         if case[0] in K1B_FAMILY_F32]
-    for (name, b, hq, hkv, s, window, cap, d, dv), dtype in runs:
+    for (name, b, hq, hkv, s, causal, window, cap, d, dv), dtype in runs:
         t0 = time.perf_counter()
-        kw = dict(causal=True, window=window, logit_cap=cap, q_offset=0)
+        kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=0)
         q, k, v = k1_inputs(gen, "x_bshd", b, hq, hkv, s, s, d, dtype, dv)
         do, _, _ = k1_inputs(gen, "x_bshd", b, hq, hkv, s, s, dv, dtype)
         o, lse = k1_ops._forward(q, k, v, with_lse=True, **kw)
@@ -867,7 +900,8 @@ def check_k1b_families(gen) -> None:
         worst = max(max(e[1], e[2]) for e in errs)
         ok = finite and same and math.isfinite(worst) and worst <= 1.0
         held = (f"  K1b {name:<13} {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} "
-                f"S={s} d={d} dv={dv} window {window} cap {cap:g}; "
+                f"S={s} d={d} dv={dv} {'causal' if causal else 'no causal mask'}"
+                f", window {window} cap {cap:g}; "
                 "max_abs_err, "
                 "element and row in units of the tolerance: " + "; ".join(
                     f"d{n} {e[0]:.3e} {e[1]:.3f} {e[2]:.3f}"
@@ -890,11 +924,12 @@ def check_k1b_families(gen) -> None:
                                     do[:, hs], **kw)
             for hs, qh, kh, vh in by_kv_head(q, k, v)], batches=2,
             per_batch=1)
-        lib_ms = k1b_library_ms(q, k, v, do, window, cap)
-        if dv != d and lib_ms is not None:
-            log(f"  K1b {name}: SDPA at Ev={dv} takes the "
-                f"{sdpa_backend(q, k, v)} backend")
-        pairs = k1_visible_pairs(s, s, True, window, 0) * b * hq
+        lib_ms = k1b_library_ms(q, k, v, do, window, cap, causal)
+        if (dv != d or not causal) and lib_ms is not None:
+            log(f"  K1b {name}: SDPA "
+                f"{'at Ev=%d' % dv if dv != d else 'without a causal mask'} "
+                f"takes the {sdpa_backend(q, k, v, causal)} backend")
+        pairs = k1_visible_pairs(s, s, causal, window, 0) * b * hq
         # S and dQ, dK over d columns, dP and dV over dv: 2 operations a
         # product, each a pair
         flops = 2 * (3 * d + 2 * dv) * pairs
@@ -938,22 +973,37 @@ K2B_CASES = [  # name, rows, d, offset
     ("deepseek-v3", 8192, 7168, 0.0),
     ("mla_q_norm", 8192, 1536, 0.0),
     ("mla_kv_norm", 8192, 512, 0.0),
+    # qwen2-vl-7b's d_model at 2 x 4096 (two groups of 224 threads a
+    # block), at the prefill's 2 x 8192 rows and at a decode step's 8;
+    # hubert-xlarge's 1280 at 2 x 4096 (80 threads a row, not a multiple of
+    # 32: the block kernel)
+    ("qwen2-vl", 8192, 3584, 0.0),
+    ("qwen2-vl_rows", 16384, 3584, 0.0),
+    ("qwen2-vl_decode", 8, 3584, 0.0),
+    ("hubert", 8192, 1280, 0.0),
 ]
 K2B_TIMED = ("train", "mamba_ln", "decode", "mixtral", "gemma2", "qwen2.5",
-             "deepseek", "zamba2", "deepseek-v3", "mla_q_norm", "mla_kv_norm")
+             "deepseek", "zamba2", "deepseek-v3", "mla_q_norm", "mla_kv_norm",
+             "qwen2-vl", "qwen2-vl_rows", "qwen2-vl_decode", "hubert")
 
 
 def k2b_route(fn) -> str:
     """The row kernel one call of ``fn`` launches (``torch.profiler``):
-    rmsnorm_bwd_groups or rmsnorm_bwd_block."""
+    rmsnorm_bwd_groups or rmsnorm_bwd_block.  The window opens with
+    PROFILE_WARM_LAUNCHES small launches of its own, which take the loss of
+    a window's first device records (see PROFILE_WARM_LAUNCHES): a window
+    of the decode case's two launches once saw neither."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WARM_LAUNCHES):
+            torch.cuda._sleep(1000)  # spin_kernel, left out below
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     names = {kernel_fn(e.key) for e in prof.key_averages()
-             if e.device_type.name == "CUDA"}
+             if e.device_type.name == "CUDA" and "spin_kernel" not in e.key}
     return "/".join(sorted(n for n in names if n != "rmsnorm_bwd_dw"))
 
 
@@ -1350,7 +1400,7 @@ def check_logits(cfg, params, logits, prompts, dprompts) -> None:
     if cfg.family == "ssm":
         check_ssm_layer(cfg, chunked, params, prompts)
     else:
-        check_family_layers(cfg, chunked, params, prompts)
+        check_family_layers(cfg, chunked, params, {"tokens": prompts})
     kernel = "K3" if cfg.family == "ssm" else "K1"
     ref32 = prefill(cfg32, params32, {"tokens": prompts})
     hold(f"prefill 4x2048 ({kernel} path)", logits,
@@ -2762,16 +2812,22 @@ def learned_phase(profiled: tuple, smi: str) -> None:
 
 # (id, layers kept of the published depth, whether the run decodes too):
 # each at its published width with random weights from the seed, its depth
-# cut so that the phase fits the script's time (PERF.md section 4);
-# stablelm-12b (head_dim 160) and the hybrid zamba2-2.7b (head_dim 80; 9
-# super-blocks of 6 Mamba2 layers and the shared attention block) at their
-# full depth
+# cut so that the phase fits the script's time (PERF.md section 4):
+# stablelm-12b (head_dim 160) at a quarter of its 40 layers and the hybrid
+# zamba2-2.7b (head_dim 80) at 3 of its 9 super-blocks of 6 Mamba2 layers
+# and the shared attention block, so that the whole script stays near
+# 750 s with qwen2-vl-7b and hubert-xlarge served at their full depth
 FAMILIES = [("mixtral-8x22b", 4, True), ("gemma2-27b", 8, True),
             ("qwen2.5-32b", 2, False), ("deepseek-67b", 2, False),
-            ("stablelm-12b", 40, True), ("zamba2-2.7b", 54, True),
-            ("deepseek-v3-671b", 2, True)]
+            ("stablelm-12b", 10, True), ("zamba2-2.7b", 18, True),
+            ("deepseek-v3-671b", 2, True), ("qwen2-vl-7b", 28, True),
+            ("hubert-xlarge", 48, False)]
 # prefill: 2 prompts of 8192 tokens, longer than the 4096-token windows
 FAMILY_B, FAMILY_S = 2, 8192
+# qwen2-vl-7b's prompts carry one image as Qwen2-VL lays it out
+# (``image_streams``): MROPE_PREFIX text tokens, a 1 x MROPE_GRID x
+# MROPE_GRID patch grid, then text
+MROPE_PREFIX, MROPE_GRID = 512, 32
 # greedy decode: 8 prompts of 64 tokens, 32 new tokens, max_len 128
 DECODE_B, DECODE_S, DECODE_NEW, DECODE_MAX = 8, 64, 32, 128
 # the logits gate holds the last FAMILY_ROWS positions of each prompt
@@ -2803,6 +2859,38 @@ FAMILY_OP_GROUPS = {
         "aten::index_add", "aten::scatter_add", "aten::where",
         "aten::gather", "aten::sum"],
 }
+
+
+def image_streams(b: int, s: int, prefix: int = MROPE_PREFIX,
+                  grid: int = MROPE_GRID) -> torch.Tensor:
+    """M-RoPE's [3, B, S] int32 streams (t, h, w) on the card, as Qwen2-VL
+    lays out one image: ``prefix`` text tokens at 0..prefix-1 on all three
+    streams; a 1 x grid x grid patch grid at (prefix, prefix + row, prefix
+    + col); then text resuming at the largest position + 1 (prefix + grid)
+    on all three."""
+    n = grid * grid
+    i = torch.arange(s, device="cuda", dtype=torch.int32)
+    pos = torch.where(i < prefix, i, i - n + grid).expand(3, b, s).clone()
+    patch = torch.arange(n, device="cuda", dtype=torch.int32)
+    pos[0, :, prefix:prefix + n] = prefix
+    pos[1, :, prefix:prefix + n] = prefix + patch // grid
+    pos[2, :, prefix:prefix + n] = prefix + patch % grid
+    return pos
+
+
+def family_batch(cfg, b: int, s: int, gen) -> dict:
+    """A serving batch of ``cfg``'s inputs: frame embeddings (a stub front
+    end), or token ids, with M-RoPE's streams of one image where the config
+    has sections."""
+    if cfg.frontend == "stub":
+        return {"embeds": torch.randn(b, s, cfg.d_model, generator=gen,
+                                      device="cuda").to(torch.bfloat16)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    if cfg.mrope_sections:
+        batch["mrope_positions"] = image_streams(b, s)
+    return batch
 
 
 @contextlib.contextmanager
@@ -2875,17 +2963,17 @@ def experts_cast_by_group(cast):
         model_mlp.expert_ffn = orig
 
 
-def layer_walk(cfg, params, pos, cast):
+def layer_walk(cfg, params, pos, cast, mrope):
     """``prefill``'s blocks in order, each a function of the hidden state
     whose weights are cast (``cast``) a layer at a time when it runs (an
     MoE's experts as ``expert_ffn`` takes them: see
-    ``experts_cast_by_group``): the attention layers, or the hybrid's
-    super-blocks (each Mamba2 layer, then the shared attention block as the
-    layer of index 1)."""
+    ``experts_cast_by_group``): the attention layers (M-RoPE's streams
+    ``mrope`` to each), or the hybrid's super-blocks (each Mamba2 layer,
+    then the shared attention block as the layer of index 1)."""
     if cfg.family != "hybrid":
         for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
             yield lambda h, lp=lp, i=i: attn_block(
-                cfg, cast_but_experts(lp, cast), h, pos, i)
+                cfg, cast_but_experts(lp, cast), h, pos, i, mrope)
         return
     shared = tree_map(params["shared_attn"], cast)
     for group in _super_blocks(cfg, params):
@@ -2894,8 +2982,9 @@ def layer_walk(cfg, params, pos, cast):
         yield lambda h: attn_block(cfg, shared, h, pos, 1)
 
 
-def walk_logits(cfg, params, tokens, rows: int, f32: bool = False):
-    """``prefill``'s layers one by one, with the head on the last ``rows``
+def walk_logits(cfg, params, batch: dict, rows: int, f32: bool = False):
+    """``prefill``'s layers one by one on ``batch`` (tokens or frame
+    embeddings, and M-RoPE's streams), with the head on the last ``rows``
     positions of each prompt: [B * rows, V] f32.  With ``f32`` on an f32
     copy of the weights made a layer at a time, an MoE's experts a group
     at a time (a copy of all of mixtral's cut layers would take 42 GB, and
@@ -2905,25 +2994,24 @@ def walk_logits(cfg, params, tokens, rows: int, f32: bool = False):
         cfg = cfg.scaled(dtype="float32")
     top = {k: v for k, v in params.items()
            if k not in ("layers", "shared_attn")}
-    batch = {"tokens": tokens}
     # the cast embedding only for the lookup; the head casts its table
     # itself (``_logits`` multiplies in f32), so an f32 copy of the 3.7 GB
     # vocabularies is not kept beside the layers
     h = _embed(cfg, dict(top, embed=cast(top["embed"])), batch)
     pos = _positions(batch)
     with experts_cast_by_group(cast):
-        for block in layer_walk(cfg, params, pos, cast):
+        for block in layer_walk(cfg, params, pos, cast,
+                                batch.get("mrope_positions")):
             h = block(h)
     head = dict(top, final_norm=cast(top["final_norm"]))
     return _logits(cfg, head, h[:, -rows:].contiguous()).flatten(0, 1)
 
 
-def check_super_block(cfg, chunked, params, prompts) -> None:
+def check_super_block(cfg, chunked, params, batch) -> None:
     """The hybrid's first super-block fed the kernel path's hidden state:
     each Mamba2 layer's output (K3 against the plain chunked scan) and then
     the shared attention block's (K1 against the plain chunked attention),
     each on the same input, row by row."""
-    batch = {"tokens": prompts}
     h, pos = _embed(cfg, params, batch), _positions(batch)
     for i, lp in enumerate(_super_blocks(cfg, params)[0]):
         x = rms_norm(h, lp["ln"], cfg.rms_eps)
@@ -2939,16 +3027,17 @@ def check_super_block(cfg, chunked, params, prompts) -> None:
               gqa_forward(chunked, shared["attn"], x, pos, layer_window=w))
 
 
-def attention_out(cfg, lp, x, pos, i):
+def attention_out(cfg, lp, x, pos, i, mrope):
     """Layer ``i``'s attention output on its normed input ``x``: MLA, or GQA
-    with the layer's window."""
+    with the layer's window (and M-RoPE's streams ``mrope``)."""
     if cfg.mla is not None:
         return mla_forward(cfg, lp["attn"], x, pos)
     return gqa_forward(cfg, lp["attn"], x, pos,
-                       layer_window=_layer_window(cfg, i))
+                       layer_window=_layer_window(cfg, i),
+                       mrope_positions=mrope)
 
 
-def check_family_layers(cfg, chunked, params, prompts) -> None:
+def check_family_layers(cfg, chunked, params, batch) -> None:
     """Each checked layer fed the K1 path's hidden state: its attention
     output (K1 against the plain chunked path on the same input, row by
     row), and with an MoE the share of tokens whose experts differ between
@@ -2957,16 +3046,16 @@ def check_family_layers(cfg, chunked, params, prompts) -> None:
     layers; every layer of an MoE; the hybrid's first super-block; the
     first layer otherwise."""
     if cfg.family == "hybrid":
-        check_super_block(cfg, chunked, params, prompts)
+        check_super_block(cfg, chunked, params, batch)
         return
     moe = cfg.moe is not None
     last = (cfg.num_layers if moe else max(cfg.local_global_pattern, 1))
-    batch = {"tokens": prompts}
     h, pos = _embed(cfg, params, batch), _positions(batch)
+    mrope = batch.get("mrope_positions")
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)[:last]):
         x = rms_norm(h, lp["ln1"], cfg.rms_eps)
-        a = attention_out(cfg, lp, x, pos, i)
-        ap = attention_out(chunked, lp, x, pos, i)
+        a = attention_out(cfg, lp, x, pos, i, mrope)
+        ap = attention_out(chunked, lp, x, pos, i, mrope)
         kind = ("MLA" if cfg.mla is not None
                 else f"window {_layer_window(cfg, i)}")
         hold_rows(f"layer {i} ({kind}) attention output", a, ap)
@@ -2993,7 +3082,7 @@ def check_family_layers(cfg, chunked, params, prompts) -> None:
             if share > ROUTING_FLIP_TOL:
                 raise AssertionError(f"layer {i} MoE: {share:.4%} of tokens "
                                      "flip")
-        h = attn_block(cfg, lp, h, pos, i)
+        h = attn_block(cfg, lp, h, pos, i, mrope)
 
 
 def agreeing_rows(name, per_layer, held=None) -> torch.Tensor:
@@ -3019,7 +3108,7 @@ def agreeing_rows(name, per_layer, held=None) -> torch.Tensor:
     return agree
 
 
-def check_family_logits(cfg, params, prompts, dprompts, logits) -> None:
+def check_family_logits(cfg, params, batch, dprompts, logits) -> None:
     """The logits gate of phases 4 and 5: the K1 path's bf16 logits
     against the plain chunked path's and an f32 run's (``hold``), on the
     last FAMILY_ROWS positions of each 8192-token prompt (the walk of the
@@ -3028,11 +3117,11 @@ def check_family_logits(cfg, params, prompts, dprompts, logits) -> None:
     prefill-by-decode's last logits; with an MoE only on the rows that all
     three routed alike at every layer."""
     chunked = plain_config(cfg)
-    check_family_layers(cfg, chunked, params, prompts)
+    check_family_layers(cfg, chunked, params, batch)
     runs, out = [], []
     for c, f32 in ((cfg, False), (chunked, False), (chunked, True)):
         with routes_recorded() as seen:
-            out.append(walk_logits(c, params, prompts, FAMILY_ROWS, f32))
+            out.append(walk_logits(c, params, batch, FAMILY_ROWS, f32))
         runs.append(seen)
     last = torch.arange(1, FAMILY_B + 1, device="cuda") * FAMILY_ROWS - 1
     _, diff = max_rel_diff(logits, out[0][last])
@@ -3071,7 +3160,8 @@ def check_family_logits(cfg, params, prompts, dprompts, logits) -> None:
     runs.append(seen)
     for f32 in (False, True):
         with routes_recorded() as seen:
-            out.append(walk_logits(walk, params, dprompts, 1, f32))
+            out.append(walk_logits(walk, params, {"tokens": dprompts}, 1,
+                                   f32))
         runs.append(seen)
     rows = slice(None)
     if cfg.moe is not None:
@@ -3132,7 +3222,7 @@ def check_mla_decode(cfg, params, dprompts, walk) -> None:
          out[1][rows], out[2][rows])
     for label, x, f in (("bf16", out[0], False), ("f32", out[2], True)):
         with routes_recorded() as seen:
-            ref = walk_logits(walk, params, dprompts, 1, f)
+            ref = walk_logits(walk, params, {"tokens": dprompts}, 1, f)
         alike = torch.ones(DECODE_B, dtype=torch.bool, device="cuda")
         if f:   # the last prompt token: decode's last step, the walk's rows
             for i in range(n):
@@ -3162,7 +3252,9 @@ def serve_family(arch: str, layers: int, decodes: bool, gen) -> dict:
     and the gated norm), twice a super-block and once at the end, in
     prefill and in each decode step.  MLA runs K2 four times a layer (ln1,
     q_norm, kv_norm, ln2) and once at the end, in prefill and in each
-    decode step, and K1 once a layer in prefill."""
+    decode step, and K1 once a layer in prefill.  qwen2-vl-7b's prompts
+    carry one image's M-RoPE streams (``image_streams``); hubert-xlarge's
+    are frame embeddings, and an encoder does not decode."""
     cfg = get_config(arch).scaled(num_layers=layers)
     assert cfg.attn_impl == "kernel" and cfg.dtype == "bfloat16"
     torch.cuda.empty_cache()
@@ -3179,6 +3271,14 @@ def serve_family(arch: str, layers: int, decodes: bool, gen) -> dict:
               f"value {m.v_head_dim}, latents q {m.q_lora_rank} kv "
               f"{m.kv_lora_rank}" if m is not None
               else f"head_dim {cfg.resolved_head_dim}")
+    if cfg.mrope_sections:
+        widths += (f", M-RoPE sections {cfg.mrope_sections} over one "
+                   f"image's streams ({MROPE_PREFIX} text tokens, a "
+                   f"{MROPE_GRID}x{MROPE_GRID} patch grid, then text)")
+    if cfg.frontend == "stub":
+        widths += ", frame embeddings in (stub front end)"
+    if not cfg.causal:
+        widths += ", no causal mask"
     log(f"  {arch}: {layers} of {get_config(arch).num_layers} layers{ssm}, "
         f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
         f"{widths}, window {cfg.sliding_window}"
@@ -3187,13 +3287,12 @@ def serve_family(arch: str, layers: int, decodes: bool, gen) -> dict:
         f"{', experts %d top-%d' % (cfg.moe.num_experts, cfg.moe.top_k) if cfg.moe else ''}: "
         f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}")
     v = cfg.vocab_size
-    prompts = torch.randint(0, v, (FAMILY_B, FAMILY_S), generator=gen,
-                            device="cuda", dtype=torch.int32)
+    batch = family_batch(cfg, FAMILY_B, FAMILY_S, gen)
     dprompts = (torch.randint(0, v, (DECODE_B, DECODE_S), generator=gen,
                               device="cuda", dtype=torch.int32)
                 if decodes else None)
     with torch.inference_mode():
-        model.prefill({"tokens": prompts})   # warm-up: cuBLAS, caches
+        model.prefill(batch)   # warm-up: cuBLAS, caches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
@@ -3201,7 +3300,7 @@ def serve_family(arch: str, layers: int, decodes: bool, gen) -> dict:
         for fn in COUNTERS.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        logits = model.prefill({"tokens": prompts})
+        logits = model.prefill(batch)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         in_prefill = {k: fn.launches for k, fn in COUNTERS.items()}
@@ -3255,9 +3354,9 @@ def serve_family(arch: str, layers: int, decodes: bool, gen) -> dict:
             raise AssertionError(f"greedy tokens {tuple(toks.shape)} "
                                  f"{toks.dtype} out of shape or range")
     with torch.inference_mode():
-        check_family_logits(cfg, model.params, prompts, dprompts, logits)
+        check_family_logits(cfg, model.params, batch, dprompts, logits)
         profile_window(f"prefill {FAMILY_B}x{FAMILY_S}",
-                       lambda: model.prefill({"tokens": prompts}), top=8,
+                       lambda: model.prefill(batch), top=8,
                        groups=FAMILY_KERNEL_GROUPS,
                        op_groups=FAMILY_OP_GROUPS)
     del model
@@ -3311,6 +3410,13 @@ FAMILY_TRAIN = [  # arch, layers, B, S, remat, optimizer
     # AdamW's f32 moments (107 GB) would not fit, Adafactor's do
     # (src/repro/launch/dryrun.py:123 picks it for this id)
     ("deepseek-v3-671b", 1, 2, 4096, "none", "adafactor"),
+    # K1 and K1b in GQA groups of 7, M-RoPE over one image's streams in
+    # the batch: 4 of 28 layers (the untied 152064-token head and embedding
+    # are 1.09 B parameters, the f32 logits 5.0 GB)
+    ("qwen2-vl-7b", 4, 2, 4096, "none", "adamw"),
+    # the encoder whole: K1 and K1b at D 80 without a causal mask, K2b at
+    # 1280 (the block kernel), frame embeddings in, 504 cluster targets
+    ("hubert-xlarge", 48, 2, 4096, "none", "adamw"),
 ]
 FAMILY_WARMUP, FAMILY_STEPS = 2, 3
 # the hybrid's gradient gate runs on its first super-blocks and
@@ -3337,7 +3443,7 @@ def masked_grads(cfg, params, batch, keep=None):
     gradient in its parameter's dtype."""
     leaves = trainable(params)
     h = _scan_layers(cfg, leaves, _embed(cfg, leaves, batch),
-                     _positions(batch))
+                     _positions(batch), batch.get("mrope_positions"))
     logits = _logits(cfg, leaves, h).float()
     tok = (torch.logsumexp(logits, -1) - torch.gather(
         logits, -1, batch["targets"][..., None].long())[..., 0])
@@ -3365,7 +3471,8 @@ def routings(cfg, params, batch, f32: bool) -> list:
                     contextlib.nullcontext(), routes_recorded() as seen:
                 p = tree_map(params, lambda t: t.float()) if as_f32 else \
                     params
-                _scan_layers(c, p, _embed(c, p, batch), _positions(batch))
+                _scan_layers(c, p, _embed(c, p, batch), _positions(batch),
+                             batch.get("mrope_positions"))
                 del p
             runs.append([routed(cfg, e) for e in seen])
     return list(zip(*runs))
@@ -3432,6 +3539,8 @@ def gate_distances(cfg, params, batch, flips_from: str = "plain") -> dict:
             params, lambda t: t.float()), batch, keep))
     rows = {}
     for name, g32 in flat_32.items():
+        if name == "embed" and cfg.frontend == "stub":
+            continue    # frame embeddings in: the table takes no gradient
         gk, gp = flat_k[name].float(), flat_p[name].float()
         if not (torch.isfinite(gk).all() and gk.abs().max() > 0):
             raise AssertionError(f"gradient gate: {name} got no gradient "
@@ -3538,7 +3647,11 @@ def train_family(arch: str, layers: int, b: int, s: int, gen,
         + f"{n_params / 1e9:.3f} B parameters ({cfg.dtype}), "
         + ("AdamW with f32 moments" if opt == "adamw" else
            "Adafactor with factored f32 moments, a slice of a leaf at a time")
-        + f", remat {remat}, batch {b}x{s}; reduced: "
+        + f", remat {remat}, batch {b}x{s}"
+        + (" with one image's M-RoPE streams" if cfg.mrope_sections else "")
+        + (" of frame embeddings, no causal mask" if cfg.frontend == "stub"
+           else "")
+        + "; reduced: "
         + ("none" if layers == get_config(arch).num_layers else
            f"num_layers {get_config(arch).num_layers} -> {layers}"))
     train_memory(cfg, specs, b, s, opt)
@@ -3549,7 +3662,10 @@ def train_family(arch: str, layers: int, b: int, s: int, gen,
     step_fn = make_train_step(cfg, opt_cfg, donate=True)
     batch = {k: torch.from_numpy(x).cuda() for k, x in next(SyntheticSource(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
-                   seed=0))).items()}
+                   seed=0, frontend=cfg.frontend,
+                   d_model=cfg.d_model))).items()}
+    if cfg.mrope_sections:
+        batch["mrope_positions"] = image_streams(b, s)
     losses, times = [], []
     for i in range(FAMILY_WARMUP + FAMILY_STEPS):
         if i == FAMILY_WARMUP:
@@ -3685,7 +3801,7 @@ def train_family(arch: str, layers: int, b: int, s: int, gen,
 
 
 def families_train_phase() -> list:
-    """Phase 15: the eight ids' train steps, each id's weights drawn from a
+    """Phase 15: the ten ids' train steps, each id's weights drawn from a
     generator of its own; their launch counts."""
     runs = []
     for arch, layers, b, s, remat, opt in FAMILY_TRAIN:
@@ -3930,14 +4046,17 @@ def main() -> int:
     log("[14] other families serving: mixtral-8x22b (sparse MoE), "
         "gemma2-27b, qwen2.5-32b, deepseek-67b, stablelm-12b (head_dim "
         "160), zamba2-2.7b (the hybrid, head_dim 80), deepseek-v3-671b "
-        "(MLA, K1 at query/key 192 and value 128; 256 experts at top-8)")
+        "(MLA, K1 at query/key 192 and value 128; 256 experts at top-8), "
+        "qwen2-vl-7b (M-RoPE, GQA group 7), hubert-xlarge (the encoder, K1 "
+        "at head_dim 80 without a causal mask)")
     runs += families_phase()
     phase_done("phase 14")
     log("[15] the families' training paths: mamba2-370m (K3, K3b), "
         "mixtral-8x22b, gemma2-27b, qwen2.5-32b, deepseek-67b, stablelm-12b "
         "(K1b at head_dim 160), zamba2-2.7b (K3b, K1b at head_dim 80, "
         "remat full), deepseek-v3-671b (MLA, K1b at query/key 192 and "
-        "value 128; Adafactor)")
+        "value 128; Adafactor), qwen2-vl-7b (M-RoPE, GQA group 7), "
+        "hubert-xlarge (K1b at head_dim 80 without a causal mask)")
     runs += families_train_phase()
     phase_done("phase 15")
     # launches on the main paths: K1 and K2 run on several

@@ -311,23 +311,17 @@ def _synthesize_serving(spec: WorkloadSpec) -> Workload:
     campaign-grid promotion of ``serve/decode.py``'s execution shape.
     Pure MLIR text via :func:`synthesize_gemm_stack`, so serving sweeps
     (and the what-if search built on them) run without a framework.
-    The port has the configs of the families it ports (``configs/``)."""
+    The port has every id's config (``configs/``)."""
     import importlib
 
     mod_name = spec.arch.replace("-", "_").replace(".", "_")
     try:
         cfg = importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
     except ImportError:
-        from ..models.registry import ARCH_IDS, PORTED_IDS
-        if spec.arch in ARCH_IDS:
-            raise NotImplementedError(
-                f"workload {spec.name!r}: {spec.arch} is not ported to "
-                "repro_torch yet (ROADMAP, Queue 1: other families); ported "
-                f"ids: {PORTED_IDS}") from None
+        from ..models.registry import ARCH_IDS
         raise ValueError(
             f"workload {spec.name!r}: unknown arch {spec.arch!r} for "
-            f"mode {spec.mode!r}; have {sorted(ARCH_IDS + PORTED_IDS)}"
-        ) from None
+            f"mode {spec.mode!r}; have {sorted(ARCH_IDS)}") from None
     if cfg.num_heads <= 0 or cfg.family == "ssm":
         raise ValueError(
             f"workload {spec.name!r}: mode {spec.mode!r} models an "

@@ -23,7 +23,7 @@ from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 from .common import dense, rms_norm, softcap
 from .params import ParamSpec
-from .rope import apply_rope
+from .rope import apply_mrope, apply_rope
 
 NEG_INF = -2.0e38
 
@@ -222,9 +222,6 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet "
-                                  "(ROADMAP, Queue 1: other families)")
     return q, k, v
 
 
@@ -236,11 +233,19 @@ def _out_proj(p: dict, out: torch.Tensor) -> torch.Tensor:
 
 
 def gqa_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                positions: torch.Tensor, *,
-                layer_window: int = 0) -> torch.Tensor:
-    """Full-sequence GQA for train/prefill. x: [B, S, d]."""
+                positions: torch.Tensor, *, layer_window: int = 0,
+                mrope_positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence GQA for train/prefill. x: [B, S, d];
+    ``mrope_positions`` [3, B, S]: M-RoPE's streams where the config has
+    sections (plain RoPE at ``positions`` without them, as the
+    reference)."""
     q, k, v = _project_qkv(cfg, p, x)
-    if cfg.causal or cfg.family == "audio":
+    if cfg.mrope_sections and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                        cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                        cfg.rope_theta)
+    elif cfg.causal or cfg.family == "audio":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     args = AttnArgs(causal=cfg.causal, window=layer_window,
@@ -268,8 +273,14 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     s_max = cache_k.shape[1]
     pos = cache_index.reshape(1, 1).expand(b, 1)
     q, k, v = _project_qkv(cfg, p, x)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    if cfg.mrope_sections:
+        # a decoded token's three streams all take its position
+        pos3 = pos.expand(3, b, 1)
+        q = apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, pos3, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     ring = 0 < layer_window >= s_max
     slot = torch.remainder(cache_index, s_max) if ring else cache_index
     slot = slot.reshape(1).long()

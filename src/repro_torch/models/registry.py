@@ -1,12 +1,13 @@
-"""Architecture registry: ``--arch <id>`` -> config.
+"""Architecture registry: ``--arch <id>`` -> config and input specs.
 
-The port serves the dense Llama family, the attention-free SSM family
-(mamba2-370m), the dense deepseek-67b, qwen2.5-32b, gemma2-27b and
-stablelm-12b, the sparse MoE mixtral-8x22b, the hybrid zamba2-2.7b (Mamba2
-layers with one shared attention block) and deepseek-v3-671b (multi-head
-latent attention and 256 experts); the other ids of the JAX registry raise
-``NotImplementedError`` naming the ROADMAP item that ports them (Queue 1,
-item 11: other families).
+The port serves every id of the JAX registry: the dense Llama family, the
+attention-free SSM family (mamba2-370m), the dense deepseek-67b,
+qwen2.5-32b, gemma2-27b and stablelm-12b, the sparse MoE mixtral-8x22b, the
+hybrid zamba2-2.7b (Mamba2 layers with one shared attention block),
+deepseek-v3-671b (multi-head latent attention and 256 experts), the VLM
+backbone qwen2-vl-7b (M-RoPE over three position streams) and the
+encoder-only hubert-xlarge (frame embeddings in).  An unknown id is a
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -18,28 +19,19 @@ from ..configs.base import ModelConfig, ShapeConfig
 from .params import DTYPES
 from .transformer import cache_shapes
 
-# the JAX registry's ids that are not ported yet, each with what it waits
-# for
-ARCH_IDS = ["hubert-xlarge", "qwen2-vl-7b"]
-_WAITS_FOR = {
-    "hubert-xlarge": "the stub front end",
-    "qwen2-vl-7b": "M-RoPE and the stub front end",
-}
-# the paper's dense Llama workloads, the SSM family, the dense and MoE
-# families whose attention K1 takes, the hybrid and the MLA family: the ids
-# the port serves
-PORTED_IDS = ["llama3-100m", "llama3-500m", "llama3-1b", "llama3-3b",
-              "llama2-7b", "mamba2-370m", "deepseek-67b", "qwen2.5-32b",
-              "gemma2-27b", "mixtral-8x22b", "stablelm-12b", "zamba2-2.7b",
-              "deepseek-v3-671b"]
+# the JAX registry's ids: its 40-cell matrix's ten and the paper's five
+# Llama workloads, in its order
+ARCH_IDS = [
+    "mamba2-370m", "deepseek-67b", "stablelm-12b", "qwen2.5-32b",
+    "gemma2-27b", "zamba2-2.7b", "deepseek-v3-671b", "mixtral-8x22b",
+    "hubert-xlarge", "qwen2-vl-7b",
+    "llama3-100m", "llama3-500m", "llama3-1b", "llama3-3b", "llama2-7b",
+]
+# the ids the port serves and trains: all of them
+PORTED_IDS = list(ARCH_IDS)
 
 
 def _module(arch: str):
-    if arch in ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet: it needs "
-            f"{_WAITS_FOR[arch]} (ROADMAP, Queue 1 item 11: other "
-            "families); ported ids: " + ", ".join(PORTED_IDS))
     if arch not in PORTED_IDS:
         raise KeyError(arch)
     name = arch.replace("-", "_").replace(".", "_")
@@ -98,9 +90,6 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None, rules=None,
     from ..distributed.sharding import act_sharding, shard_shape
 
     _no_seq_sharding("input_specs", seq_sharded)
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet "
-                                  "(ROADMAP, Queue 1: other families)")
 
     def meta(shp, dtype, axes):
         if mesh is not None:
@@ -118,6 +107,9 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None, rules=None,
         batch["tokens"] = meta(lead, "int32", ("batch", "seq"))
     if shape.kind == "train":
         batch["targets"] = meta(lead, "int32", ("batch", "seq"))
+    if cfg.mrope_sections and shape.kind != "decode":
+        batch["mrope_positions"] = meta((3, *lead), "int32",
+                                        ("norm", "batch", "seq"))
     return batch
 
 

@@ -3,8 +3,11 @@ the serving paths of the attention-free SSM family (Mamba2), of the other
 dense families (deepseek-67b, qwen2.5-32b, gemma2-27b, stablelm-12b), of the
 sparse MoE family (mixtral-8x22b), of the hybrid family (zamba2-2.7b: the
 Mamba2 layers in super-blocks, each closed by one attention block whose
-weights all super-blocks share) and of the MLA family (deepseek-v3-671b:
-multi-head latent attention before a sparse MoE).
+weights all super-blocks share), of the MLA family (deepseek-v3-671b:
+multi-head latent attention before a sparse MoE), of the VLM backbone
+(qwen2-vl-7b: M-RoPE over the batch's ``mrope_positions`` [3, B, S]) and
+of the encoder-only audio family (hubert-xlarge: frame embeddings in, no
+causal mask, no decode).
 
 Public entry points are plain functions of (cfg, params, batch), with the
 JAX package's names, signatures and layouts (layer-stacked weights [L, ...],
@@ -136,13 +139,15 @@ def ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def attn_block(cfg: ModelConfig, lp: dict, h: torch.Tensor,
-               positions: torch.Tensor, layer_idx: int) -> torch.Tensor:
+               positions: torch.Tensor, layer_idx: int,
+               mrope_positions: torch.Tensor | None = None) -> torch.Tensor:
     x = rms_norm(h, lp["ln1"], cfg.rms_eps)
     if cfg.mla is not None:
         h = h + mla_forward(cfg, lp["attn"], x, positions)
     else:
         h = h + gqa_forward(cfg, lp["attn"], x, positions,
-                            layer_window=_layer_window(cfg, layer_idx))
+                            layer_window=_layer_window(cfg, layer_idx),
+                            mrope_positions=mrope_positions)
     x = rms_norm(h, lp["ln2"], cfg.rms_eps)
     return h + ffn(cfg, lp, x)
 
@@ -204,14 +209,17 @@ def _unstack(tree, n: int) -> list[dict]:
 
 
 def _scan_layers(cfg: ModelConfig, params: dict, h: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor,
+                 mrope_positions: torch.Tensor | None = None) -> torch.Tensor:
     """The reference's layer scan as a Python loop over the stacked
     weights.  With ``remat == "full"`` each layer is recomputed in the
     backward (the reference's ``jax.checkpoint`` of the scan body), so its
     kernels' forwards run twice when a gradient is taken.  The layers are
     always unrolled, so an export has no layer loop; as in the reference, a
     barrier follows each layer when ``layer_barriers`` is set and
-    ``scan_layers`` is not (the reference's unrolled stack)."""
+    ``scan_layers`` is not (the reference's unrolled stack).
+    ``mrope_positions`` reaches every attention layer (M-RoPE); as in the
+    reference, the hybrid's shared block takes plain RoPE."""
     if cfg.family == "hybrid":
         return _scan_super_blocks(cfg, params, h, positions)
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
@@ -220,7 +228,8 @@ def _scan_layers(cfg: ModelConfig, params: dict, h: torch.Tensor,
                 return ssm_block(cfg, lp, x)
         else:
             def block(x, lp=lp, i=i):
-                return attn_block(cfg, lp, x, positions, i)
+                return attn_block(cfg, lp, x, positions, i,
+                                  mrope_positions)
         if cfg.remat == "full" and torch.is_grad_enabled():
             h = checkpoint(block, h, use_reentrant=False)
         else:
@@ -252,13 +261,15 @@ def _scan_super_blocks(cfg: ModelConfig, params: dict, h: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict):
-    """Returns (loss, logits). batch: tokens/embeds, targets, [positions].
+    """Returns (loss, logits). batch: tokens/embeds, targets, [positions],
+    [mrope_positions].
 
     With ``loss_vocab_chunk`` > 0 the CE loss streams over vocab chunks and
     the full logits are never materialised (the logits returned are
     None)."""
     h = _embed(cfg, params, batch)
-    h = _scan_layers(cfg, params, h, _positions(batch))
+    h = _scan_layers(cfg, params, h, _positions(batch),
+                     batch.get("mrope_positions"))
     if cfg.loss_vocab_chunk > 0:
         loss = chunked_cross_entropy(cfg, params, h, batch["targets"],
                                      cfg.loss_vocab_chunk)
@@ -435,7 +446,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     head runs on the last position only: the same numbers, without the
     [B, S, V] logits."""
     h = _embed(cfg, params, batch)
-    h = _scan_layers(cfg, params, h, _positions(batch))
+    h = _scan_layers(cfg, params, h, _positions(batch),
+                     batch.get("mrope_positions"))
     return _logits(cfg, params, h[:, -1:].contiguous())[:, -1]
 
 

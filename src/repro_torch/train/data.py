@@ -69,6 +69,7 @@ class ShardedLoader:
         "tokens": ("batch", "seq"),
         "targets": ("batch", "seq"),
         "embeds": ("batch", "seq", "embed"),
+        "mrope_positions": ("norm", "batch", "seq"),
     }
 
     def __init__(self, source, mesh, rules=None):

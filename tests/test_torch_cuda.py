@@ -9,7 +9,10 @@ and SSM widths) served through K1, K2 and K3; K1 at MLA's widths (query
 model served through K1 and K2, and its donated Adafactor step equal to
 the functional one; and the sparse MoE layer on
 the card against its CPU run, and twice to equal bits, forward and
-backward.  Every test is marked ``cuda`` and skips
+backward; K1 and K1b at qwen2-vl-7b's GQA group of 7 and at hubert-xlarge's
+head_dim 80 without a causal mask, K2 and K2b at their widths (3584, 1280),
+and small models of both ids (M-RoPE streams, frame embeddings) served and
+trained through the kernels.  Every test is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
 also runs on a machine with a card and no JAX:
 
@@ -939,3 +942,180 @@ def test_moe_layer_backward_on_card_gives_equal_bits_twice(cuda, dtype):
     first, second = grads(), grads()
     assert all(g.abs().max() > 0 for g in first)
     assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+# --------------------------------------------------------------------------
+# the last two ids: qwen2-vl-7b (GQA group 7, M-RoPE) and hubert-xlarge (no
+# causal mask at head_dim 80, norms at 1280)
+# --------------------------------------------------------------------------
+
+def image_streams(b: int, s: int, prefix: int, grid: int) -> np.ndarray:
+    """M-RoPE's [3, B, S] int32 streams (t, h, w) as Qwen2-VL lays out one
+    image: ``prefix`` text tokens at 0..prefix-1 on all three streams; a
+    1 x grid x grid patch grid at (prefix, prefix + row, prefix + col);
+    then text resuming at the largest position + 1 (prefix + grid) on all
+    three."""
+    n = grid * grid
+    assert prefix + n <= s
+    pos = np.empty((3, b, s), np.int32)
+    pos[:, :, :prefix] = np.arange(prefix)
+    row, col = np.divmod(np.arange(n), grid)
+    pos[0, :, prefix:prefix + n] = prefix
+    pos[1, :, prefix:prefix + n] = prefix + row
+    pos[2, :, prefix:prefix + n] = prefix + col
+    pos[:, :, prefix + n:] = prefix + grid + np.arange(s - prefix - n)
+    return pos
+
+
+def _bshd(cuda, dtype, seed, b, hq, hkv, s, d):
+    """q, k, v [B, S, H, D] on the card seen as [B, H, S, D], as
+    gqa_forward passes its projections, and a dO of q's layout."""
+    q, k, v, do = _normal(seed, (b, s, hq, d), (b, s, hkv, d),
+                          (b, s, hkv, d), (b, s, hq, d))
+    return [t.to(cuda).transpose(1, 2) for t in _torch([q, k, v, do], dtype)]
+
+
+# B, Hq, Hkv, S, D, causal: qwen2-vl-7b's prefill (one prompt) and train
+# step (D 128, 28/4 heads: a group of 7), hubert-xlarge's (D 80, 16/16
+# heads, no causal mask), at chip_smoke.py's phase-3 shapes
+LAST_IDS_K1 = {"qwen2-vl": (1, 28, 4, 8192, 128, True),
+               "hubert": (1, 16, 16, 8192, 80, False)}
+LAST_IDS_K1B = {"qwen2-vl": (2, 28, 4, 4096, 128, True),
+                "hubert": (2, 16, 16, 4096, 80, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(LAST_IDS_K1))
+def test_flash_kernel_at_the_last_ids_shapes(cuda, dtype, case):
+    # the tolerances are ref.RTOL, ROW_RTOL and LSE_ATOL
+    b, hq, hkv, s, d, causal = LAST_IDS_K1[case]
+    q, k, v, _ = _bshd(cuda, dtype, 32, b, hq, hkv, s, d)
+    kw = dict(causal=causal, window=0, logit_cap=0.0, q_offset=0)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    out_lse, lse = k1_ops._forward(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(out, out_lse)
+    _, elem, row = flash_error(out, q, k, v, **kw)
+    assert elem <= 1.0 and row <= 1.0, (elem, row)
+    assert lse_error(lse, q, k, v, **kw)[1] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(LAST_IDS_K1B))
+def test_flash_bwd_kernel_at_the_last_ids_shapes(cuda, dtype, case):
+    # against the plain backward in double (ref.BWD_RTOL, BWD_ROW_RTOL), a
+    # KV head's group at a time; two launches to equal bits
+    from repro_torch.kernels.flash_attention.ref import by_kv_head
+    b, hq, hkv, s, d, causal = LAST_IDS_K1B[case]
+    q, k, v, do = _bshd(cuda, dtype, 33, b, hq, hkv, s, d)
+    kw = dict(causal=causal, window=0, logit_cap=0.0, q_offset=0)
+    o, lse = k1_ops._forward(q, k, v, with_lse=True, **kw)
+    before = flash_attention_bwd.launches
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+    del again
+    for heads, qh, kh, vh in by_kv_head(q, k, v):
+        h = heads.start // (heads.stop - heads.start)
+        errs = k1b_error((dq[:, heads], dk[:, h:h + 1], dv[:, h:h + 1]), qh,
+                         kh, vh, o[:, heads], lse[:, heads], do[:, heads],
+                         **kw)
+        for err, elem, row in errs:
+            assert elem <= 1.0 and row <= 1.0, (h, elem, row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3584, 1280])
+def test_rmsnorm_kernels_at_the_last_ids_widths(cuda, dtype, d):
+    # K2 and K2b at qwen2-vl-7b's d_model (K2's block-a-row kernel; K2b's
+    # groups kernel, two groups of 224 threads a block) and hubert-xlarge's
+    # 1280 (K2's warp-a-row kernel; 80 threads a row, K2b's block kernel),
+    # on a train step's 2 x 4096 rows; K2b twice to equal bits
+    x, w, dy = _normal(34, (8192, d), (d,), (8192, d))
+    x, w, dy = (t.to(cuda) for t in _torch([x, 1.0 + 0.1 * w, dy], dtype))
+    before = (rmsnorm.launches, rmsnorm_bwd.launches)
+    out = rmsnorm(x, w)
+    dx, dw = rmsnorm_bwd(x, w, dy)
+    again = rmsnorm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches, rmsnorm_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 2)
+    assert rmsnorm_error(out, x, w)[1] <= 1.0
+    _, rx, rrow, _, rw = k2b_error(dx, dw, x, w, dy)
+    assert max(rx, rrow, rw) <= 1.0, (rx, rrow, rw)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+
+
+def _tiny_last(arch):
+    """qwen2-vl-7b's smoke config at its head width and group (7 heads of
+    128 over one KV head, its sections (16, 24, 24)) and hubert-xlarge's
+    at its head width (2 heads of 80), two layers each."""
+    if arch == "qwen2-vl-7b":
+        return get_smoke_config(arch).scaled(
+            d_model=896, num_heads=7, num_kv_heads=1, d_ff=512,
+            vocab_size=512, mrope_sections=(16, 24, 24))
+    return get_smoke_config(arch).scaled(d_model=160, num_heads=2,
+                                         num_kv_heads=2, d_ff=320)
+
+
+def _last_batch(cfg, cuda, b, s):
+    rng = np.random.default_rng(35)
+    targets = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)).to(cuda)
+    if cfg.frontend == "stub":
+        return {"embeds": torch.from_numpy(rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)).to(cuda),
+            "targets": targets}
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).to(cuda),
+        "targets": targets,
+        "mrope_positions": torch.from_numpy(image_streams(b, s, 16, 8)).to(
+            cuda)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "hubert-xlarge"])
+def test_the_last_ids_serve_and_train_through_the_kernels(cuda, arch,
+                                                          monkeypatch):
+    # bf16 prefill (K1 a layer, K2 2 L + 1) and gradients (K1b a layer, K2b
+    # 2 L + 1) through the kernels against the plain bf16 path (chunked
+    # attention, plain norms), both against an f32 plain run: the kernels'
+    # distance within twice the plain path's, for the logits and every
+    # parameter's gradient; qwen2-vl with one image's M-RoPE streams,
+    # hubert from frame embeddings without a causal mask
+    cfg = _tiny_last(arch)
+    params = init_params(model_specs(cfg), torch.Generator(cuda).manual_seed(3),
+                         cuda)
+    batch = _last_batch(cfg, cuda, 2, 256)
+    counters = (flash_attention, rmsnorm, flash_attention_bwd, rmsnorm_bwd)
+    before = [f.launches for f in counters]
+    logits = prefill(cfg, params, batch)
+    _, gk = _value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [4, 10, 2, 5]
+    plain = cfg.scaled(attn_impl="chunked", attn_chunk=128)
+    monkeypatch.setattr(model_common, "rmsnorm", rmsnorm_ref)
+    p32 = tree_map(lambda t: t.float(), params)
+    cfg32 = plain.scaled(dtype="float32")
+    lp, l32 = prefill(plain, params, batch), prefill(cfg32, p32, batch)
+    assert torch.isfinite(logits).all()
+    dk = (logits - l32).norm() / l32.norm()
+    dp = (lp - l32).norm() / l32.norm()
+    assert dk <= 2 * dp, (dk.item(), dp.item())
+    _, gp = _value_and_grad(plain, params, batch)
+    _, g32 = _value_and_grad(cfg32, p32, batch)
+    for (name, a), p, ref in zip(_flatten(gk).items(), tree_leaves(gp),
+                                 tree_leaves(g32)):
+        if name == "embed" and cfg.frontend == "stub":
+            continue      # frame embeddings in: the table takes no gradient
+        assert torch.isfinite(a).all() and a.abs().max() > 0, name
+        dk = (a.float() - ref).norm() / ref.norm()
+        dp = (p.float() - ref).norm() / ref.norm()
+        assert dk <= 2 * dp, (name, dk.item(), dp.item())

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from repro.models import params as jax_params
+from repro.models import registry as jax_registry
 from repro.models import transformer as jax_tf
 from repro.models.registry import get_config as jax_get_config
 from repro.models.registry import get_smoke_config as jax_get_smoke_config
@@ -118,14 +119,27 @@ def test_transformer_lm_module_serves_like_the_functions():
                                                    {"tokens": prompt}))
 
 
-@pytest.mark.parametrize("arch", ["hubert-xlarge", "qwen2-vl-7b"])
-def test_unported_families_raise(arch):
-    from repro_torch.models.registry import get_config as tget
-    from repro_torch.models.registry import get_smoke_config as tsmoke
-    for get in (tget, tsmoke):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP, Queue 1 item 11"):
-            get(arch)
+@pytest.mark.parametrize("arch", jax_registry.ARCH_IDS
+                         + jax_registry.EXTRA_IDS)
+def test_every_reference_id_has_its_config(arch):
+    """Every id of the reference's registry resolves, to its config and its
+    smoke config field for field (the port's ``attn_impl`` defaults to
+    ``kernel``, the reference's to ``chunked``); the port's ``ARCH_IDS`` is
+    the reference's ids, all of them ported; an unknown id is a
+    ``KeyError``."""
+    import dataclasses
+
+    from repro_torch.models import registry
+    assert set(registry.ARCH_IDS) == set(registry.PORTED_IDS) == set(
+        jax_registry.ARCH_IDS + jax_registry.EXTRA_IDS)
+    for get in ("get_config", "get_smoke_config"):
+        ours = dataclasses.asdict(getattr(registry, get)(arch))
+        ref = dataclasses.asdict(getattr(jax_registry, get)(arch))
+        assert (ours.pop("attn_impl"), ref.pop("attn_impl")) == ("kernel",
+                                                                 "chunked")
+        assert ours == ref
+        with pytest.raises(KeyError):
+            getattr(registry, get)(arch + "-unknown")
 
 
 # (query/key, value) widths of K1's launches: head_dim 160 and 80, and

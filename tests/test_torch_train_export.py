@@ -7,17 +7,21 @@ gemma2-27b, qwen2.5-32b, deepseek-67b, mamba2-370m (its ``split`` of
 the projection into slices, softplus's ``log_plus_one``, the depthwise
 causal conv as the reference writes it, the backward of ``cumsum`` as a
 ``reverse``), stablelm-12b, zamba2-2.7b (the hybrid: Mamba2 layers and
-one shared attention block, whose weights' gradient sums its uses) and
-deepseek-v3-671b (MLA before a sigmoid-gated MoE).  At
+one shared attention block, whose weights' gradient sums its uses),
+deepseek-v3-671b (MLA before a sigmoid-gated MoE), qwen2-vl-7b (M-RoPE:
+its text takes the three position streams as an input, as JAX's does) and
+the encoder-only hubert-xlarge.  At
 smoke size in f32, with two SSD chunks so that the states' gradients are
 taken as JAX takes them:
 
 * (d) the campaign's text (chunked attention) of each train step, and
   mamba2's forward, reads through both front ends to the JAX export's
   ``dot_general`` FLOPs;
-* (e) XLA runs mixtral's and mamba2's train texts on the CPU to the eager
-  step's outputs: loss, gradient norm, new parameters and moments; and
-  deepseek-v3-671b's under Adafactor taken a slice of a leaf at a time;
+* (e) XLA runs mixtral's, mamba2's, qwen2-vl-7b's (M-RoPE over an
+  image's three position streams) and hubert-xlarge's (frame embeddings,
+  no causal mask) train texts on the CPU to the eager step's outputs:
+  loss, gradient norm, new parameters and moments; and deepseek-v3-671b's
+  under Adafactor taken a slice of a leaf at a time;
 * (f) the executor (``core/executor.py``) runs each op these texts added
   to XLA's values, alone and in the whole mamba2 and mixtral texts; the
   card's configuration's mamba2 text has one ``call`` of
@@ -46,9 +50,11 @@ from repro_torch.train import optimizer
 from repro_torch.train.optimizer import OptimizerConfig
 from test_torch_export import XLA_RTOL, _run_xla
 from test_torch_profiling import _assert_close, _module
+from test_torch_qwen2_vl import image_streams
 
 FAMILIES = ["mixtral-8x22b", "gemma2-27b", "qwen2.5-32b", "deepseek-67b",
-            "mamba2-370m", "stablelm-12b", "zamba2-2.7b", "deepseek-v3-671b"]
+            "mamba2-370m", "stablelm-12b", "zamba2-2.7b", "deepseek-v3-671b",
+            "qwen2-vl-7b", "hubert-xlarge"]
 # two of mamba2-smoke's 32-row chunks: with one chunk no state reaches a
 # later chunk, and autograd prunes the gradients JAX's scan still takes
 SEQ, BATCH = 64, 2
@@ -127,7 +133,8 @@ def test_the_cards_configuration_calls_each_kernel_once_a_layer(arch):
 def _step_inputs(cfg, ocfg, seed=0):
     """Parameters of std 0.3 (the router's top-k margins far above the
     rounding that separates XLA's products from torch's), the optimizer's
-    initial state and a token batch."""
+    initial state and a batch: tokens, or a stub front end's frame
+    embeddings, and with M-RoPE an image's three position streams."""
     rng = np.random.default_rng(seed)
     step, args = train_step_exports(cfg, SEQ, BATCH, opt_cfg=ocfg)
     params = pytree.tree_map(
@@ -136,13 +143,20 @@ def _step_inputs(cfg, ocfg, seed=0):
                    else torch.ones(tuple(t.shape))), args[0])
     opt = pytree.tree_map(lambda t: torch.zeros(tuple(t.shape),
                                                 dtype=t.dtype), args[1])
-    batch = {k: torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (BATCH, SEQ), dtype=np.int32))
-        for k in ("tokens", "targets")}
+    batch = {}
+    for k, t in args[2].items():
+        if k == "embeds":
+            x = rng.standard_normal(tuple(t.shape)).astype(np.float32)
+        elif k == "mrope_positions":
+            x = image_streams(BATCH, SEQ, 5, 6)
+        else:
+            x = rng.integers(0, cfg.vocab_size, (BATCH, SEQ), dtype=np.int32)
+        batch[k] = torch.from_numpy(x)
     return params, opt, batch
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-370m",
+                                  "qwen2-vl-7b", "hubert-xlarge"])
 def test_xla_runs_the_train_text_to_the_eager_step(arch):
     cfg = registry.get_smoke_config(arch).scaled(attn_impl="chunked",
                                                  dtype="float32")
