@@ -197,7 +197,24 @@ prints no result line):
    runs routed alike); and qwen2-vl-7b (4 of 28 layers,
    2 x 4096, one image's streams in the batch) and hubert-xlarge (48 of
    48, 2 x 4096, frame embeddings; its gate leaves out the embedding
-   table, which takes no gradient).
+   table, which takes no gradient);
+16. one rank of qwen2.5-32b on a ``[4, 8]`` mesh (data 4, model 8: heads
+   40 -> 5, kv 8 -> 1, d_ff 27648 -> 3456, vocab 152064 -> 19008, d_model
+   over data 5120 -> 1280), the rank of a fake world of 32 (its
+   collectives move no data, so this is the rank's compute; its values
+   are not checked here, the CPU tests hold the numerics): the per-rank
+   step at full width and depth (64 layers), 1 x 4096 of a global 4 x 4096
+   under AdamW, with its memory reckoned before it runs; the median step,
+   tokens/s and MFU against the rank's reckoned FLOPs, peak memory, the
+   launches a step (K1 and K1b 64, K2 and K2b 129), one step profiled by
+   kernel group; the per-rank text at
+   TP_EXPORT_LAYERS layers on fake ``cuda`` tensors (both front ends equal,
+   32 partitions, every collective typed by its payload with 4 groups of 8
+   on the model axis and 8 groups of 4 on the data axis, ``dot_general``
+   FLOPs the reckoning's) predicted on ``h100`` by phase 10's two
+   estimators beside the rank's step measured at that depth.  Phase 3
+   holds and times K1 and K1b at the rank's attention (1 x 5/1 x 4096, D
+   128, causal, GQA group 5).
 
 Each check, phase and id draws its inputs and weights from a generator
 seeded from its own name (``seeded``).  Each phase's seconds are printed
@@ -451,6 +468,9 @@ K1_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, Dv, causal, window, cap,
     # heads, no causal mask over the whole 8192 frames; strided
     ("qwen2_vl_bshd", 1, 28, 4, 8192, 8192, 128, 128, True, 0, 0.0, 0),
     ("hubert_bshd", 1, 16, 16, 8192, 8192, 80, 80, False, 0, 0.0, 0),
+    # phase 16's rank of qwen2.5-32b on [4, 8]: its 5 query heads and 1 kv
+    # head (GQA group 5) over 1 x 4096 tokens, causal, D 128, strided
+    ("qwen_tp_bshd", 1, 5, 1, 4096, 4096, 128, 128, True, 0, 0.0, 0),
 ]
 # the cases at head_dim 80 and 160, and at MLA's pair (tools/mutate_k1.py
 # runs these alone)
@@ -463,7 +483,7 @@ K1_LAST = ("qwen2_vl_bshd", "hubert_bshd")
 # the rows timed beside their bound (bf16; "prefill" in f32 too)
 K1_TIMED = ("prefill", "mixtral_bshd", "gemma2_local_bshd",
             "gemma2_global_bshd", "stablelm_bshd", "zamba2_bshd", "mla_bshd",
-            "qwen2_vl_bshd", "hubert_bshd")
+            "qwen2_vl_bshd", "hubert_bshd", "qwen_tp_bshd")
 
 
 def k1_inputs(gen, name, b, hq, hkv, sq, skv, d, dtype, dv=None):
@@ -828,6 +848,8 @@ K1B_FAMILY_CASES = [  # name, B, Hq, Hkv, S, causal, window, cap, D, Dv
     ("mla_train", 2, 128, 128, 4096, True, 0, 0.0, 192, 128),
     ("qwen2-vl", 2, 28, 4, 4096, True, 0, 0.0, 128, 128),
     ("hubert", 2, 16, 16, 4096, False, 0, 0.0, 80, 80),
+    # phase 16's rank of qwen2.5-32b on [4, 8]: 5 query heads, 1 kv head
+    ("qwen2.5_tp", 1, 5, 1, 4096, True, 0, 0.0, 128, 128),
 ]
 # the family cases held in f32 too (untimed): the new head widths, the
 # group of 7 and the non-causal mask
@@ -3938,6 +3960,264 @@ def profile_window(name: str, fn, top: int = 10, groups=None,
                 f"x{e.count:<5} {e.key}")
 
 
+# phase 16: one rank of qwen2.5-32b on a [4, 8] mesh
+# --------------------------------------------------------------------------
+
+TP_ARCH, TP_MESH = "qwen2.5-32b", (4, 8)
+# the global batch: 1 x 4096 a data rank
+TP_B, TP_S = 4, 4096
+TP_WARMUP, TP_STEPS = 2, 3
+# the per-rank text is exported, and the step it is predicted beside is
+# measured, at this depth: a trace of 64 layers would take minutes of the
+# script's time (PERF.md section 4, reduced); the step above runs all 64
+TP_EXPORT_LAYERS = 2
+
+
+def tp_flops(cfg, b: int, s: int) -> tuple[float, int]:
+    """(model FLOPs, the per-rank text's ``dot_general`` FLOPs) of one
+    rank's train step of ``cfg`` on TP_MESH at ``b`` x ``s`` rows a rank,
+    every dim divided by its axis.  The products: each layer's Q, K, V and
+    output projections over the rank's heads and kv heads and its three MLP
+    projections over its block of d_ff, and the head over its vocab block,
+    each forward, and backward for its input and its weight (3 times).
+    Attention: the model FLOPs count the causal pairs (4 hd a pair and
+    head forward, twice that backward); the text writes K1 and K1b as
+    calls of their plain versions, which compute every pair: Q K^T and P V
+    forward, S, dP, dV, dK and dQ backward."""
+    m = TP_MESH[-1]
+    heads = (cfg.num_heads + cfg.pad_heads) // m
+    kv, f, v = cfg.num_kv_heads // m, cfg.d_ff // m, cfg.vocab_size // m
+    d, hd, t = cfg.d_model, cfg.resolved_head_dim, b * s
+    layer = 2 * t * d * (hd * (2 * heads + 2 * kv) + 3 * f)
+    products = 3 * (cfg.num_layers * layer + 2 * t * d * v)
+    pairs = s * (s + 1) // 2
+    model = products + cfg.num_layers * 3 * 4 * hd * pairs * heads * b
+    text = products + cfg.num_layers * 7 * 2 * b * heads * s * s * hd
+    return model, text
+
+
+def shard_specs(specs: dict, mesh) -> dict:
+    """The spec tree with each leaf's shape the rank's shard of it, so that
+    the rank's weights are drawn directly (the whole of qwen2.5-32b, 65 GB
+    in bf16, is never made)."""
+    from repro_torch.distributed.sharding import param_sharding, shard_shape
+
+    if isinstance(specs, dict):
+        return {k: shard_specs(v, mesh) for k, v in specs.items()}
+    return replace(specs, shape=shard_shape(
+        specs.shape, param_sharding(specs.axes, mesh, None, specs.shape),
+        mesh))
+
+
+def tp_memory(cfg, specs: dict, rank: dict, b: int, s: int) -> float:
+    """The reckoning of the rank's peak memory, printed before the step:
+    its shards and their new values (bf16 parameters, f32 AdamW moments),
+    the layers gathered along their data dims and kept for the backward and
+    their gradients before the reduce-scatter, the activations each layer
+    keeps for the backward, the head's f32 logits (three live in its
+    backward) and the head in f32.  Returns the sum in bytes."""
+    m = TP_MESH[-1]
+    n = param_count(rank)
+    whole = sum(math.prod(x.shape) for k, x in tree_paths(specs).items()
+                if k.startswith("layers/")) // m
+    t, d = b * s, cfg.d_model
+    heads, kv = cfg.num_heads // m, cfg.num_kv_heads // m
+    hd, f, v = cfg.resolved_head_dim, cfg.d_ff // m, cfg.vocab_size // m
+    # a layer keeps its input, both norms' inputs and outputs, the two
+    # row-parallel partial sums and their sums (bf16, d wide), Q, K, V and
+    # the attention's output, the MLP's gate, up, activation and product
+    acts = cfg.num_layers * 2 * t * (8 * d + hd * (2 * heads + 2 * kv)
+                                     + 4 * f)
+    terms = {"parameters and gradients (bf16)": 4 * n,
+             "AdamW's moments (f32)": 8 * n,
+             "the new parameters and moments": 10 * n,
+             "the gathered layers (bf16)": 2 * whole,
+             "their gradients before the reduce-scatter": 2 * whole,
+             "the layers' activations": acts,
+             "3 x the head's f32 logits": 3 * 4 * t * v,
+             "the head in f32": 4 * d * v}
+    total = sum(terms.values())
+    log("  memory reckoned before the run: " + "; ".join(
+        f"{k} {x / 1e9:.2f} GB" for k, x in terms.items())
+        + f"; {total / 1e9:.2f} GB ({total / 2**30:.2f} GiB)")
+    return total
+
+
+def tp_steps(step_fn, params, opt_state, batch, warmup: int, steps: int):
+    """``warmup`` + ``steps`` synchronised steps on the same shards (the
+    fake world fills no gather buffer, so the values are not the point);
+    the launch counts set to 0 after the warm-up and read after the last.
+    Returns (launches, step seconds)."""
+    times = []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            # ---- the main path: counts at 0 just before, read after ----
+            for fn in COUNTERS.values():
+                fn.launches = 0
+        times.append(timed(lambda: step_fn(params, opt_state, batch)))
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    # ---- end of the main path ----
+    return launches, times
+
+
+def tp_export(cfg):
+    """The per-rank train step of ``cfg`` on TP_MESH exported on fake
+    ``cuda`` tensors (with the global step's raw text): no launch, no
+    device memory; both front ends equal, TP_MESH's 32 partitions, every
+    collective typed by its payload, the model axis's 4 groups of 8 and
+    the data axis's 8 groups of 4 listed in each, the ``dot_general``
+    FLOPs the reckoning's.  Returns the workload."""
+    step, args = train_step_exports(cfg, TP_S, TP_B)
+    # the mesh is made, and fake tensors' one-time context on the card set
+    # up (FakeTensor's init_gpu_context allocates 4 bytes a device the first
+    # time a process makes a fake cuda tensor), before the count
+    with FakeTensorMode():
+        for device in ("cuda", "cuda:0"):
+            torch.empty(1, device=device) + 1
+    with traced_mesh(TP_MESH, "cuda") as mesh:
+        rank = train_step_exports(cfg, TP_S, TP_B, mesh)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in COUNTERS.items()}
+        allocs = allocations()
+        w = export_workload(step, *args, name=f"{TP_ARCH}-tp", device="cuda",
+                            per_rank=(*rank, mesh))
+        moved = allocations() - allocs
+    if moved or {k: fn.launches for k, fn in COUNTERS.items()} != counts:
+        raise AssertionError(f"tp export: {moved} device allocations, or a "
+                             "launch counter moved")
+    legacy = ir.parse_stablehlo(w.hlo_text, frontend="legacy")
+    streaming = ir.parse_stablehlo(w.hlo_text, frontend="streaming")
+    ir.assert_programs_equal(legacy, streaming)
+    world = math.prod(TP_MESH)
+    if streaming.meta.get("num_partitions") != world:
+        raise AssertionError(f"tp export: num_partitions "
+                             f"{streaming.meta.get('num_partitions')}")
+    axes = {(TP_MESH[0], TP_MESH[1]): "model",
+            (TP_MESH[1], TP_MESH[0]): "data"}
+    kinds: dict = {}
+    for c, mult in collect_collectives(streaming):
+        axis = axes.get((c.num_groups, c.group_size))
+        if not c.bytes_in > 0 or axis is None:
+            raise AssertionError(f"tp export: collective {c} is not typed by "
+                                 "its payload over an axis's groups")
+        k = kinds.setdefault(f"{c.kind} over {axis}", [0, 0.0])
+        k[0] += mult
+        k[1] += c.algo_bytes * mult
+    if {k.split(" over ")[1] for k in kinds} != {"model", "data"}:
+        raise AssertionError(f"tp export: collectives {kinds}")
+    flops = int(ir.program_cost(streaming).by_op["dot_general"])
+    want = tp_flops(cfg, TP_B // TP_MESH[0], TP_S)[1]
+    if flops != want:
+        raise AssertionError(f"tp export: dot_general FLOPs {flops}, "
+                             f"reckoned {want}")
+    opt = w.meta["optimized"]
+    log(f"  per-rank text at {cfg.num_layers} layers: trace "
+        f"{opt['trace_s']:.2f} s, emit {opt['emit_s']:.3f} s, "
+        f"{opt['text_bytes']} bytes, {streaming.num_ops} ops, num_partitions "
+        f"{world}, operator nodes {opt['kernel_ops']}; dot_general {flops} "
+        f"FLOPs (the reckoning's); global text: trace "
+        f"{w.meta['trace_s']:.2f} s")
+    log("  collectives (count, algorithm bytes a rank): " + "; ".join(
+        f"{k} {n}, {b:.0f}" for k, (n, b) in sorted(kinds.items())))
+    return w
+
+
+def tp_phase(gen, smi: str) -> dict:
+    """Phase 16.  Returns the launch counts of the full-depth step."""
+    cfg = get_config(TP_ARCH).scaled(remat="none")
+    assert cfg.attn_impl == "kernel" and cfg.dtype == "bfloat16"
+    rows = TP_B // TP_MESH[0]
+    specs = model_specs(cfg)
+    torch.cuda.empty_cache()
+    with traced_mesh(TP_MESH, "cuda") as mesh:
+        rank = shard_specs(specs, mesh)
+        log(f"  {TP_ARCH} on {list(TP_MESH)} (data, model): "
+            f"{cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} -> "
+            f"{cfg.num_heads // TP_MESH[1]}/{cfg.num_kv_heads // TP_MESH[1]} "
+            f"a rank, d_ff {cfg.d_ff} -> {cfg.d_ff // TP_MESH[1]}, vocab "
+            f"{cfg.vocab_size} -> {cfg.vocab_size // TP_MESH[1]}; the "
+            f"rank's shards {param_count(rank) / 1e9:.3f} B of "
+            f"{param_count(specs) / 1e9:.3f} B parameters; rows {rows}x{TP_S} "
+            f"of {TP_B}x{TP_S}; AdamW, remat none; reduced: none for the "
+            f"step")
+        reckoned = tp_memory(cfg, specs, rank, rows, TP_S)
+        params = init_params(rank, gen, "cuda")
+        opt_cfg = OptimizerConfig(warmup_steps=1)
+        opt_state = adamw_init(params, opt_cfg)
+        step_fn = make_train_step(cfg, opt_cfg, mesh=mesh)
+        batch = next(ShardedLoader(SyntheticSource(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TP_S, global_batch=TP_B,
+            seed=0)), mesh))
+        assert tuple(batch["tokens"].shape) == (rows, TP_S)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches, times = tp_steps(step_fn, params, opt_state, batch,
+                                   TP_WARMUP, TP_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        profile_window(f"{TP_ARCH} rank step on {list(TP_MESH)}",
+                       lambda: step_fn(params, opt_state, batch), top=12,
+                       groups=FAMILY_TRAIN_GROUPS)
+        del params, opt_state, step_fn
+    torch.cuda.empty_cache()
+    per_step = {k: n / TP_STEPS for k, n in launches.items()}
+    expected = train_launches(cfg)
+    log(f"  launches a step: {per_step}")
+    if per_step != expected:
+        raise AssertionError(f"tp launches a step {per_step}, expected "
+                             f"{expected}")
+    step_s = statistics.median(times[TP_WARMUP:])
+    model, text = tp_flops(cfg, rows, TP_S)
+    mfu = model / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f"  per-rank step (rank 0 of a fake world of {math.prod(TP_MESH)}: "
+        f"its collectives move no data, so this is the rank's compute; its "
+        f"values are not checked here): median {step_s * 1e3:.2f} ms over "
+        f"steps {TP_WARMUP}..{TP_WARMUP + TP_STEPS - 1} (all: "
+        + ", ".join(f"{t * 1e3:.2f}" for t in times)
+        + f" ms), {rows * TP_S / step_s:.0f} tokens/s a rank, model FLOPs "
+        f"{model:.4e} a step, mfu {mfu:.4f} of the bf16 peak (989 "
+        f"TFLOP/s); the text's dot_general FLOPs at 64 layers {text:.4e}; "
+        f"peak memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) beside "
+        f"the reckoned {reckoned / 1e9:.2f} GB ({smi})")
+
+    # the per-rank text at TP_EXPORT_LAYERS layers, its prediction on h100,
+    # and the rank's step measured at that depth
+    ecfg = cfg.scaled(num_layers=TP_EXPORT_LAYERS)
+    w = tp_export(ecfg)
+    with traced_mesh(TP_MESH, "cuda") as mesh:
+        params = init_params(shard_specs(model_specs(ecfg), mesh), gen,
+                             "cuda")
+        opt_cfg = OptimizerConfig(warmup_steps=1)
+        opt_state = adamw_init(params, opt_cfg)
+        _, short = tp_steps(make_train_step(ecfg, opt_cfg, mesh=mesh),
+                            params, opt_state, batch, 1, 3)
+        del params, opt_state
+    torch.cuda.empty_cache()
+    short_s = statistics.median(short[1:])
+    system = default_registry().get("h100")
+    topology = build_topology(TopologySpec.from_dict(
+        {"kind": "auto", "params": {"num_devices": math.prod(TP_MESH)}}),
+        system)
+    program = w.program("optimized")
+    for label, est in PREDICT_ESTIMATORS.items():
+        p = PredictionJob(program=program, slicer="linear", name=w.name,
+                          system_name="h100", topology=topology,
+                          estimator=build_estimator(
+                              EstimatorSpec.from_dict(est), system)).run()
+        if not (math.isfinite(p.step_time_s) and p.compute_s > 0):
+            raise AssertionError(f"tp predict {label}: {p}")
+        log(f"  per-rank text ({TP_EXPORT_LAYERS} layers) on h100 (auto, "
+            f"{math.prod(TP_MESH)} devices), {label}: step "
+            f"{p.step_time_s * 1e3:.2f} ms, compute {p.compute_s * 1e3:.2f} "
+            f"ms, communication {p.comm_s * 1e3:.2f} ms; measured "
+            f"{short_s * 1e3:.2f} ms at that depth (all: "
+            + ", ".join(f"{t * 1e3:.2f}" for t in short)
+            + f" ms); predicted compute / measured "
+            f"{p.compute_s / short_s:.4f} (a finding, not held)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4059,6 +4339,10 @@ def main() -> int:
         "hubert-xlarge (K1b at head_dim 80 without a causal mask)")
     runs += families_train_phase()
     phase_done("phase 15")
+    log("[16] one rank of qwen2.5-32b on a [4, 8] mesh (data, model): "
+        "tensor parallelism at full width and depth")
+    runs.append(tp_phase(seeded(f"tp {TP_ARCH}"), smi))
+    phase_done("phase 16")
     # launches on the main paths: K1 and K2 run on several
     for entry in (k1, k2, k3, k1b, k2b, k3b):
         key = entry["name"]

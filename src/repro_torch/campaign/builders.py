@@ -344,11 +344,14 @@ def _export_from_arch(spec: WorkloadSpec, device=None) -> Workload:
     train step (loss + gradients + optimizer update) with abstract
     optimizer state.  A ``resnet*`` arch is train-only (the fig7 workload
     family: :func:`repro_torch.models.resnet.resnet_train_exports` at
-    ``spec.batch`` images of ``spec.img`` pixels).  With a mesh a train
-    workload also gets its optimized text (a forward one raises): the
-    per-rank step of the data mesh, traced in a fake world of the mesh's
-    size (``launch/mesh.py::traced_mesh``), the counterpart of the
-    reference's ``_mesh_for`` under forced host devices.  The traces run on
+    ``spec.batch`` images of ``spec.img`` pixels).  With a mesh (``[data,
+    model]`` or ``[pod, data, model]``) a workload also gets its optimized
+    text: the per-rank train step or forward, traced in a fake world of the
+    mesh's size (``launch/mesh.py::traced_mesh``), the counterpart of the
+    reference's ``_mesh_for`` under forced host devices.  A ``model`` axis
+    above 1 takes the dense family (the MoE, SSM, hybrid and MLA ids raise
+    ``NotImplementedError`` naming their part of ROADMAP Queue 1 item 10),
+    and ResNet neither a ``model`` nor a ``pod`` axis.  The traces run on
     fake tensors on ``device`` (None: the card): no device memory, no
     launch."""
     from ..launch.mesh import traced_mesh
@@ -373,17 +376,12 @@ def _export_from_arch(spec: WorkloadSpec, device=None) -> Workload:
         from ..train.loop import forward_exports, train_step_exports
 
         cfg = get_config(spec.arch).scaled(attn_impl="chunked")
-        if spec.mesh is not None and spec.mode != "train":
-            raise NotImplementedError(
-                f"workload {spec.name!r}: a {spec.mode!r} workload with a "
-                "mesh has no per-rank program yet; only the train step is "
-                "ported for a data mesh (ROADMAP, Queue 1 item 10)")
 
         def exports(mesh=None):
             if spec.mode == "train":
                 return train_step_exports(cfg, spec.seq, spec.batch, mesh,
                                           opt_cfg=opt_cfg)
-            return forward_exports(cfg, spec.seq, spec.batch)
+            return forward_exports(cfg, spec.seq, spec.batch, mesh)
     step, abs_args = exports()
     if spec.mesh is None:
         return export_workload(step, *abs_args, name=spec.name,

@@ -66,9 +66,10 @@ class WorkloadSpec:
 
     ``mesh`` is the device-mesh shape for arch exports: 2 entries map to
     ("data", "model") axes, 3 to ("pod", "data", "model").  The port
-    exports the global step as the raw text and the per-rank program of
-    the data mesh as the optimized text (a ``model`` or ``pod`` axis above
-    1 raises ``NotImplementedError``).
+    exports the global step as the raw text and one rank's program (the
+    train step or the forward) as the optimized text; a ``model`` axis
+    above 1 takes the dense family (the MoE, SSM, hybrid and MLA ids raise
+    ``NotImplementedError``).
 
     ``fidelity`` is the *default* program fidelity for this workload; an
     :class:`EstimatorSpec` may override it (the paper's estimator classes

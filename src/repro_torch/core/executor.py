@@ -331,7 +331,9 @@ BINARY = {"add": torch.add, "subtract": torch.sub, "multiply": torch.mul,
           "divide": _divide, "maximum": torch.maximum,
           "minimum": torch.minimum, "power": torch.pow,
           "and": _logical(torch.logical_and, torch.bitwise_and),
-          "or": _logical(torch.logical_or, torch.bitwise_or)}
+          "or": _logical(torch.logical_or, torch.bitwise_or),
+          # the remainder takes the dividend's sign, as C's fmod
+          "remainder": torch.fmod}
 COMPARE = {"EQ": torch.eq, "NE": torch.ne, "LT": torch.lt, "LE": torch.le,
            "GT": torch.gt, "GE": torch.ge}
 
@@ -359,6 +361,15 @@ def _compare(ex, fn, op):
 def _convert(ex, fn, op):
     dt = torch_dtype(_out(op).dtype)
     return lambda xs: xs[0].to(dt)
+
+
+@_compiles("partition_id")
+def _partition_id(ex, fn, op):
+    """The partition this run stands for: 0, the rank a per-rank text was
+    traced as (``launch/mesh.py::fake_world``), held as an int32 (the
+    text's ``ui32`` is read only through a ``convert``)."""
+    value = torch.zeros((), dtype=torch.int32, device=ex.device)
+    return lambda xs: value
 
 
 @_compiles("select")

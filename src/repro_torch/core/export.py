@@ -32,6 +32,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils import _pytree as pytree
 
 from ..device import resolve_device
+from ..launch.mesh import axis_groups
 # the kernels' modules and the models' define their operators on import
 from ..kernels.flash_attention import ops as _k1  # noqa: F401
 from ..kernels.rmsnorm import ops as _k2  # noqa: F401
@@ -56,14 +57,15 @@ class Traced:
     flattened argument and result trees), one plain-version graph per
     distinct operator call (``node.meta["plain"]`` names it), the count of
     each operator's nodes, and the seconds the trace took.  A per-rank step
-    of a mesh also has the mesh's size (``num_partitions``) and the ranks
-    of each process group its collectives name."""
+    of a mesh also has the mesh's size (``num_partitions``) and, for each
+    process group its collectives name, every group of that group's mesh
+    axis (each a list of global ranks), as XLA prints ``replica_groups``."""
     graph: torch.fx.GraphModule
     plain: dict[str, torch.fx.GraphModule]
     op_counts: dict[str, int]
     seconds: float
     num_partitions: int = 1
-    groups: dict[str, list[int]] = field(default_factory=dict)
+    groups: dict[str, list[list[int]]] = field(default_factory=dict)
 
 
 def _functional(fn, args) -> torch.fx.GraphModule:
@@ -100,15 +102,20 @@ def _plain_graph(node: torch.fx.Node) -> torch.fx.GraphModule:
     return _functional(plain, [args[i].meta["val"] for i in slots])
 
 
-def _groups(graph: torch.fx.GraphModule) -> dict[str, list[int]]:
-    """The ranks of each process group the graph's collectives name."""
+def _groups(graph: torch.fx.GraphModule,
+            mesh=None) -> dict[str, list[list[int]]]:
+    """Every group of the mesh axis of each process group the graph's
+    collectives name (a group of no axis of ``mesh``: its own ranks)."""
     import torch.distributed as dist
     from torch.distributed.distributed_c10d import _resolve_process_group
 
     names = {node.args[-1] for node in graph.graph.nodes
              if node.op == "call_function" and node.target in COLLECTIVES}
-    return {name: dist.get_process_group_ranks(_resolve_process_group(name))
-            for name in sorted(names)}
+    axes = {} if mesh is None else {
+        mesh.get_group(axis).group_name: groups
+        for axis, groups in axis_groups(mesh).items()}
+    return {name: axes.get(name) or [dist.get_process_group_ranks(
+        _resolve_process_group(name))] for name in sorted(names)}
 
 
 def trace(fn, *abstract_args, device=None, mesh=None) -> Traced:
@@ -144,4 +151,5 @@ def trace(fn, *abstract_args, device=None, mesh=None) -> Traced:
                 if key not in plain:
                     plain[key] = _plain_graph(node)
     return Traced(graph, plain, dict(counts), time.perf_counter() - t0,
-                  mesh.size() if mesh is not None else 1, _groups(graph))
+                  mesh.size() if mesh is not None else 1,
+                  _groups(graph, mesh))

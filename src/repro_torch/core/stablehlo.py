@@ -50,6 +50,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..distributed.tensor_parallel import AXIS_INDEX
 from ..library import PLAIN
 from .export import BARRIER, Traced
 
@@ -467,12 +468,20 @@ class _Function:
                 raise NotImplementedError(f"fx node {node.op} {node.target}")
         return params, results
 
-    def text(self, name: str, visibility: str, graph: torch.fx.Graph) -> str:
+    def text(self, name: str, visibility: str, graph: torch.fx.Graph,
+             manual: bool = False) -> str:
+        """The function's text.  ``manual``: each argument and result is
+        marked ``mhlo.sharding = "{manual}"``, as JAX marks a
+        ``shard_map``'s per-device body: the program is already one
+        partition's, and XLA's SPMD partitioner leaves it (and its
+        ``partition_id``) as written."""
         params, results = self.body(graph)
         rtypes = self.result_types = [r.ty for r in results]
-        ret = rtypes[0] if len(rtypes) == 1 else f"({', '.join(rtypes)})"
+        mark = ' {mhlo.sharding = "{manual}"}' if manual else ""
+        ret = (rtypes[0] if len(rtypes) == 1 and not manual else
+               "(" + ", ".join(t + mark for t in rtypes) + ")")
         head = (f"  func.func {visibility} @{name}("
-                + ", ".join(f"{p.name}: {p.ty}" for p in params)
+                + ", ".join(f"{p.name}: {p.ty}{mark}" for p in params)
                 + f") -> {ret} {{")
         tail = (f"    return {', '.join(r.name for r in results)} : "
                 f"{', '.join(rtypes)}")
@@ -525,9 +534,12 @@ def emit(traced: Traced, name: str = "workload",
     """The StableHLO module of a traced step: ``@main`` takes the flattened
     arguments in order and returns the flattened outputs.  ``calls``, when
     given, is filled with the text's ``call`` table: each private function
-    of an operator's plain version by name -> its :class:`OperatorCall`."""
+    of an operator's plain version by name -> its :class:`OperatorCall`.
+    A per-rank step's ``@main`` (``num_partitions`` above 1) is marked
+    manual (:meth:`_Function.text`)."""
     module = _Module(traced, calls)
-    main = _Function(module).text("main", "public", traced.graph.graph)
+    main = _Function(module).text("main", "public", traced.graph.graph,
+                                  manual=traced.num_partitions > 1)
     sym = re.sub(r"[^A-Za-z0-9_]", "_", name)
     return (f"module @jit_{sym} attributes {{mhlo.num_partitions = "
             f"{traced.num_partitions} : i32, mhlo.num_replicas = 1 : i32}} "
@@ -575,6 +587,28 @@ def _binary(f, node, a, b, alpha=1, rounding_mode=None):
 
 for _op in _BINARY:
     _LOWERINGS[_op] = _binary
+
+
+@_lowers(aten.div.Tensor_mode)
+def _div_mode(f, node, a, b, rounding_mode=None):
+    """Integer division rounded toward zero (``stablehlo.divide``) or
+    down, as ``jnp.floor_divide`` writes it: the quotient less one where
+    the remainder is not 0 and its sign differs from the divisor's."""
+    shape, dt = _out(node)
+    if dt in _FLOATS or rounding_mode not in ("trunc", "floor"):
+        raise NotImplementedError(f"{node.target} on {dt} with "
+                                  f"rounding_mode {rounding_mode!r}")
+    a, b = f.operand(a, dt, shape), f.operand(b, dt, shape)
+    q = f.binary("divide", a, b)
+    if rounding_mode == "trunc":
+        return q
+    zero = f.full(0, shape, dt)
+    r = f.binary("remainder", a, b)
+    inexact = f.compare("NE", r, zero)
+    signs = f.compare("NE", f.compare("LT", r, zero),
+                      f.compare("LT", b, zero))
+    return f.select(f.binary("and", inexact, signs),
+                    f.binary("subtract", q, f.full(1, shape, dt)), q)
 
 
 def _promoted(a, b) -> torch.dtype:
@@ -1284,6 +1318,7 @@ def _max_pool_backward(f, node, dy, x, kernel, stride, padding, dilation,
 # ---------------------------------------------------------------------------
 
 _C10D = torch.ops._c10d_functional
+_REDUCE_OPS = {"sum": "add", "max": "maximum"}
 
 
 def _collective(f, node, kind: str, x: Value, group: str, first: str = "",
@@ -1292,25 +1327,28 @@ def _collective(f, node, kind: str, x: Value, group: str, first: str = "",
     the attributes in JAX's order (``first``, the channel, the replica
     groups, ``last``), then its reduction region when it has one, then its
     signature."""
-    ranks = f.module.traced.groups[group]
+    groups = f.module.traced.groups[group]
     shape, dt = _out(node)
     name = f"%{f.count}"
     f.count += 1
     region = ""
     if reduce_op is not None:
-        # the step sums and scales means itself (data_parallel.py)
-        if reduce_op != "sum":
+        # the step sums and scales means itself (data_parallel.py); the
+        # vocab-parallel cross-entropy takes a max (tensor_parallel.py)
+        if reduce_op not in _REDUCE_OPS:
             raise NotImplementedError(f"{node.target} with reduce_op "
                                       f"{reduce_op!r}")
         e, n = _tensor_type((), x.dt), name[1:]
         region = (f" ({{^bb0(%lhs{n}: {e}, %rhs{n}: {e}): %red{n} = "
-                  f"stablehlo.add %lhs{n}, %rhs{n} : {e} stablehlo.return "
-                  f"%red{n} : {e}}})")
+                  f"stablehlo.{_REDUCE_OPS[reduce_op]} %lhs{n}, %rhs{n} : "
+                  f"{e} stablehlo.return %red{n} : {e}}})")
+    listed = ", ".join("[" + ", ".join(map(str, g)) + "]" for g in groups)
     f.lines.append(
         f'    {name} = "stablehlo.{kind}"({x.name}) <{{{first}channel_handle '
         f"= #stablehlo.channel_handle<handle = {f.module.channel()}, type = "
-        f"1>, replica_groups = dense<[[{', '.join(map(str, ranks))}]]> : "
-        f"tensor<1x{len(ranks)}xi64>, {last}use_global_device_ids}}>{region} : "
+        f"1>, replica_groups = dense<[{listed}]> : "
+        f"tensor<{len(groups)}x{len(groups[0])}xi64>, "
+        f"{last}use_global_device_ids}}>{region} : "
         f"({x.ty}) -> {_tensor_type(shape, x.dt)}")
     return Value(name, shape, x.dt)
 
@@ -1332,6 +1370,18 @@ def _reduce_scatter(f, node, x, reduce_op, group_size, group):
 def _all_reduce(f, node, x, reduce_op, group):
     return _collective(f, node, "all_reduce", f.value(x), group,
                        reduce_op=reduce_op)
+
+
+@_lowers(AXIS_INDEX)
+def _axis_index(f, node, like, size, stride):
+    """The rank's coordinate on a mesh axis from its partition id (the
+    global rank): ``(partition_id / stride) % size``, as JAX computes an
+    ``axis_index``."""
+    pid = f._emit("stablehlo.partition_id : tensor<ui32>", (), "ui32")
+    x = f.convert(pid, "i32")
+    if stride > 1:
+        x = f.binary("divide", x, f.constant(stride, "i32"))
+    return f.binary("remainder", x, f.constant(size, "i32"))
 
 
 @_lowers(_C10D.wait_tensor.default)

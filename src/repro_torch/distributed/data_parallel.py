@@ -1,30 +1,40 @@
-"""The per-rank program of a data mesh: which dim of each leaf a rank holds,
+"""The per-rank program of a mesh: which dims of each leaf a rank holds,
 and the collectives that move the leaves around the step.
 
 The port's counterpart of what XLA's SPMD partitioner makes of the
-reference's ``jax.jit`` over ``NamedSharding``s on a ``[N, 1]`` mesh.  Each
-parameter leaf is sharded over the ``data`` axis along the dim its logical
-axes map to (``embed`` -> ``data``: ZeRO-3), or replicated.  A train step
-then (``train/loop.py::make_train_step``):
+reference's ``jax.jit`` over ``NamedSharding``s on a ``[data, model]`` or
+``[pod, data, model]`` mesh.  Each parameter leaf is sharded over the
+``data`` axis along the dim its logical axes map to (``embed`` -> ``data``:
+ZeRO-3), over the ``model`` axis along its ``heads``, ``kv_heads``,
+``mlp`` or ``vocab`` dim (``distributed/tensor_parallel.py`` runs the
+layers on those shards), or replicated; no leaf is sharded over ``pod``.
+A train step then (``train/loop.py::make_train_step``):
 
-1. all-gathers each sharded leaf along its dim, a layer-stacked leaf one
-   layer at a time (as XLA re-gathers each layer's weights in the layer
-   loop), so the model gets a list of layers for it;
-2. takes the loss and its gradient on the rank's rows of the batch;
-3. all-reduces the loss as a mean over the ranks;
-4. reduce-scatters each sharded leaf's gradient back to its shard as a
-   mean (a layer at a time for a stacked leaf), and all-reduces each
-   replicated leaf's gradient as a mean;
+1. all-gathers each data-sharded leaf along its data dim, a layer-stacked
+   leaf one layer at a time (as XLA re-gathers each layer's weights in the
+   layer loop), so the model gets a list of layers for it; a dim sharded
+   over ``model`` stays sharded;
+2. takes the loss and its gradient on the rank's rows of the batch (the
+   batch's rows are split over ``(pod, data)``);
+3. all-reduces the loss as a mean over the pod and data ranks;
+4. reduce-scatters each data-sharded leaf's gradient back to its shard as
+   a mean over ``data`` (a layer at a time for a stacked leaf), and
+   all-reduces each other leaf's gradient as a mean over ``data``; then
+   all-reduces every gradient as a mean over ``pod``;
 5. runs the optimizer on the shards, with the clip's global norm summed
-   over the shards (:meth:`DataParallel.global_norm`).
+   over the ranks that hold distinct pieces of each leaf
+   (:meth:`DataParallel.global_norm`).
 
 The collectives are ``torch.ops._c10d_functional`` operators, each followed
 by its ``wait_tensor``: a trace on fake tensors keeps them as graph nodes
 (the export writes them as StableHLO collectives), and eagerly they run on
-the mesh's process group (gloo, tested on the CPU; NCCL, untested; or the
-``"fake"`` backend, which moves no data).  Means are sums scaled by 1/N in the step.
+the mesh's process groups (gloo, tested on the CPU; NCCL, untested; or the
+``"fake"`` backend, which moves no data).  Means are sums scaled by 1/N in
+the step.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -34,19 +44,17 @@ _C10D = torch.ops._c10d_functional
 
 
 def data_group(mesh):
-    """The process group of the mesh's ``data`` axis.  Any other axis of
-    size above 1 raises: only the data-parallel half of the reference's
-    distribution layer is ported."""
-    sizes = axis_sizes(mesh)
-    if "data" not in sizes:
+    """The process group of the mesh's ``data`` axis."""
+    if "data" not in axis_sizes(mesh):
         raise ValueError(f"mesh axes {mesh.mesh_dim_names} have no 'data'")
-    for axis, n in sizes.items():
-        if axis != "data" and n > 1:
-            raise NotImplementedError(
-                f"a {axis!r} axis of size {n}: tensor parallelism and the "
-                "pod axis are not ported yet (ROADMAP, Queue 1: tensor "
-                "parallelism, the pod axis and sharded serving)")
     return mesh.get_group("data")
+
+
+def axis_group(mesh, axis: str):
+    """The process group of ``axis`` when the mesh has it above size 1,
+    else None."""
+    return mesh.get_group(axis) if axis_sizes(mesh).get(axis, 1) > 1 \
+        else None
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -72,31 +80,46 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return _C10D.wait_tensor(_C10D.all_reduce(x, "sum", group.group_name))
 
 
+class _Layout(NamedTuple):
+    """Where a leaf is sharded: its dim over ``data`` (None: whole on that
+    axis), whether its dim 0 stacks layers, and whether a dim of it is
+    sharded over ``model``."""
+    dim: int | None
+    stacked: bool
+    model: bool
+
+
 class DataParallel:
-    """The data-parallel layout of a model's parameters on ``mesh``: for
-    each leaf of the spec tree, the dim it is sharded along over ``data``
-    (None: replicated) and whether its dim 0 stacks layers, and the
-    collectives of the per-rank step."""
+    """The layout of a model's parameters on ``mesh``: for each leaf of
+    the spec tree its :class:`_Layout`, and the collectives of the
+    per-rank step over ``data`` and ``pod``."""
 
     def __init__(self, specs: dict, mesh, rules: ShardingRules | None = None):
         self.group = data_group(mesh)
         self.size = self.group.size()
+        self.pod = axis_group(mesh, "pod")
+        self.model = axis_group(mesh, "model")
+        self.ranks = self.size * (self.pod.size() if self.pod else 1)
+        # an axis of size 1 shards nothing and moves nothing
+        split = {a for a, n in axis_sizes(mesh).items() if n > 1}
 
-        def dim_of(spec):
-            layout = param_sharding(spec.axes, mesh, rules, spec.shape)
-            dims = [i for i in range(len(spec.shape))
-                    if "data" in spec_axes(layout, i)]
-            return (dims[0] if dims else None,
-                    spec.axes[:1] == ("layers",))
+        def layout(spec):
+            sharded = param_sharding(spec.axes, mesh, rules, spec.shape)
+            axes = [set(spec_axes(sharded, i)) & split
+                    for i in range(len(spec.shape))]
+            dims = [i for i, a in enumerate(axes) if "data" in a]
+            return _Layout(dims[0] if dims else None,
+                           spec.axes[:1] == ("layers",),
+                           any("model" in a for a in axes))
 
         def go(t):
             if isinstance(t, dict):
                 return {k: go(v) for k, v in t.items()}
-            return dim_of(t)
+            return layout(t)
         self.dims = go(specs)
 
     def _map(self, fn, tree) -> dict:
-        """``fn(leaf, (dim, stacked))`` over a tree with the parameters'
+        """``fn(leaf, layout)`` over a tree with the parameters'
         structure."""
         def go(t, dims):
             if isinstance(t, dict):
@@ -105,10 +128,11 @@ class DataParallel:
         return go(tree, self.dims)
 
     def gather(self, shards: dict) -> dict:
-        """The whole parameters from the rank's shards; a sharded stacked
-        leaf becomes the list of its layers."""
+        """The parameters whole along their data dims from the rank's
+        shards; a data-sharded stacked leaf becomes the list of its
+        layers."""
         def one(x, layout):
-            dim, stacked = layout
+            dim, stacked = layout.dim, layout.stacked
             if dim is None:
                 return x
             if stacked:
@@ -118,38 +142,58 @@ class DataParallel:
         return self._map(one, shards)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean over the ranks of ``x``."""
-        return all_reduce(x, self.group) * (1.0 / self.size)
+        """The mean over the pod and data ranks of ``x``."""
+        if self.size > 1:
+            x = all_reduce(x, self.group)
+        if self.pod is not None:
+            x = all_reduce(x, self.pod)
+        return x * (1.0 / self.ranks)
 
     def reduce_grads(self, grads: dict) -> dict:
-        """Whole gradients (a list of layers for a sharded stacked leaf,
-        as :meth:`gather` gives it) -> the mean over the ranks, as the
-        rank's shard of each sharded leaf and whole for each replicated
-        leaf."""
+        """Gradients whole along their data dims (a list of layers for a
+        data-sharded stacked leaf, as :meth:`gather` gives it) -> the mean
+        over the pod and data ranks, as the rank's shard of each
+        data-sharded leaf and whole along ``data`` for the others."""
         def one(g, layout):
-            dim, stacked = layout
+            dim, stacked = layout.dim, layout.stacked
             if dim is None:
-                return all_reduce(g, self.group) * inv
-            if stacked:
-                return torch.stack([reduce_scatter(x, dim - 1, self.group)
-                                    for x in g]) * inv
-            return reduce_scatter(g, dim, self.group) * inv
-        inv = 1.0 / self.size
+                if self.size > 1:
+                    g = all_reduce(g, self.group)
+            elif stacked:
+                g = torch.stack([reduce_scatter(x, dim - 1, self.group)
+                                 for x in g])
+            else:
+                g = reduce_scatter(g, dim, self.group)
+            if self.pod is not None:
+                g = all_reduce(g, self.pod)
+            return g * inv
+        inv = 1.0 / self.ranks
         return self._map(one, grads)
 
     def global_norm(self, grads: dict) -> torch.Tensor:
-        """The global norm of the gradients from the rank's shards: the
-        sharded leaves' sums of squares added over the ranks, each
-        replicated leaf (whole on every rank) counted once."""
-        sums = {True: None, False: None}
+        """The global norm of the gradients from the rank's shards: each
+        leaf's sum of squares added over the ranks that hold distinct
+        pieces of it (over ``data`` where its data dim is sharded, over
+        ``model`` where a dim of it is), so that a leaf whole on an axis is
+        counted once, not once a rank."""
+        sums: dict = {}
 
         def add(g, layout):
             sq = torch.sum(torch.square(g.to(torch.float32)))
-            key = layout[0] is not None
-            sums[key] = sq if sums[key] is None else sums[key] + sq
+            key = (layout.dim is not None, layout.model)
+            sums[key] = sums[key] + sq if key in sums else sq
         self._map(add, grads)
-        total = sums[False]
-        if sums[True] is not None:
-            sharded = all_reduce(sums[True], self.group)
-            total = sharded if total is None else sharded + total
+        total = sums.get((False, False))
+        if (True, False) in sums:
+            total = _add(total, all_reduce(sums[True, False], self.group))
+        over_model = sums.get((False, True))
+        if (True, True) in sums:
+            over_model = _add(over_model,
+                              all_reduce(sums[True, True], self.group))
+        if over_model is not None:
+            total = _add(total, all_reduce(over_model, self.model))
         return torch.sqrt(total)
+
+
+def _add(a, b):
+    return b if a is None else a + b

@@ -167,6 +167,16 @@ def shard_index(spec: tuple, dim: int, mesh) -> int:
     return index
 
 
+def shard_range(shape: tuple[int, ...], spec: tuple, dim: int,
+                mesh) -> tuple[int, int]:
+    """This rank's ``[start, stop)`` along dim ``dim`` of a tensor of
+    ``shape`` laid out by ``spec`` (e.g. its block of the vocab or of the
+    heads on the ``model`` axis)."""
+    width = shard_shape(shape, spec, mesh)[dim]
+    start = shard_index(spec, dim, mesh) * width
+    return start, start + width
+
+
 def constrain(x, axes: tuple[str, ...], rules: ShardingRules | None = None):
     """The reference's ``with_sharding_constraint`` by logical axes.  A
     no-op here: the port runs a mesh as a per-rank program, whose values

@@ -1,0 +1,259 @@
+"""The ``model`` axis of a mesh: Megatron-style tensor parallelism for the
+dense family (GQA attention and a dense MLP).
+
+The port's counterpart of what XLA's SPMD partitioner makes of the
+reference's ``PARAM_RULES``/``ACT_RULES`` on a ``model`` axis: ``heads``,
+``kv_heads``, ``mlp`` and ``vocab`` are sharded over it, the residual
+stream and the norms are whole on every model rank.  A rank at model
+coordinate m runs:
+
+* attention column-parallel over its query heads (and over its kv heads
+  where ``kv_heads`` divides; otherwise it computes every kv head and
+  takes the ones its query heads read, :meth:`TensorParallel.kv_heads`),
+  the output projection row-parallel;
+* the MLP's gate and up column-parallel, its down projection
+  row-parallel;
+* the embedding over its vocab rows (:meth:`TensorParallel.embed`), the
+  head's logits over its vocab columns and a vocab-parallel
+  cross-entropy (:meth:`TensorParallel.cross_entropy`).
+
+Two operators join the regions (Megatron's *f* and *g*):
+:meth:`TensorParallel.copy` is the identity forward and an all-reduce of
+the gradient backward; :meth:`TensorParallel.reduce` an all-reduce forward
+and the identity backward.  A dim its axis does not divide stays whole
+(the reference's ``_resolve``), and the model code then runs that part
+unsharded: each model function compares a weight's local shape with the
+config's to see what is sharded.
+
+The collectives are ``torch.ops._c10d_functional`` operators (which have
+no autograd of their own), so a trace keeps them as nodes.  What differs
+from rank to rank (the vocab offset, the kv heads a rank reads, the global
+index of a padded head) is computed from :meth:`TensorParallel.index`,
+the rank's model coordinate as a tensor: eagerly the process's own, in an
+export ``stablehlo.partition_id``, so one per-rank text serves every rank.
+
+The model functions find the active instance with :func:`current`; the
+per-rank step and forward (``train/loop.py``) set it with :func:`active`.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+
+import torch
+
+from ..library import define_rank_op
+from .sharding import axis_sizes
+
+_C10D = torch.ops._c10d_functional
+
+
+def _axis_index(like: torch.Tensor, size: int, stride: int) -> torch.Tensor:
+    import torch.distributed as dist
+
+    return torch.tensor((dist.get_rank() // stride) % size,
+                        dtype=torch.int64, device=like.device)
+
+
+#: ``axis_index(like, size, stride)``: the calling rank's coordinate on a
+#: mesh axis of ``size`` whose neighbours' global ranks are ``stride``
+#: apart, a 0-d int64 tensor on ``like``'s device
+AXIS_INDEX = define_rank_op(
+    "axis_index(Tensor like, int size, int stride) -> Tensor", _axis_index,
+    lambda like, size, stride: torch.empty((), dtype=torch.int64,
+                                           device=like.device))
+
+#: the families with a per-rank layout on a ``model`` axis, and the part of
+#: ROADMAP Queue 1 item 10 that each other family waits for
+_WAITS_FOR = {
+    "moe": "expert parallelism on the model axis",
+    "ssm": "the SSM and hybrid families on the model axis",
+    "mla": "MLA on the model axis",
+}
+
+
+def for_mesh(cfg, mesh) -> "TensorParallel | None":
+    """The model axis of ``mesh`` for ``cfg``'s per-rank program, or None
+    when the mesh has no ``model`` axis above 1.  Raises
+    ``NotImplementedError`` when ``cfg`` is not of the dense family (GQA
+    attention and a dense MLP in every block)."""
+    size = axis_sizes(mesh).get("model", 1)
+    if size <= 1:
+        return None
+    why = ("mla" if cfg.mla is not None else "moe" if cfg.moe is not None
+           else "ssm" if cfg.family in ("ssm", "hybrid") else None)
+    if why is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of size {size} has no per-rank "
+            f"layout for this family yet (ROADMAP, Queue 1 item 10: "
+            f"{_WAITS_FOR[why]})")
+    return TensorParallel(mesh)
+
+
+def _all_reduce(x: torch.Tensor, op: str, group: str) -> torch.Tensor:
+    return _C10D.wait_tensor(_C10D.all_reduce(x.contiguous(), op, group))
+
+
+class _Copy(torch.autograd.Function):
+    """Megatron's *f*: identity forward, gradient all-reduced backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's *g*: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class TensorParallel:
+    """The ``model`` axis of ``mesh``: its process group, its size and the
+    rank's coordinate on it, and the per-rank pieces of the dense family's
+    layers."""
+
+    def __init__(self, mesh):
+        names = tuple(mesh.mesh_dim_names)
+        shape = tuple(mesh.shape)
+        axis = names.index("model")
+        self.size = shape[axis]
+        self.stride = math.prod(shape[axis + 1:])
+        self.group = mesh.get_group("model").group_name
+        self._eager: dict = {}
+
+    # -- the rank's coordinate ----------------------------------------------
+
+    def index(self, like: torch.Tensor) -> torch.Tensor:
+        """The rank's model coordinate, a 0-d int64 tensor on ``like``'s
+        device: the operator inside a trace (so the text reads it from
+        ``partition_id``), a cached tensor otherwise."""
+        if torch._C._dispatch_tls_is_dispatch_key_included(
+                torch._C.DispatchKey.Python):
+            return AXIS_INDEX(like, self.size, self.stride)
+        key = like.device
+        if key not in self._eager:
+            self._eager[key] = _axis_index(like, self.size, self.stride)
+        return self._eager[key]
+
+    # -- f, g and the max ---------------------------------------------------
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """Enter a model-parallel region (*f*)."""
+        return _Copy.apply(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Leave one: the sum over the model ranks (*g*)."""
+        return _Reduce.apply(x, self.group)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The largest over the model ranks, elementwise (no gradient)."""
+        return _all_reduce(x.detach(), "max", self.group)
+
+    # -- attention ------------------------------------------------------------
+
+    def global_heads(self, local: int, like: torch.Tensor) -> torch.Tensor:
+        """The global indices of the rank's ``local`` query heads."""
+        return self.index(like) * local + torch.arange(local,
+                                                       device=like.device)
+
+    def kv_heads(self, k: torch.Tensor, heads: int, local: int) -> torch.Tensor:
+        """From every kv head of ``k`` [B, S, kv, D] (``kv_heads`` whole on
+        the model axis), the ones the rank's ``local`` of ``heads`` query
+        heads read, in GQA order: query head h reads kv head
+        h // (heads / kv).  When the rank's heads do not make whole groups
+        of one size, each query head gets its own kv head (a group of 1)."""
+        kv = k.shape[2]
+        group = heads // kv
+        m = self.index(k)
+        if local % group == 0:          # whole groups: local / group heads
+            n = local // group
+            idx = m * n + torch.arange(n, device=k.device)
+        elif group % local == 0:        # inside one group: one kv head
+            idx = (m * local // group).reshape(1)
+        else:
+            idx = self.global_heads(local, k) // group
+        # the kv dim first: its gradient is then an index_put along dim 0
+        return torch.index_select(k.movedim(2, 0), 0, idx).movedim(0, 2)
+
+    # -- embedding, head and loss --------------------------------------------
+
+    def _local(self, ids: torch.Tensor, width: int):
+        """``ids`` relative to the rank's block of ``width`` vocab entries,
+        clamped into it, and whether each lies in it."""
+        local = ids.long() - self.index(ids) * width
+        inside = (local >= 0) & (local < width)
+        return torch.clamp(local, 0, width - 1), inside
+
+    def embed(self, tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        """The embedding from the rank's vocab rows of ``table``: each rank
+        looks up the tokens in its range, zeros for the others, and the
+        rows are summed over the model ranks."""
+        local, inside = self._local(tokens, table.shape[0])
+        rows = torch.where(inside[..., None], table[local],
+                           torch.zeros((), dtype=table.dtype,
+                                       device=table.device))
+        return self.reduce(rows)
+
+    def cross_entropy(self, logits: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+        """Softmax cross-entropy over vocab-sharded f32 logits [B, S, V/M],
+        mean over tokens: the max, the sum of exponentials and the target's
+        logit each reduced over the model ranks."""
+        logits = logits.float()
+        m = self.max(torch.amax(logits, dim=-1))
+        total = self.reduce(torch.exp(logits - m[..., None]).sum(dim=-1))
+        local, inside = self._local(targets, logits.shape[-1])
+        gold = torch.gather(logits, -1, local[..., None])[..., 0]
+        gold = self.reduce(torch.where(inside, gold, 0.0))
+        return (m + torch.log(total) - gold).mean()
+
+    def combine_chunks(self, m: torch.Tensor, l: torch.Tensor,
+                       gold: torch.Tensor) -> torch.Tensor:
+        """A streaming cross-entropy's running max ``m``, sum of
+        exponentials ``l`` (against ``m``) and target logit ``gold`` (0
+        where the target is not in the rank's vocab block) over the rank's
+        block -> the log-sum-exp minus the target logit over the whole
+        vocab."""
+        top = self.max(m)
+        total = self.reduce(l * torch.exp(m - top))
+        return top + torch.log(total) - self.reduce(gold)
+
+    def target_in_block(self, targets: torch.Tensor,
+                        width: int) -> torch.Tensor:
+        """``targets`` relative to the rank's vocab block of ``width``
+        entries (out of ``[0, width)`` where the target is another
+        rank's)."""
+        return targets.long() - self.index(targets) * width
+
+
+_ACTIVE: list = [None]
+
+
+@contextlib.contextmanager
+def active(tp: TensorParallel | None):
+    """Run the model functions inside the block as ``tp``'s model ranks
+    (None: unsharded)."""
+    before = _ACTIVE[0]
+    _ACTIVE[0] = tp
+    try:
+        yield tp
+    finally:
+        _ACTIVE[0] = before
+
+
+def current() -> TensorParallel | None:
+    """The :class:`TensorParallel` of the running per-rank program, or
+    None."""
+    return _ACTIVE[0]

@@ -7,7 +7,10 @@ larger than the machine, for a trace.  :func:`fake_world` brings up the
 of any size; its collectives move no data) and tears it down afterwards;
 :func:`traced_mesh` builds a mesh inside it.  A real mesh needs a real
 process group (gloo, tested on the CPU; NCCL, untested), initialised by
-the caller with its address, world size and rank.
+the caller with its address, world size and rank.  A mesh is ``[data,
+model]`` or ``[pod, data, model]`` (:func:`mesh_axes`); ``DeviceMesh``
+gives each axis's process group (``mesh.get_group(axis)``), and
+:func:`axis_groups` every group of each axis, as an export lists them.
 """
 from __future__ import annotations
 
@@ -33,6 +36,16 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], device=None):
 
     return init_device_mesh(resolve_device(device).type, tuple(shape),
                             mesh_dim_names=tuple(axes))
+
+
+def axis_groups(mesh) -> dict[str, list[list[int]]]:
+    """For each axis of ``mesh``: every group of that axis, each the global
+    ranks that differ only in their coordinate on it (``[[0, 1], [2, 3]]``
+    for the model axis of ``[2, 2]``), in the order XLA prints
+    ``replica_groups``."""
+    ranks = mesh.mesh
+    return {axis: ranks.movedim(i, -1).reshape(-1, ranks.shape[i]).tolist()
+            for i, axis in enumerate(mesh.mesh_dim_names)}
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):

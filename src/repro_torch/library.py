@@ -52,3 +52,18 @@ def call(op: torch._ops.OpOverload, *args):
         return op(*args)
     impl = PLAIN[op] if args[0].device.type == "cpu" else _KERNEL[op]
     return impl(*args)
+
+
+def define_rank_op(schema: str, impl: Callable,
+                   fake: Callable) -> torch._ops.OpOverload:
+    """Define the operator ``schema`` whose value depends on which rank of
+    a process group runs it (a mesh coordinate): ``impl`` on the CPU and
+    the card alike, ``fake`` in a trace.  It has no plain version, so the
+    export lowers it itself (``core/stablehlo.py``, from
+    ``stablehlo.partition_id``) instead of writing a ``call``."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    _LIB.impl(name, impl, "CPU")
+    _LIB.impl(name, impl, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
+    return getattr(torch.ops.repro_torch, name).default

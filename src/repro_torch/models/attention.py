@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.tensor_parallel import current
 from ..kernels.flash_attention.ops import flash_attention
 from .common import dense, rms_norm, softcap
 from .params import ParamSpec
@@ -198,7 +199,9 @@ def multihead_attention(q, k, v, args: AttnArgs, impl: str = "kernel",
 
 def _head_mask(cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
     """Zero padded-head outputs (out: [..., H+pad, hd]) before W_o; the real
-    heads of kv group g sit at [g*group_new, g*group_new + group_old)."""
+    heads of kv group g sit at [g*group_new, g*group_new + group_old).  On
+    a model axis ``out`` holds the rank's heads, masked by their global
+    index."""
     if not cfg.pad_heads:
         return out
     kv = cfg.num_kv_heads
@@ -207,29 +210,53 @@ def _head_mask(cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
     group_new = (cfg.num_heads + cfg.pad_heads) // kv
     group_old = cfg.num_heads // kv
     h_total = cfg.num_heads + cfg.pad_heads
-    mask = ((torch.arange(h_total, device=out.device) % group_new)
-            < group_old).to(out.dtype)
+    local = out.shape[-2]
+    heads = (torch.arange(h_total, device=out.device) if local == h_total
+             else current().global_heads(local, out))
+    mask = ((heads % group_new) < group_old).to(out.dtype)
     return out * mask[:, None]
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """x: [B, S, d] -> q [B, S, H, hd], k and v [B, S, kv, hd]."""
+    """x: [B, S, d] -> q [B, S, H, hd], k and v [B, S, kv, hd].
+
+    On a model axis (``wq`` holds the rank's heads) the projections are
+    column-parallel: x enters the region through *f*.  Where ``kv_heads``
+    stays whole, k and v are computed whole from x, enter the region
+    through *f* themselves (so that ``wk`` and ``wv`` get their whole
+    gradient on every rank) and are cut to the kv heads the rank's query
+    heads read."""
     b, s, d = x.shape
-    q = torch.matmul(x, p["wq"].reshape(d, -1)).view(b, s, *p["wq"].shape[1:])
-    k = torch.matmul(x, p["wk"].reshape(d, -1)).view(b, s, *p["wk"].shape[1:])
-    v = torch.matmul(x, p["wv"].reshape(d, -1)).view(b, s, *p["wv"].shape[1:])
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
+    heads = cfg.num_heads + cfg.pad_heads
+    local = p["wq"].shape[-2]
+    tp = current() if local < heads else None
+    xq = tp.copy(x) if tp is not None else x
+    kv_split = tp is not None and p["wk"].shape[-2] < cfg.num_kv_heads
+    xkv = xq if kv_split else x
+
+    def proj(inp, w, bias):
+        y = torch.matmul(inp, w.reshape(d, -1)).view(b, s, *w.shape[1:])
+        return y + p[bias].to(y.dtype) if cfg.qkv_bias else y
+    q = proj(xq, p["wq"], "bq")
+    k = proj(xkv, p["wk"], "bk")
+    v = proj(xkv, p["wv"], "bv")
+    if tp is not None and not kv_split:
+        k = tp.kv_heads(tp.copy(k), heads, local)
+        v = tp.kv_heads(tp.copy(v), heads, local)
     return q, k, v
 
 
-def _out_proj(p: dict, out: torch.Tensor) -> torch.Tensor:
-    """out: [B, S, H, hd] @ wo [H, hd, d] -> [B, S, d]."""
+def _out_proj(p: dict, out: torch.Tensor, heads: int = 0) -> torch.Tensor:
+    """out: [B, S, H, hd] @ wo [H, hd, d] -> [B, S, d].  When ``wo`` holds
+    fewer than ``heads`` heads (the rank's, on a model axis) the projection
+    is row-parallel: its partial sums are added over the model ranks
+    (*g*)."""
     b, s = out.shape[:2]
-    return torch.matmul(out.reshape(b, s, -1),
-                        p["wo"].reshape(-1, p["wo"].shape[-1]))
+    y = torch.matmul(out.reshape(b, s, -1),
+                     p["wo"].reshape(-1, p["wo"].shape[-1]))
+    if p["wo"].shape[0] < heads:
+        y = current().reduce(y)
+    return y
 
 
 def gqa_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -254,7 +281,7 @@ def gqa_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
                               v.transpose(1, 2), args, impl=cfg.attn_impl,
                               chunk=cfg.attn_chunk)
     out = _head_mask(cfg, out.transpose(1, 2))           # [B, S, H, hd]
-    return _out_proj(p, out)
+    return _out_proj(p, out, cfg.num_heads + cfg.pad_heads)
 
 
 def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,

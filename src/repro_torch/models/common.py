@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.tensor_parallel import current
 from ..kernels.rmsnorm.ops import rmsnorm
 from ..library import call, define
 from .params import ParamSpec
@@ -42,7 +43,13 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype)
 
 
-def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor,
+                 vocab: int | None = None) -> torch.Tensor:
+    """The rows of ``table`` at ``tokens``.  A table of fewer rows than
+    ``vocab`` is the rank's vocab block on a model axis: the lookup is then
+    vocab-parallel (``distributed/tensor_parallel.py``)."""
+    if vocab is not None and table.shape[0] < vocab:
+        return current().embed(tokens, table)
     return table[tokens.long()]
 
 

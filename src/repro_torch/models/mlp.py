@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.tensor_parallel import current
 from .common import activation, dense
 from .params import ParamSpec
 
@@ -39,10 +40,18 @@ def mlp_specs(cfg: ModelConfig, stacked: int = 0, d_ff: int | None = None,
 
 def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 suffix: str = "") -> torch.Tensor:
+    """The gated MLP.  On a model axis (the dense block's ``w_gate`` holds
+    the rank's block of ``d_ff``) gate and up are column-parallel and down
+    row-parallel: x enters through *f*, the output leaves through *g*."""
     act = activation(cfg.act)
+    tp = current() if not suffix and \
+        p["w_gate"].shape[-1] < cfg.d_ff else None
+    if tp is not None:
+        x = tp.copy(x)
     g = act(dense(x, p[f"w_gate{suffix}"]))
     u = dense(x, p[f"w_up{suffix}"])
-    return dense(g * u, p[f"w_down{suffix}"])
+    y = dense(g * u, p[f"w_down{suffix}"])
+    return tp.reduce(y) if tp is not None else y
 
 
 # --------------------------------------------------------------------------
@@ -151,9 +160,9 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.moe_ep_shardmap:
         raise NotImplementedError(
             f"{cfg.name}: moe_ep_shardmap (the expert-parallel dispatch) "
-            "needs a model mesh axis, which is not ported yet (ROADMAP, "
-            "Queue 1 item 10: tensor parallelism, the pod axis and sharded "
-            "serving)")
+            "needs the MoE on a model mesh axis, which is not ported yet "
+            "(ROADMAP, Queue 1 item 10: expert parallelism on the model "
+            "axis)")
     mo = cfg.moe
     b, s, d = x.shape
     t = b * s

@@ -105,15 +105,14 @@ def abstract_params(tree, mesh=None, rules=None) -> dict:
 def shard_params(tree, params: dict, mesh, rules=None) -> dict:
     """Whole parameters -> this rank's shard of each leaf (a copy), laid
     out as :func:`abstract_params` lays them out."""
-    from ..distributed.sharding import (param_sharding, shard_index,
-                                        shard_shape)
+    from ..distributed.sharding import param_sharding, shard_range
 
     def one(s: ParamSpec, x: torch.Tensor) -> torch.Tensor:
         layout = param_sharding(s.axes, mesh, rules, s.shape)
-        for dim, width in enumerate(shard_shape(s.shape, layout, mesh)):
-            if width != s.shape[dim]:
-                x = x.narrow(dim, shard_index(layout, dim, mesh) * width,
-                             width)
+        for dim in range(len(s.shape)):
+            start, stop = shard_range(s.shape, layout, dim, mesh)
+            if stop - start != s.shape[dim]:
+                x = x.narrow(dim, start, stop - start)
         return x.clone()
 
     def go(t, p):
@@ -122,6 +121,47 @@ def shard_params(tree, params: dict, mesh, rules=None) -> dict:
         return {k: go(v, p[k]) for k, v in t.items()}
 
     return go(tree, params)
+
+
+def join_shards(tree, shards: list, coordinates: list,
+                mesh_shape: tuple[int, ...], rules=None) -> dict:
+    """Whole leaves from the ranks' shards: the inverse of
+    :func:`shard_params` on a mesh of ``mesh_shape`` (axes named by
+    ``launch/mesh.py::mesh_axes``).  ``shards`` holds one tree a rank
+    (parameters, or moments laid out as their parameters), ``coordinates``
+    each rank's coordinates on the mesh; a leaf whole on an axis takes its
+    value from any of that axis's ranks."""
+    from types import SimpleNamespace
+
+    from ..distributed.sharding import param_sharding, shard_shape, spec_axes
+    from ..launch.mesh import mesh_axes
+
+    mesh = SimpleNamespace(mesh_dim_names=mesh_axes(mesh_shape),
+                           shape=tuple(mesh_shape))
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+    def one(s: ParamSpec, parts: list) -> torch.Tensor:
+        layout = param_sharding(s.axes, mesh, rules, s.shape)
+        widths = shard_shape(s.shape, layout, mesh)
+        whole = torch.empty(s.shape, dtype=parts[0].dtype,
+                            device=parts[0].device)
+        for x, coordinate in zip(parts, coordinates):
+            at = dict(zip(mesh.mesh_dim_names, coordinate))
+            index = []
+            for dim, width in enumerate(widths):
+                block = 0
+                for a in spec_axes(layout, dim):
+                    block = block * sizes[a] + at[a]
+                index.append(slice(block * width, (block + 1) * width))
+            whole[tuple(index)] = x
+        return whole
+
+    def go(t, parts):
+        if is_spec(t):
+            return one(t, parts)
+        return {k: go(v, [p[k] for p in parts]) for k, v in t.items()}
+
+    return go(tree, shards)
 
 
 def _to_torch(a, device: torch.device) -> torch.Tensor:

@@ -73,8 +73,7 @@ def _no_seq_sharding(name: str, seq_sharded: bool) -> None:
     if seq_sharded:
         raise NotImplementedError(
             f"{name}: the sequence-sharded rules are not ported yet "
-            "(ROADMAP, Queue 1: tensor parallelism, the pod axis and "
-            "sharded serving)")
+            "(ROADMAP, Queue 1 item 10: sharded serving)")
 
 
 def _meta(shape, dtype: str) -> torch.Tensor:
@@ -121,7 +120,6 @@ def cache_specs_abstract(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     if mesh is not None or rules is not None:
         raise NotImplementedError(
             "cache_specs_abstract: sharded serving is not ported yet "
-            "(ROADMAP, Queue 1: tensor parallelism, the pod axis and "
-            "sharded serving)")
+            "(ROADMAP, Queue 1 item 10: sharded serving)")
     return {name: _meta(shp, dtype) for name, (shp, dtype, _) in cache_shapes(
         cfg, shape.global_batch, shape.seq_len).items()}

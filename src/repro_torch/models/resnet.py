@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.data_parallel import DataParallel, all_reduce
-from ..distributed.sharding import act_sharding, shard_shape
+from ..distributed.sharding import act_sharding, axis_sizes, shard_shape
 from ..train.optimizer import (OptimizerConfig, make_optimizer,
                                opt_state_abstract, tree_leaves, tree_map)
 from .common import barrier
@@ -273,8 +273,15 @@ def make_resnet_train_step(cfg: ResNetConfig, opt_cfg=None, *, mesh=None):
         raise NotImplementedError(
             "a data mesh's step takes AdamW; sharded Adafactor (whose "
             "factored moments reduce over sharded dims) is not ported yet "
-            "(ROADMAP, Queue 1: tensor parallelism, the pod axis and "
-            "sharded serving)")
+            "(ROADMAP, Queue 1 item 10: Adafactor and gradient compression "
+            "on shards)")
+    for axis in ("pod", "model"):
+        if axis_sizes(mesh).get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"a ResNet step on a {axis!r} axis above 1: its batch-norm "
+                "statistics are synchronised over the data axis only "
+                "(ROADMAP, Queue 1 item 10: ResNet on the model and pod "
+                "axes)")
     dp = DataParallel(resnet_specs(cfg), mesh)
 
     def rank_step(shards, opt, images, labels):

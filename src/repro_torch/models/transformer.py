@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed.tensor_parallel import current
 from .attention import (attention_specs, gqa_decode, gqa_forward,
                         mla_decode, mla_forward, mla_specs)
 from .common import (barrier, embed_lookup, embedding_spec, norm_spec,
@@ -165,18 +166,31 @@ def ssm_block(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
 def _embed(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     if cfg.frontend == "stub":
         return batch["embeds"].to(DTYPES[cfg.dtype])
-    h = embed_lookup(batch["tokens"], params["embed"])
+    h = embed_lookup(batch["tokens"], params["embed"], cfg.vocab_size)
     if cfg.tie_embeddings:
         h = h * math.sqrt(cfg.d_model)
     return h
 
 
-def _logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
-    """Final norm and head; logits in f32 (the reference's
-    ``preferred_element_type=float32``: bf16 products are exact in f32)."""
+def _head(cfg: ModelConfig, params: dict, h: torch.Tensor):
+    """The final norm's output and the head's table [d, V].  On a model
+    axis whose size divides the vocab the table holds the rank's vocab
+    columns, and the normed h enters that column-parallel product through
+    *f*."""
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     table = (params["embed"].T if cfg.tie_embeddings
              else params["lm_head"])
+    if table.shape[1] < cfg.vocab_size:
+        h = current().copy(h)
+    return h, table
+
+
+def _logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Final norm and head; logits in f32 (the reference's
+    ``preferred_element_type=float32``: bf16 products are exact in f32).
+    On a model axis: the rank's vocab columns of them (the softcap is
+    elementwise)."""
+    h, table = _head(cfg, params, h)
     logits = torch.matmul(h.float(), table.float())
     return softcap(logits, cfg.final_logit_softcap)
 
@@ -266,7 +280,12 @@ def forward(cfg: ModelConfig, params: dict, batch: dict):
 
     With ``loss_vocab_chunk`` > 0 the CE loss streams over vocab chunks and
     the full logits are never materialised (the logits returned are
-    None)."""
+    None).
+
+    On a mesh (``distributed/tensor_parallel.py::active``) the params are
+    the rank's, with its data-axis dims gathered, and the batch its rows;
+    the loss is over those rows and the logits are its vocab block where
+    the model axis divides the vocab."""
     h = _embed(cfg, params, batch)
     h = _scan_layers(cfg, params, h, _positions(batch),
                      batch.get("mrope_positions"))
@@ -275,7 +294,10 @@ def forward(cfg: ModelConfig, params: dict, batch: dict):
                                      cfg.loss_vocab_chunk)
         return loss, None
     logits = _logits(cfg, params, h)
-    loss = cross_entropy(logits, batch["targets"])
+    if logits.shape[-1] < cfg.vocab_size:
+        loss = current().cross_entropy(logits, batch["targets"])
+    else:
+        loss = cross_entropy(logits, batch["targets"])
     if cfg.moe is not None:
         # the reference's placeholder for a router aux loss: it adds none
         loss = loss + 0.0
@@ -288,12 +310,14 @@ def chunked_cross_entropy(cfg: ModelConfig, params: dict, h: torch.Tensor,
     max/sum-exp and the gold-token logit.  Peak memory drops from
     O(B*S*V) f32 to O(B*S*chunk); flops are unchanged.  The last chunk is
     the remainder of the vocab (the reference pads it with masked
-    columns)."""
-    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
-    table = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    columns).  On a model axis the chunks run over the rank's vocab
+    columns, and the running max, sum and target logit are then combined
+    over the model ranks."""
+    h, table = _head(cfg, params, h)
     v = table.shape[1]
     b, s, _ = h.shape
-    tgt = targets.long()
+    tp = current() if v < cfg.vocab_size else None
+    tgt = targets.long() if tp is None else tp.target_in_block(targets, v)
     hf = h.float()
     m = torch.full((b, s), -math.inf, device=h.device)
     l = torch.zeros((b, s), device=h.device)
@@ -311,6 +335,8 @@ def chunked_cross_entropy(cfg: ModelConfig, params: dict, h: torch.Tensor,
         idx = torch.clamp(tgt - base, 0, width - 1)
         g = torch.gather(logits, -1, idx[..., None])[..., 0]
         gold = torch.where(in_chunk, g, gold)
+    if tp is not None:
+        return torch.mean(tp.combine_chunks(m, l, gold))
     lse = m + torch.log(l)
     return torch.mean(lse - gold)
 

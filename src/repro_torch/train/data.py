@@ -62,7 +62,9 @@ class SyntheticSource:
 class ShardedLoader:
     """This rank's rows of each host batch, on the mesh's device: the
     counterpart of the reference's placement of each batch onto the mesh
-    with the activation sharding.  It keeps one batch of prefetch, as the
+    with the activation sharding (``batch`` over ``(pod, data)``, pod
+    major: every model rank of the same pod and data coordinates takes the
+    same rows).  It keeps one batch of prefetch, as the
     reference does."""
 
     _AXES = {
@@ -81,16 +83,14 @@ class ShardedLoader:
     def _place(self, batch: dict) -> dict:
         import torch
 
-        from ..distributed.sharding import (act_sharding, shard_index,
-                                            shard_shape)
+        from ..distributed.sharding import act_sharding, shard_range
         out = {}
         for k, v in batch.items():
             layout = act_sharding(self._AXES[k], self.mesh, self.rules,
                                   v.shape)
-            for dim, width in enumerate(shard_shape(v.shape, layout,
-                                                    self.mesh)):
-                start = shard_index(layout, dim, self.mesh) * width
-                v = v[(slice(None),) * dim + (slice(start, start + width),)]
+            for dim in range(v.ndim):
+                start, stop = shard_range(v.shape, layout, dim, self.mesh)
+                v = v[(slice(None),) * dim + (slice(start, stop),)]
             out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
                 self.mesh.device_type)
         return out

@@ -3,12 +3,15 @@
 The counterpart of the JAX package's ``train/loop.py`` on one device.  The
 step is eager PyTorch: the forward through the model's kernels (K1 and K2 on
 the card), ``torch.autograd.grad`` through their backward kernels (K1b and
-K2b), then the optimizer on dicts of tensors.  With a mesh the step is the
-per-rank program of a data mesh (``distributed/data_parallel.py``): the
-rank's shards in, its collectives around the loss, the gradients and the
-clip.  :func:`train_step_exports` (with or without a mesh) and
-:func:`forward_exports` (one device) give the step and the forward with
-abstract arguments for :func:`repro_torch.core.pipeline.export_workload`.
+K2b), then the optimizer on dicts of tensors.  With a mesh (``[data,
+model]`` or ``[pod, data, model]``) the step is one rank's program: the
+rank's shards in, its data-axis collectives around the loss, the gradients
+and the clip (``distributed/data_parallel.py``), and, on a ``model`` axis
+above 1, the dense family's layers split over the model ranks
+(``distributed/tensor_parallel.py``).  :func:`train_step_exports` and
+:func:`forward_exports` (each with or without a mesh) give the step and the
+forward with abstract arguments for
+:func:`repro_torch.core.pipeline.export_workload`.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from ..configs.base import ModelConfig, RunConfig, ShapeConfig
 from ..device import resolve_device
+from ..distributed import tensor_parallel
 from ..distributed.data_parallel import DataParallel
 from ..models.params import (abstract_params, init_params, shard_params,
                              trainable)
@@ -68,29 +72,33 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     buffers: a step then holds one copy of them, which a model near a
     card's memory needs.
 
-    With a ``mesh`` (a data mesh: any other axis of size above 1 raises) the
-    step is one rank's program: it takes the rank's shards of the
-    parameters and the optimizer state and its rows of the batch, gathers
-    the parameters, all-reduces the loss and reduce-scatters the gradients
-    as means over the ranks, and updates its shards with the clip's norm
-    taken over all of them (``distributed/data_parallel.py``)."""
+    With a ``mesh`` the step is one rank's program: it takes the rank's
+    shards of the parameters and the optimizer state and its rows of the
+    batch, gathers the parameters along their data dims, runs the model
+    split over the model ranks, all-reduces the loss and reduce-scatters
+    the gradients as means over the pod and data ranks, and updates its
+    shards with the clip's norm taken over all of them
+    (``distributed/data_parallel.py``).  A ``model`` axis above 1 takes
+    the dense family only (``tensor_parallel.for_mesh`` raises for the
+    others)."""
     _, update_fn = make_optimizer(opt_cfg)
     if donate:
         if mesh is not None:
             raise NotImplementedError(
                 "a donated step runs on one device; a mesh's update returns "
-                "new shards (ROADMAP, Queue 1 item 10: tensor parallelism, "
-                "the pod axis and sharded serving)")
+                "new shards (ROADMAP, Queue 1 item 10: a donated step on a "
+                "mesh)")
         update_fn = functools.partial(update_fn, donate=True)
-    dp = None
+    dp = tp = None
     if mesh is not None:
+        tp = tensor_parallel.for_mesh(cfg, mesh)
         if opt_cfg.name != "adamw" or gradient_compression:
             raise NotImplementedError(
-                "a data mesh's step takes AdamW without gradient "
-                "compression; sharded Adafactor (whose factored moments "
-                "reduce over sharded dims) and compression over shards are "
-                "not ported yet (ROADMAP, Queue 1: tensor parallelism, the "
-                "pod axis and sharded serving)")
+                "a mesh's step takes AdamW without gradient compression; "
+                "sharded Adafactor (whose factored moments reduce over "
+                "sharded dims) and compression over shards are not ported "
+                "yet (ROADMAP, Queue 1 item 10: Adafactor and gradient "
+                "compression on shards)")
         dp = DataParallel(model_specs(cfg), mesh, rules)
 
     def compute_grads(params, batch):
@@ -113,7 +121,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         return _value_and_grad(cfg, params, batch)
 
     def rank_step(shards, opt_state, batch):
-        loss, grads = compute_grads(dp.gather(shards), batch)
+        with tensor_parallel.active(tp):
+            loss, grads = compute_grads(dp.gather(shards), batch)
         loss, grads = dp.mean(loss), dp.reduce_grads(grads)
         new_params, new_opt, metrics = update_fn(
             shards, grads, opt_state, opt_cfg, global_norm=dp.global_norm)
@@ -137,6 +146,26 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     return train_step if dp is None else rank_step
 
 
+def make_forward(cfg: ModelConfig, mesh=None, rules=None):
+    """``forward(params, batch) -> (loss, logits)``.  With a ``mesh`` it
+    is one rank's program: the rank's shards gathered along their data
+    dims, the model split over the model ranks, the loss a mean over the
+    pod and data ranks; the logits are the rank's rows and, where the
+    model axis divides the vocab, its vocab block."""
+    if mesh is None:
+        def step(params, batch):
+            return forward(cfg, params, batch)
+        return step
+    tp = tensor_parallel.for_mesh(cfg, mesh)
+    dp = DataParallel(model_specs(cfg), mesh, rules)
+
+    def rank_forward(shards, batch):
+        with tensor_parallel.active(tp):
+            loss, logits = forward(cfg, dp.gather(shards), batch)
+        return dp.mean(loss), logits
+    return rank_forward
+
+
 def train_step_exports(cfg: ModelConfig, seq: int, batch: int, mesh=None, *,
                        rules=None, opt_cfg: OptimizerConfig | None = None):
     """The full train step (loss, gradient and optimizer update) and meta
@@ -158,15 +187,17 @@ def train_step_exports(cfg: ModelConfig, seq: int, batch: int, mesh=None, *,
         input_specs(cfg, shape, mesh, rules))
 
 
-def forward_exports(cfg: ModelConfig, seq: int, batch: int):
+def forward_exports(cfg: ModelConfig, seq: int, batch: int, mesh=None, *,
+                    rules=None):
     """The forward pass ``(params, batch) -> (loss, logits)`` and meta
     tensors standing for its arguments: what the reference's campaign
-    exports for ``mode="forward"``."""
-    def step(params, batch):
-        return forward(cfg, params, batch)
-
+    exports for ``mode="forward"``.  With a ``mesh`` the forward is one
+    rank's program (:func:`make_forward`) and the meta tensors are the
+    rank's shards and rows; ``batch`` is the global batch either way."""
     shape = ShapeConfig("bench", seq, batch, "train")
-    return step, (abstract_params(model_specs(cfg)), input_specs(cfg, shape))
+    return make_forward(cfg, mesh, rules), (
+        abstract_params(model_specs(cfg), mesh, rules),
+        input_specs(cfg, shape, mesh, rules))
 
 
 @dataclass
@@ -186,8 +217,8 @@ def train(run: RunConfig, *, device=None, mesh=None, rules=None,
     """End-to-end training with checkpoint/restart and straggler tracking,
     on ``device`` (None: the card).
 
-    With a ``mesh`` (a data mesh over a real process group that the caller
-    has initialised: gloo is tested, NCCL is untested) each rank holds its
+    With a ``mesh`` (over a real process group that the caller has
+    initialised: gloo is tested, NCCL is untested) each rank holds its
     shards of the parameters and the optimizer state, takes its rows of
     each batch (:class:`ShardedLoader`) and runs the per-rank step on the
     mesh's device type; a ``device`` of another type raises.  Checkpoints
@@ -199,8 +230,7 @@ def train(run: RunConfig, *, device=None, mesh=None, rules=None,
         if checkpoint_dir:
             raise NotImplementedError(
                 "train: checkpoints of a mesh's shards are not ported yet "
-                "(ROADMAP, Queue 1: tensor parallelism, the pod axis and "
-                "sharded serving)")
+                "(ROADMAP, Queue 1 item 10: checkpoints of shards)")
         if device is not None and torch.device(device).type != \
                 mesh.device_type:
             raise ValueError(

@@ -111,9 +111,9 @@ def _global_norm(tree) -> torch.Tensor:
 
 def clip_by_global_norm(grads, max_norm: float, global_norm=_global_norm):
     """Gradients scaled to a global norm of at most ``max_norm``, and that
-    norm.  ``global_norm`` computes it from the tree (a data mesh's step
-    passes :meth:`repro_torch.distributed.DataParallel.global_norm`, which
-    sums over the ranks' shards)."""
+    norm.  ``global_norm`` computes it from the tree (a mesh's step passes
+    :meth:`repro_torch.distributed.DataParallel.global_norm`, which sums
+    each leaf's squares over the ranks that hold distinct pieces of it)."""
     norm = global_norm(grads)
     scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),

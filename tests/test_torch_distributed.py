@@ -1,5 +1,6 @@
 """The distribution slice of the port: sharding rules, the per-rank train
-step of a data mesh, its export with collectives, and the optimized rows.
+step of a data mesh, its export with collectives, and the optimized rows
+(the model and pod axes: ``test_torch_tensor_parallel.py``).
 
 * the port's rule resolution against the reference's ``logical_to_spec``,
   dim by dim, on every parameter and input leaf of two archs;
@@ -120,14 +121,26 @@ def _paths(tree, prefix=""):
     return {prefix.rstrip("/"): tree}
 
 
-def test_a_model_axis_and_a_second_world_raise():
-    cfg = get_smoke_config("llama3-1b")
+# the families without a per-rank layout on a model axis yet, each naming
+# its part of ROADMAP Queue 1 item 10
+WAITING = ["mamba2-370m", "mixtral-8x22b", "zamba2-2.7b", "deepseek-v3-671b"]
+
+
+@pytest.mark.parametrize("case", WAITING + ["a second world"])
+def test_a_model_axis_and_a_second_world_raise(case):
+    """The SSM, MoE, hybrid and MLA smoke configs on ``[2, 2]`` raise,
+    naming item 10 (the dense family runs there:
+    ``test_torch_tensor_parallel.py``); a fake world refuses to replace a
+    process group that is up."""
     with traced_mesh((2, 2), "cpu") as mesh:
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            loop.train_step_exports(cfg, SEQ, BATCH, mesh)
-        with pytest.raises(RuntimeError, match="already initialised"):
-            with fake_world(4):
-                pass
+        if case == "a second world":
+            with pytest.raises(RuntimeError, match="already initialised"):
+                with fake_world(4):
+                    pass
+            return
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            loop.train_step_exports(get_smoke_config(case), SEQ, BATCH,
+                                    mesh)
 
 
 # --------------------------------------------------------------------------
@@ -140,14 +153,14 @@ def _smoke():
             jax_get_smoke_config("llama3-1b").scaled(**kw))
 
 
-def _spawn(work: Path, job: str) -> list[dict]:
-    """Run ``torch_dist_ranks.run`` in WORLD spawned processes; each must
-    exit 0 within RANK_TIMEOUT_S, or the stragglers are terminated and the
-    test fails."""
+def _spawn(work: Path, job: str, shape=None) -> list[dict]:
+    """Run ``torch_dist_ranks.run`` in WORLD spawned processes (on a mesh
+    of ``shape``, ``[WORLD, 1]`` by default); each must exit 0 within
+    RANK_TIMEOUT_S, or the stragglers are terminated and the test fails."""
     ctx = multiprocessing.get_context("spawn")
     store = work / f"store-{job}"
     procs = [ctx.Process(target=torch_dist_ranks.run,
-                         args=(r, WORLD, str(store), str(work), job))
+                         args=(r, WORLD, str(store), str(work), job, shape))
              for r in range(WORLD)]
     for p in procs:
         p.start()
@@ -390,12 +403,14 @@ def test_per_rank_flops_are_the_raw_texts_over_n(exported):
     assert f"mhlo.num_partitions = {n} " in w.hlo_text
 
 
-def test_a_forward_workload_with_a_mesh_raises():
-    """Only the train step has a per-rank program: a forward workload with
-    a mesh raises, naming its ROADMAP item, before any trace."""
-    spec = campaign.WorkloadSpec(name="fwd", arch="llama3-100m",
-                                 mode="forward", seq=SEQ, batch=BATCH,
-                                 mesh=(WORLD, 1))
+@pytest.mark.parametrize("arch", WAITING)
+def test_a_forward_workload_with_a_mesh_raises(arch):
+    """A forward workload on a ``[2, 2]`` mesh of a family with no
+    per-rank layout on the model axis raises, naming its part of ROADMAP
+    item 10, before any trace (the dense family's exports:
+    ``test_torch_tensor_parallel.py``)."""
+    spec = campaign.WorkloadSpec(name="fwd", arch=arch, mode="forward",
+                                 seq=SEQ, batch=BATCH, mesh=(2, 2))
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         build_workload(spec, device="cpu")
 

@@ -316,8 +316,9 @@ def _emitter_ops() -> set[str]:
 
 # ops that none of these texts writes, each held alone below (mamba2's
 # softplus writes log_plus_one: tests/test_torch_train_export.py runs its
-# train text)
-ALONE = {"tanh", "or", "log_plus_one"}
+# train text; a model axis's per-rank text reads its coordinate from
+# partition_id: tests/test_torch_tensor_parallel.py runs it through XLA)
+ALONE = {"tanh", "or", "log_plus_one", "partition_id"}
 
 
 def test_the_texts_hold_every_op_the_emitter_writes():
@@ -341,10 +342,22 @@ def _module(body: str, args: str, ret: str) -> str:
 
 
 @pytest.mark.parametrize("op,dt", [("tanh", "f32"), ("or", "i1"),
-                                   ("log_plus_one", "f32")])
+                                   ("log_plus_one", "f32"),
+                                   ("partition_id", "i32")])
 def test_an_op_no_model_writes_runs_to_xlas_output(op, dt):
     ty = f"tensor<4x8x{dt}>"
-    if op in ("tanh", "log_plus_one"):
+    if op == "partition_id":
+        # the coordinate of a rank on a model axis of 2, as the emitter
+        # writes it (one partition here: 0)
+        ty = "tensor<i32>"
+        body = ("    %0 = stablehlo.partition_id : tensor<ui32>\n"
+                "    %1 = stablehlo.convert %0 : (tensor<ui32>) -> "
+                "tensor<i32>\n"
+                "    %2 = stablehlo.constant dense<2> : tensor<i32>\n"
+                "    %3 = stablehlo.remainder %1, %2 : tensor<i32>\n"
+                f"    return %3 : {ty}")
+        args, inputs = "", []
+    elif op in ("tanh", "log_plus_one"):
         body = (f"    %0 = stablehlo.{op} %arg0 : {ty}\n"
                 f"    return %0 : {ty}")
         args = f"%arg0: {ty}"

@@ -2,7 +2,8 @@
 
 Imported by the spawned rank processes (not a test module): it imports
 torch and ``repro_torch`` only.  Each rank joins a gloo world through a
-``FileStore``, builds a ``[world, 1]`` mesh and runs one job:
+``FileStore``, builds a mesh (``[world, 1]`` unless given a shape: ``[data,
+model]`` or ``[pod, data, model]``) and runs one job:
 
 * ``"step"``: the per-rank ``make_train_step`` for two steps from the whole
   parameters and batches in ``inputs.pt``; it saves its shards and rows
@@ -12,7 +13,13 @@ torch and ``repro_torch`` only.  Each rank joins a gloo world through a
   the whole parameters and images in ``inputs.pt``, on the rank's rows; it
   saves the loss, the gradient norm (the step's clip takes it the same way),
   the loss with batch-norm statistics over the rank's rows only, its new
-  shards and moments, and each leaf's sharded dim.
+  shards and moments, and each leaf's sharded dim;
+* ``"tp"`` (``tests/test_torch_tensor_parallel.py``): for each case in
+  ``inputs.pt`` (a config, an optimizer config, the whole parameters and
+  batches) the per-rank ``make_train_step`` for every batch and the
+  per-rank forward on the first; it saves the rank's coordinates, its
+  shards and rows before the first step, each step's new shards, moments
+  and metrics, and the forward's loss and logits, as trees.
 """
 from __future__ import annotations
 
@@ -27,18 +34,20 @@ from torch.utils import _pytree as pytree
 COLLECTIVE_TIMEOUT_S = 60
 
 
-def run(rank: int, world: int, store: str, work: str, job: str) -> None:
+def run(rank: int, world: int, store: str, work: str, job: str,
+        shape: tuple[int, ...] | None = None) -> None:
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", store=dist.FileStore(store, world), rank=rank,
         world_size=world,
         timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     try:
-        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.mesh import make_mesh, mesh_axes
 
-        mesh = make_mesh((world, 1), ("data", "model"), "cpu")
-        out = {"step": _step, "train": _train, "resnet": _resnet}[job](
-            mesh, work)
+        shape = tuple(shape or (world, 1))
+        mesh = make_mesh(shape, mesh_axes(shape), "cpu")
+        out = {"step": _step, "train": _train, "resnet": _resnet,
+               "tp": _tp}[job](mesh, work)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -68,6 +77,33 @@ def _step(mesh, work: str) -> dict:
         params, opt, metrics = step(params, opt, batch)
         out["steps"].append(pytree.tree_leaves((params, opt, metrics)))
     return out
+
+
+def _tp(mesh, work: str) -> list:
+    from repro_torch.models.params import shard_params
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.train.data import ShardedLoader
+    from repro_torch.train.loop import make_forward, make_train_step
+    from repro_torch.train.optimizer import adamw_init
+
+    inputs = torch.load(os.path.join(work, "inputs.pt"),
+                        weights_only=False)
+    outs = []
+    for case in inputs:
+        cfg, opt_cfg = case["cfg"], case["opt_cfg"]
+        params = shard_params(model_specs(cfg), case["params"], mesh)
+        opt = adamw_init(params, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, mesh=mesh)
+        rows = list(ShardedLoader(iter(case["batches"]), mesh))
+        out = {"coordinate": mesh.get_coordinate(),
+               "inputs": (params, opt, rows[0]), "steps": []}
+        for batch in rows:
+            params, opt, metrics = step(params, opt, batch)
+            out["steps"].append((params, opt, metrics))
+        first = shard_params(model_specs(cfg), case["params"], mesh)
+        out["forward"] = make_forward(cfg, mesh)(first, rows[0])
+        outs.append(out)
+    return outs
 
 
 def _train(mesh, work: str) -> dict:
