@@ -208,13 +208,33 @@ prints no result line):
    tokens/s and MFU against the rank's reckoned FLOPs, peak memory, the
    launches a step (K1 and K1b 64, K2 and K2b 129), one step profiled by
    kernel group; the per-rank text at
-   TP_EXPORT_LAYERS layers on fake ``cuda`` tensors (both front ends equal,
-   32 partitions, every collective typed by its payload with 4 groups of 8
-   on the model axis and 8 groups of 4 on the data axis, ``dot_general``
-   FLOPs the reckoning's) predicted on ``h100`` by phase 10's two
-   estimators beside the rank's step measured at that depth.  Phase 3
+   RANK_EXPORT_LAYERS layers on fake ``cuda`` tensors (both front ends
+   equal, 32 partitions, every collective typed by its payload and its
+   ``replica_groups`` every group of its axis, the model axis's
+   all-reduces 4 a layer + 6, ``dot_general`` FLOPs the reckoning's)
+   predicted on ``h100`` by phase 10's two estimators beside the rank's
+   step measured at that depth.  Phase 3
    holds and times K1 and K1b at the rank's attention (1 x 5/1 x 4096, D
-   128, causal, GQA group 5).
+   128, causal, GQA group 5);
+17. expert parallelism and MLA on the model axis: one rank of
+   mixtral-8x22b on ``[16, 8]`` (a fake world of 128: heads 48 -> 6, kv 8
+   -> 1, one of its 8 experts, capacity 1280 rows, vocab 32768 -> 4096) at
+   full width and depth (56 layers), and one of deepseek-v3-671b on ``[2,
+   16, 16]`` (pod, data, model; a fake world of 512: MLA's 128 heads -> 8
+   at (192, 128), 16 of its 256 experts at capacity 160, the shared expert
+   and the vocab split) at full width, 16 of 61 layers (EP_RANKS); each
+   1 x 4096 a rank under AdamW and the config's remat ("full"): the memory
+   reckoned before the step, the median step, tokens/s, MFU against the
+   rank's reckoned FLOPs, peak memory, the launches a step held (K1 2L,
+   K1b L, K2 4L + 1 and K2b 2L + 1, MLA's 8L + 1 and 4L + 1), one step
+   profiled (busy share, kernel groups); the per-rank text at
+   RANK_EXPORT_LAYERS layers on fake ``cuda`` tensors (both front ends
+   equal, the world's partitions, every collective's ``replica_groups``
+   every group of its axis, the model axis's collectives and the
+   ``dot_general`` FLOPs against reckonings at the rank's capacity)
+   predicted on ``h100`` beside the step measured at that depth.  Phase 3
+   holds and times K1 and K1b at both ranks' attention (1 x 6/1 x 4096, D
+   128, window 4096; 1 x 8/8 x 4096 at (192, 128)).
 
 Each check, phase and id draws its inputs and weights from a generator
 seeded from its own name (``seeded``).  Each phase's seconds are printed
@@ -265,7 +285,8 @@ from repro_torch.core.estimators.profiling import (  # noqa: E402
 from repro_torch.core.systems import host_system  # noqa: E402
 from repro_torch.core.ir.collectives import collect_collectives  # noqa: E402
 from repro_torch.core.pipeline import (PredictionJob,  # noqa: E402
-                                       build_plan, export_workload)
+                                       Workload, build_plan, export_workload)
+from repro_torch.core.pipeline import _export as export_text  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as k1_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -281,7 +302,8 @@ from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as k3_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
     ssd_scan, ssd_scan_bwd)
-from repro_torch.launch.mesh import traced_mesh  # noqa: E402
+from repro_torch.launch.mesh import (axis_groups, mesh_axes,  # noqa: E402
+                                     traced_mesh)
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     bwd_kernel_error as k3b_error, kernel_error as ssd_error,
     ssd_scan_bwd_ref, ssd_scan_ref)
@@ -471,6 +493,12 @@ K1_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, Dv, causal, window, cap,
     # phase 16's rank of qwen2.5-32b on [4, 8]: its 5 query heads and 1 kv
     # head (GQA group 5) over 1 x 4096 tokens, causal, D 128, strided
     ("qwen_tp_bshd", 1, 5, 1, 4096, 4096, 128, 128, True, 0, 0.0, 0),
+    # phase 17's ranks: mixtral-8x22b's on [16, 8], 6 query heads and 1 kv
+    # head (GQA group 6) over 1 x 4096 tokens, window 4096, D 128; and
+    # deepseek-v3-671b's on [2, 16, 16], 8 of MLA's 128 heads at (192,
+    # 128), causal; strided
+    ("mixtral_ep_bshd", 1, 6, 1, 4096, 4096, 128, 128, True, 4096, 0.0, 0),
+    ("mla_ep_bshd", 1, 8, 8, 4096, 4096, 192, 128, True, 0, 0.0, 0),
 ]
 # the cases at head_dim 80 and 160, and at MLA's pair (tools/mutate_k1.py
 # runs these alone)
@@ -483,7 +511,10 @@ K1_LAST = ("qwen2_vl_bshd", "hubert_bshd")
 # the rows timed beside their bound (bf16; "prefill" in f32 too)
 K1_TIMED = ("prefill", "mixtral_bshd", "gemma2_local_bshd",
             "gemma2_global_bshd", "stablelm_bshd", "zamba2_bshd", "mla_bshd",
-            "qwen2_vl_bshd", "hubert_bshd", "qwen_tp_bshd")
+            "qwen2_vl_bshd", "hubert_bshd", "qwen_tp_bshd",
+            "mixtral_ep_bshd", "mla_ep_bshd")
+# phase 17's ranks (run alone with check_k1(gen, K1_EP))
+K1_EP = ("mixtral_ep_bshd", "mla_ep_bshd")
 
 
 def k1_inputs(gen, name, b, hq, hkv, sq, skv, d, dtype, dv=None):
@@ -850,6 +881,11 @@ K1B_FAMILY_CASES = [  # name, B, Hq, Hkv, S, causal, window, cap, D, Dv
     ("hubert", 2, 16, 16, 4096, False, 0, 0.0, 80, 80),
     # phase 16's rank of qwen2.5-32b on [4, 8]: 5 query heads, 1 kv head
     ("qwen2.5_tp", 1, 5, 1, 4096, True, 0, 0.0, 128, 128),
+    # phase 17's ranks: mixtral-8x22b's on [16, 8] (6 query heads, 1 kv
+    # head, window 4096) and deepseek-v3-671b's on [2, 16, 16] (8 heads at
+    # (192, 128))
+    ("mixtral_ep", 1, 6, 1, 4096, True, 4096, 0.0, 128, 128),
+    ("mla_ep", 1, 8, 8, 4096, True, 0, 0.0, 192, 128),
 ]
 # the family cases held in f32 too (untimed): the new head widths, the
 # group of 7 and the non-causal mask
@@ -897,15 +933,15 @@ def k1b_library_ms(q, k, v, do, window, cap, causal):
     return ms
 
 
-def check_k1b_families(gen) -> None:
-    """K1b at phase 15's shapes (bf16): against the plain backward in
-    double, a second launch's bits, its time beside its bound, the plain
-    backward's (a KV head's group at a time) and SDPA's backward; the
-    K1B_FAMILY_F32 cases then in f32 against the plain backward, untimed.
-    Prints each case's seconds."""
-    runs = [(case, torch.bfloat16) for case in K1B_FAMILY_CASES] + [
-        (case, torch.float32) for case in K1B_FAMILY_CASES
-        if case[0] in K1B_FAMILY_F32]
+def check_k1b_families(gen, names=None) -> None:
+    """K1b at phase 15's shapes (bf16; those in ``names`` only, when
+    given): against the plain backward in double, a second launch's bits,
+    its time beside its bound, the plain backward's (a KV head's group at a
+    time) and SDPA's backward; the K1B_FAMILY_F32 cases then in f32 against
+    the plain backward, untimed.  Prints each case's seconds."""
+    cases = [c for c in K1B_FAMILY_CASES if names is None or c[0] in names]
+    runs = [(case, torch.bfloat16) for case in cases] + [
+        (case, torch.float32) for case in cases if case[0] in K1B_FAMILY_F32]
     for (name, b, hq, hkv, s, causal, window, cap, d, dv), dtype in runs:
         t0 = time.perf_counter()
         kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=0)
@@ -3868,14 +3904,23 @@ PORT_KERNELS = {
 }
 # Late in this script a profiled window loses the device records of its
 # first launches, while the runtime saw them: the first 3 or 4 kernels of
-# every stablelm-12b step profiled after zamba2-2.7b's train step, however
-# long the window idled first.  So a window opens with
-# PROFILE_WARM_LAUNCHES small launches of its own, which take that loss;
-# PORT_KERNELS' counts then show that the call lost nothing.  64 did not
-# always do: a stablelm-12b step profiled after deepseek-67b's in a process
-# of its own lost one K2 record too; nor did 256: mixtral-8x22b's prefill,
-# the first window of phase 14, lost all 256 and one K2 record.
+# every stablelm-12b step profiled after zamba2-2.7b's train step.  So a
+# window opens with PROFILE_WARM_LAUNCHES small launches of its own, which
+# take that loss; PORT_KERNELS' counts then show that the call lost
+# nothing.  64 did not always do, nor did 256: mixtral-8x22b's prefill,
+# the first window of phase 14, lost all 256 and one K2 record.  At 2048
+# the loss grew with the process's age (0 lost early, 46-47 at phase 17),
+# with jumps (481 at the second id's prefill of phase 5), and one run on
+# another H100 lost all 2048 and one K2 record at that id's decode
+# window.  Idling 0.1 s on the host inside the window first changed
+# nothing (52 lost at phase 17), and a window can lose a record after its
+# first launches: mamba2-370m's decode window lost one K2 record of 776
+# and only 2 warm-up records.  So a window that loses a record of the
+# port's kernels is profiled again, up to PROFILE_ATTEMPTS times in all
+# (each attempt logged), and raises if every attempt lost records: a
+# profile that lost records splits nothing.
 PROFILE_WARM_LAUNCHES = 2048
+PROFILE_ATTEMPTS = 3
 
 
 def profile_window(name: str, fn, top: int = 10, groups=None,
@@ -3888,42 +3933,55 @@ def profile_window(name: str, fn, top: int = 10, groups=None,
     kernels those ops launched themselves (and the top ops), the rest as
     "other".  The kernels the profiler saw of each of the port's must be
     those the launch counters counted in the call, times the kernels a
-    launch runs (PORT_KERNELS), or the window raises: a profile that lost
-    records splits nothing."""
+    launch runs (PORT_KERNELS); a window that lost records is profiled
+    again (``fn`` is called once an attempt, so it must bear repeating),
+    and raises after PROFILE_ATTEMPTS such attempts.  The host's ops are recorded only for
+    ``op_groups``: at tens of thousands of ops a step (phase 17's 56
+    layers) reading them back takes half a minute."""
     from torch.profiler import ProfilerActivity, profile
 
-    saved = {k: f.launches for k, f in COUNTERS.items()}
-    for f in COUNTERS.values():
-        f.launches = 0
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_WARM_LAUNCHES):
-            torch.cuda._sleep(1000)  # spin_kernel, left out below
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if op_groups else [])
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        saved = {k: f.launches for k, f in COUNTERS.items()}
+        for f in COUNTERS.values():
+            f.launches = 0
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    launched = {k: f.launches for k, f in COUNTERS.items()}
-    for k, f in COUNTERS.items():
-        f.launches = saved[k] + launched[k]
-    events = prof.key_averages()
-    spins = sum(e.count for e in events if e.device_type.name == "CUDA"
-                and "spin_kernel" in e.key)
-    on_device = [e for e in events if e.device_type.name == "CUDA"
-                 and "spin_kernel" not in e.key]
-    seen = {k: sum(e.count for e in on_device if kernel_fn(e.key) in names)
-            for k, (names, _) in PORT_KERNELS.items()}
-    want = {k: launched[k] * per for k, (_, per) in PORT_KERNELS.items()}
-    log(f"  {name}: the port's kernels the profiler saw "
-        f"{ {k: n for k, n in seen.items() if n or want[k]} }, the launch "
-        f"counters times the kernels a launch runs "
-        f"{ {k: n for k, n in want.items() if n or seen[k]} }; "
-        f"{spins} of the {PROFILE_WARM_LAUNCHES} warm-up launches seen")
-    if seen != want:
-        raise AssertionError(f"{name}: the profiler saw {seen} of the "
-                             f"port's kernels, the counters say {want}")
+        with profile(activities=activities) as prof:
+            for _ in range(PROFILE_WARM_LAUNCHES):
+                torch.cuda._sleep(1000)  # spin_kernel, left out below
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: f.launches for k, f in COUNTERS.items()}
+        for k, f in COUNTERS.items():
+            f.launches = saved[k] + launched[k]
+        events = prof.key_averages()
+        spins = sum(e.count for e in events if e.device_type.name == "CUDA"
+                    and "spin_kernel" in e.key)
+        on_device = [e for e in events if e.device_type.name == "CUDA"
+                     and "spin_kernel" not in e.key]
+        seen = {k: sum(e.count for e in on_device
+                       if kernel_fn(e.key) in names)
+                for k, (names, _) in PORT_KERNELS.items()}
+        want = {k: launched[k] * per for k, (_, per) in PORT_KERNELS.items()}
+        log(f"  {name}: the port's kernels the profiler saw "
+            f"{ {k: n for k, n in seen.items() if n or want[k]} }, the "
+            f"launch counters times the kernels a launch runs "
+            f"{ {k: n for k, n in want.items() if n or seen[k]} }; "
+            f"{spins} of the {PROFILE_WARM_LAUNCHES} warm-up launches seen"
+            f" (attempt {attempt} of {PROFILE_ATTEMPTS})")
+        if seen == want:
+            break
+        if attempt == PROFILE_ATTEMPTS:
+            raise AssertionError(
+                f"{name}: in each of {PROFILE_ATTEMPTS} attempts the "
+                f"profiler lost records; the last saw {seen} of the port's "
+                f"kernels, the counters say {want}")
+        log(f"  {name}: the profiler lost records of the port's kernels; "
+            "profiling the window again")
     kernels = [e for e in on_device if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
@@ -3960,31 +4018,40 @@ def profile_window(name: str, fn, top: int = 10, groups=None,
                 f"x{e.count:<5} {e.key}")
 
 
-# phase 16: one rank of qwen2.5-32b on a [4, 8] mesh
+# phases 16 and 17: one rank of a mesh at full width, in a fake world
 # --------------------------------------------------------------------------
 
+# phase 16: one rank of qwen2.5-32b on [4, 8], 1 x 4096 of a global 4 x 4096
 TP_ARCH, TP_MESH = "qwen2.5-32b", (4, 8)
-# the global batch: 1 x 4096 a data rank
-TP_B, TP_S = 4, 4096
+TP_S = 4096
 TP_WARMUP, TP_STEPS = 2, 3
+# phase 17: (id, mesh, layers run), each at its published width under its
+# config's remat ("full") and AdamW, 1 x 4096 rows a rank; mixtral at its
+# full depth, deepseek-v3's depth cut so that its gathered layers fit one
+# card (PERF.md section 4, reduced: at 61 layers the rank would hold about
+# 131 GB)
+EP_RANKS = [("mixtral-8x22b", (16, 8), 56),
+            ("deepseek-v3-671b", (2, 16, 16), 16)]
+EP_S = 4096
+EP_WARMUP, EP_STEPS = 1, 3
 # the per-rank text is exported, and the step it is predicted beside is
-# measured, at this depth: a trace of 64 layers would take minutes of the
-# script's time (PERF.md section 4, reduced); the step above runs all 64
-TP_EXPORT_LAYERS = 2
+# measured, at this depth: a trace of every layer would take minutes of the
+# script's time (PERF.md section 4, reduced); the steps above run deeper
+RANK_EXPORT_LAYERS = 2
 
 
-def tp_flops(cfg, b: int, s: int) -> tuple[float, int]:
+def tp_flops(cfg, m: int, b: int, s: int) -> tuple[float, int]:
     """(model FLOPs, the per-rank text's ``dot_general`` FLOPs) of one
-    rank's train step of ``cfg`` on TP_MESH at ``b`` x ``s`` rows a rank,
-    every dim divided by its axis.  The products: each layer's Q, K, V and
-    output projections over the rank's heads and kv heads and its three MLP
-    projections over its block of d_ff, and the head over its vocab block,
-    each forward, and backward for its input and its weight (3 times).
-    Attention: the model FLOPs count the causal pairs (4 hd a pair and
-    head forward, twice that backward); the text writes K1 and K1b as
-    calls of their plain versions, which compute every pair: Q K^T and P V
-    forward, S, dP, dV, dK and dQ backward."""
-    m = TP_MESH[-1]
+    rank's train step of the dense ``cfg`` (remat none) on a model axis of
+    ``m`` at ``b`` x ``s`` rows a rank, every dim divided by its axis.  The
+    products: each layer's Q, K, V and output projections over the rank's
+    heads and kv heads and its three MLP projections over its block of
+    d_ff, and the head over its vocab block, each forward, and backward for
+    its input and its weight (3 times).  Attention: the model FLOPs count
+    the causal pairs (4 hd a pair and head forward, twice that backward);
+    the text writes K1 and K1b as calls of their plain versions, which
+    compute every pair: Q K^T and P V forward, S, dP, dV, dK and dQ
+    backward."""
     heads = (cfg.num_heads + cfg.pad_heads) // m
     kv, f, v = cfg.num_kv_heads // m, cfg.d_ff // m, cfg.vocab_size // m
     d, hd, t = cfg.d_model, cfg.resolved_head_dim, b * s
@@ -3994,6 +4061,84 @@ def tp_flops(cfg, b: int, s: int) -> tuple[float, int]:
     model = products + cfg.num_layers * 3 * 4 * hd * pairs * heads * b
     text = products + cfg.num_layers * 7 * 2 * b * heads * s * s * hd
     return model, text
+
+
+def tp_collectives(cfg) -> dict:
+    """The model axis's collectives in the dense per-rank text (remat
+    none): a layer all-reduces the attention's and the MLP's row-parallel
+    outputs (*g*) and their inputs' gradients (*f*); once a step the
+    embedding, the head's input gradient, the cross-entropy's max, sum and
+    target logit, and the clip's sum of squares."""
+    return {"all_reduce": 4 * cfg.num_layers + 6}
+
+
+def attention_pairs(s: int, window: int) -> int:
+    """The (query, key) pairs that causal attention over ``s`` tokens
+    sees, within ``window`` keys of each query (0: all)."""
+    w = window if 0 < window < s else s
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def ep_flops(cfg, m: int, b: int, s: int) -> tuple[float, int]:
+    """(model FLOPs, the per-rank text's ``dot_general`` FLOPs) of one
+    rank's train step of the MoE ``cfg`` on a model axis of ``m`` at ``b``
+    x ``s`` rows a rank, each dim that the rules split divided by ``m``.
+    The products: each layer's attention projections over the rank's heads
+    (MLA's down projections whole), the router over every expert on the
+    rank's tokens, the grouped expert GEMMs over the rank's E/m experts'
+    capacity buffers (the capacity of the rank's tokens), the shared expert
+    over its block, and the head over the rank's vocab block; each forward,
+    and backward for its two operands (3 times), the layers' once more in
+    the text under remat="full" but for the shared expert's down
+    projection (torch's checkpoint stops recomputing once the tensors the
+    backward needs are back, and that product's output is only added; the
+    model FLOPs leave recomputation out).  Attention: the model FLOPs count
+    the causal pairs within the window; the text writes K1 and K1b as calls
+    of their plain versions, which compute every pair: Q K^T at the
+    query/key width and P V at the value width forward (twice under remat),
+    S, dQ and dK (query/key) and dP and dV (value) backward."""
+    mo, d, t = cfg.moe, cfg.d_model, b * s
+    heads = cfg.num_heads // m
+    if cfg.mla is not None:
+        a = cfg.mla
+        qk, dv = a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim
+        proj = 2 * t * (d * (a.q_lora_rank + a.kv_lora_rank
+                             + a.qk_rope_head_dim)
+                        + heads * (a.q_lora_rank * qk + a.kv_lora_rank
+                                   * (a.qk_nope_head_dim + dv) + dv * d))
+    else:
+        qk = dv = cfg.resolved_head_dim
+        proj = 2 * t * d * qk * (2 * heads + 2 * (cfg.num_kv_heads // m))
+    ffn = 2 * t * d * mo.num_experts + 3 * 2 * (mo.num_experts // m) \
+        * moe_capacity(t, mo) * d * mo.d_ff_expert
+    # one of the shared expert's three products
+    shared = 2 * t * d * (mo.d_ff_shared or mo.d_ff_expert) \
+        * mo.num_shared_experts // m
+    ffn += 3 * shared
+    head = 2 * t * d * (cfg.vocab_size // m)
+    n, again = cfg.num_layers, int(cfg.remat == "full")
+    pairs = attention_pairs(s, cfg.sliding_window) * b * heads
+    model = 3 * (n * (proj + ffn) + head) + n * 3 * 2 * (qk + dv) * pairs
+    every = 2 * b * heads * s * s
+    text = 3 * head + n * ((3 + again) * (proj + ffn) - again * shared
+                           + (1 + again) * every * (qk + dv)
+                           + every * (3 * qk + 2 * dv))
+    return model, text
+
+
+def ep_collectives(cfg) -> dict:
+    """The model axis's collectives in the MoE per-rank text (remat full):
+    a layer all-reduces the attention's row-parallel output (*g*, again in
+    remat's recompute) and the gradients of what enters its heads' region
+    (*f*: GQA's x, MLA's three latents), the MoE's partial outputs (not
+    recomputed: the checkpoint stops before them) and its input's
+    gradient; it gathers the router's columns (again in the recompute) and
+    reduce-scatters their gradient.  Once a step: the embedding, the head's
+    input gradient, the cross-entropy's three reductions and the clip's sum
+    of squares."""
+    n, f = cfg.num_layers, 3 if cfg.mla is not None else 1
+    return {"all_reduce": (2 + f + 2) * n + 6, "all_gather": 2 * n,
+            "reduce_scatter": n}
 
 
 def shard_specs(specs: dict, mesh) -> dict:
@@ -4009,14 +4154,15 @@ def shard_specs(specs: dict, mesh) -> dict:
         mesh))
 
 
-def tp_memory(cfg, specs: dict, rank: dict, b: int, s: int) -> float:
-    """The reckoning of the rank's peak memory, printed before the step:
-    its shards and their new values (bf16 parameters, f32 AdamW moments),
-    the layers gathered along their data dims and kept for the backward and
-    their gradients before the reduce-scatter, the activations each layer
-    keeps for the backward, the head's f32 logits (three live in its
-    backward) and the head in f32.  Returns the sum in bytes."""
-    m = TP_MESH[-1]
+def tp_memory(cfg, specs: dict, rank: dict, mesh, b: int, s: int) -> float:
+    """The reckoning of a dense rank's peak memory, printed before the
+    step: its shards and their new values (bf16 parameters, f32 AdamW
+    moments), the layers gathered along their data dims and kept for the
+    backward and their gradients (an upper bound: the backward
+    reduce-scatters each as it is made), the activations each layer keeps
+    for the backward, the head's f32 logits (three live in its backward)
+    and the head in f32.  Returns the sum in bytes."""
+    m = mesh.shape[-1]
     n = param_count(rank)
     whole = sum(math.prod(x.shape) for k, x in tree_paths(specs).items()
                 if k.startswith("layers/")) // m
@@ -4032,7 +4178,7 @@ def tp_memory(cfg, specs: dict, rank: dict, b: int, s: int) -> float:
              "AdamW's moments (f32)": 8 * n,
              "the new parameters and moments": 10 * n,
              "the gathered layers (bf16)": 2 * whole,
-             "their gradients before the reduce-scatter": 2 * whole,
+             "their gradients": 2 * whole,
              "the layers' activations": acts,
              "3 x the head's f32 logits": 3 * 4 * t * v,
              "the head in f32": 4 * d * v}
@@ -4043,7 +4189,60 @@ def tp_memory(cfg, specs: dict, rank: dict, b: int, s: int) -> float:
     return total
 
 
-def tp_steps(step_fn, params, opt_state, batch, warmup: int, steps: int):
+def ep_memory(cfg, specs: dict, rank: dict, mesh, b: int, s: int) -> float:
+    """The reckoning of an MoE rank's peak memory (remat full), printed
+    before the step.  During the backward: its shards and their gradients
+    (bf16), AdamW's moments (f32), every layer gathered along its data dim
+    and kept for the backward (each layer's whole gradient is
+    reduce-scattered as its backward runs, so one lives at a time), each
+    layer's input (kept by remat), one layer's recomputed activations, the
+    head's f32 logits (three live in its backward) and the head in f32.
+    During the update: the shards, their gradients, the moments and their
+    new values.  Returns the larger sum in bytes."""
+    from repro_torch.distributed.sharding import (axis_sizes, param_sharding,
+                                                  spec_axes)
+
+    sizes = axis_sizes(mesh)
+    n = param_count(rank)
+    shards = tree_paths(rank)
+    gathered = 0
+    for name, spec in tree_paths(specs).items():
+        if name.startswith("layers/"):
+            layout = param_sharding(spec.axes, mesh, None, spec.shape)
+            data = math.prod(sizes[a] for i in range(len(spec.shape))
+                             for a in spec_axes(layout, i) if a != "model")
+            gathered += math.prod(shards[name].shape) * data
+    m, mo, t, d = mesh.shape[-1], cfg.moe, b * s, cfg.d_model
+    local, cap = mo.num_experts // m, moe_capacity(t, mo)
+    heads = cfg.num_heads // m
+    width = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+             + cfg.mla.v_head_dim if cfg.mla is not None
+             else 3 * cfg.resolved_head_dim)
+    # a layer's recompute: the tokens gathered into the dispatch, the
+    # expert rows gathered back and weighted (d wide, k a token), the
+    # capacity buffer and its gate, up and product, Q, K, V and the output
+    layer = 2 * (3 * t * mo.top_k * d + local * cap * (2 * d
+                                                       + 3 * mo.d_ff_expert)
+                 + 2 * t * heads * width)
+    v = cfg.vocab_size // m
+    backward = {"the shards and their gradients (bf16)": 4 * n,
+                "AdamW's moments (f32)": 8 * n,
+                "the gathered layers (bf16)": 2 * gathered,
+                "the layers' inputs kept by remat": cfg.num_layers * 2 * t * d,
+                "one layer's recomputed activations": layer,
+                "3 x the head's f32 logits": 3 * 4 * t * v,
+                "the head in f32": 4 * d * v}
+    update = 4 * n + 8 * n + 10 * n
+    total = max(sum(backward.values()), update)
+    log("  memory reckoned before the run, during the backward: " + "; ".join(
+        f"{k} {x / 1e9:.2f} GB" for k, x in backward.items())
+        + f"; {sum(backward.values()) / 1e9:.2f} GB; during the update "
+        f"{update / 1e9:.2f} GB; peak {total / 1e9:.2f} GB "
+        f"({total / 2**30:.2f} GiB)")
+    return total
+
+
+def rank_steps(step_fn, params, opt_state, batch, warmup: int, steps: int):
     """``warmup`` + ``steps`` synchronised steps on the same shards (the
     fake world fills no gather buffer, so the values are not the point);
     the launch counts set to 0 after the warm-up and read after the last.
@@ -4061,144 +4260,168 @@ def tp_steps(step_fn, params, opt_state, batch, warmup: int, steps: int):
     return launches, times
 
 
-def tp_export(cfg):
-    """The per-rank train step of ``cfg`` on TP_MESH exported on fake
-    ``cuda`` tensors (with the global step's raw text): no launch, no
-    device memory; both front ends equal, TP_MESH's 32 partitions, every
-    collective typed by its payload, the model axis's 4 groups of 8 and
-    the data axis's 8 groups of 4 listed in each, the ``dot_general``
-    FLOPs the reckoning's.  Returns the workload."""
-    step, args = train_step_exports(cfg, TP_S, TP_B)
-    # the mesh is made, and fake tensors' one-time context on the card set
-    # up (FakeTensor's init_gpu_context allocates 4 bytes a device the first
-    # time a process makes a fake cuda tensor), before the count
+def rank_export(cfg, shape: tuple, b: int, s: int, flops, collectives):
+    """The per-rank train step of ``cfg`` on a mesh of ``shape`` at ``b``
+    x ``s`` rows a rank, exported on fake ``cuda`` tensors (its text only:
+    no global text): no launch, no device memory; both front ends equal,
+    the world's partitions, every collective typed by its payload and its
+    ``replica_groups`` every group of one axis, the model axis's
+    collectives ``collectives(cfg)`` and the ``dot_general`` FLOPs
+    ``flops(cfg, m, b, s)[1]``.  Returns the workload."""
+    # fake tensors' one-time context on the card (FakeTensor's
+    # init_gpu_context allocates 4 bytes a device the first time a process
+    # makes a fake cuda tensor) set up before the count
     with FakeTensorMode():
         for device in ("cuda", "cuda:0"):
             torch.empty(1, device=device) + 1
-    with traced_mesh(TP_MESH, "cuda") as mesh:
-        rank = train_step_exports(cfg, TP_S, TP_B, mesh)
+    world = math.prod(shape)
+    with traced_mesh(shape, "cuda") as mesh:
+        step, args = train_step_exports(cfg, s, b * world // shape[-1],
+                                        mesh)
+        axes = {json.dumps(sorted(g)): a
+                for a, g in axis_groups(mesh).items()}
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in COUNTERS.items()}
         allocs = allocations()
-        w = export_workload(step, *args, name=f"{TP_ARCH}-tp", device="cuda",
-                            per_rank=(*rank, mesh))
+        text, meta = export_text(step, args, f"{cfg.name}-rank", "cuda",
+                                 mesh)
         moved = allocations() - allocs
     if moved or {k: fn.launches for k, fn in COUNTERS.items()} != counts:
-        raise AssertionError(f"tp export: {moved} device allocations, or a "
-                             "launch counter moved")
-    legacy = ir.parse_stablehlo(w.hlo_text, frontend="legacy")
-    streaming = ir.parse_stablehlo(w.hlo_text, frontend="streaming")
+        raise AssertionError(f"rank export: {moved} device allocations, or "
+                             "a launch counter moved")
+    meta["num_partitions"] = world
+    w = Workload(name=f"{cfg.name}-rank", hlo_text=text,
+                 meta={"optimized": meta})
+    legacy = ir.parse_stablehlo(text, frontend="legacy")
+    streaming = ir.parse_stablehlo(text, frontend="streaming")
     ir.assert_programs_equal(legacy, streaming)
-    world = math.prod(TP_MESH)
     if streaming.meta.get("num_partitions") != world:
-        raise AssertionError(f"tp export: num_partitions "
+        raise AssertionError(f"rank export: num_partitions "
                              f"{streaming.meta.get('num_partitions')}")
-    axes = {(TP_MESH[0], TP_MESH[1]): "model",
-            (TP_MESH[1], TP_MESH[0]): "data"}
+    ops = [op for op in streaming.entry
+           if op.op in ("all_reduce", "all_gather", "reduce_scatter")]
+    colls = collect_collectives(streaming)
+    if len(ops) != len(colls):
+        raise AssertionError(f"rank export: {len(ops)} collectives in "
+                             f"@main, {len(colls)} in the program")
     kinds: dict = {}
-    for c, mult in collect_collectives(streaming):
-        axis = axes.get((c.num_groups, c.group_size))
-        if not c.bytes_in > 0 or axis is None:
-            raise AssertionError(f"tp export: collective {c} is not typed by "
-                                 "its payload over an axis's groups")
+    for op, (c, mult) in zip(ops, colls):
+        listed = op.raw.split("replica_groups = dense<", 1)[1].split(">", 1)
+        axis = axes.get(json.dumps(sorted(json.loads(listed[0]))))
+        if not c.bytes_in > 0 or axis is None or c.kind != op.op:
+            raise AssertionError(f"rank export: collective {c} is not "
+                                 "typed by its payload over every group of "
+                                 "an axis")
         k = kinds.setdefault(f"{c.kind} over {axis}", [0, 0.0])
         k[0] += mult
         k[1] += c.algo_bytes * mult
-    if {k.split(" over ")[1] for k in kinds} != {"model", "data"}:
-        raise AssertionError(f"tp export: collectives {kinds}")
-    flops = int(ir.program_cost(streaming).by_op["dot_general"])
-    want = tp_flops(cfg, TP_B // TP_MESH[0], TP_S)[1]
-    if flops != want:
-        raise AssertionError(f"tp export: dot_general FLOPs {flops}, "
+    if {k.split(" over ")[1] for k in kinds} != {
+            a for a, n in zip(mesh_axes(shape), shape) if n > 1}:
+        raise AssertionError(f"rank export: collectives {kinds}")
+    got = {k.split(" over ")[0]: n for k, (n, _) in kinds.items()
+           if k.endswith(" over model")}
+    if got != collectives(cfg):
+        raise AssertionError(f"rank export: model-axis collectives {got}, "
+                             f"reckoned {collectives(cfg)}")
+    found = int(ir.program_cost(streaming).by_op["dot_general"])
+    want = flops(cfg, shape[-1], b, s)[1]
+    if found != want:
+        raise AssertionError(f"rank export: dot_general FLOPs {found}, "
                              f"reckoned {want}")
-    opt = w.meta["optimized"]
     log(f"  per-rank text at {cfg.num_layers} layers: trace "
-        f"{opt['trace_s']:.2f} s, emit {opt['emit_s']:.3f} s, "
-        f"{opt['text_bytes']} bytes, {streaming.num_ops} ops, num_partitions "
-        f"{world}, operator nodes {opt['kernel_ops']}; dot_general {flops} "
-        f"FLOPs (the reckoning's); global text: trace "
-        f"{w.meta['trace_s']:.2f} s")
+        f"{meta['trace_s']:.2f} s, emit {meta['emit_s']:.3f} s, "
+        f"{meta['text_bytes']} bytes, {streaming.num_ops} ops, "
+        f"num_partitions {world}, operator nodes {meta['kernel_ops']}; "
+        f"dot_general {found} FLOPs and the model axis's collectives "
+        f"{got} (the reckonings')")
     log("  collectives (count, algorithm bytes a rank): " + "; ".join(
-        f"{k} {n}, {b:.0f}" for k, (n, b) in sorted(kinds.items())))
+        f"{k} {n}, {x:.0f}" for k, (n, x) in sorted(kinds.items())))
     return w
 
 
-def tp_phase(gen, smi: str) -> dict:
-    """Phase 16.  Returns the launch counts of the full-depth step."""
-    cfg = get_config(TP_ARCH).scaled(remat="none")
-    assert cfg.attn_impl == "kernel" and cfg.dtype == "bfloat16"
-    rows = TP_B // TP_MESH[0]
+def rank_train(cfg, shape: tuple, b: int, s: int, gen, smi: str,
+               header: str, memory, flops, collectives, warmup: int,
+               steps: int) -> dict:
+    """One rank of ``cfg`` on a mesh of ``shape`` (rank 0 of a fake world:
+    its collectives move no data, so its step is the rank's compute; the
+    CPU tests hold the numerics), ``b`` x ``s`` rows a rank, AdamW: the
+    memory reckoned before the step (``memory``), ``warmup`` + ``steps``
+    steps, the median step, tokens/s and MFU against ``flops``' model
+    FLOPs, peak memory, the launches a step held, one step profiled; then
+    the per-rank text at RANK_EXPORT_LAYERS (:func:`rank_export`) predicted
+    on ``h100`` beside the step measured at that depth.  Returns the launch
+    counts of the counted steps."""
+    m, world = shape[-1], math.prod(shape)
     specs = model_specs(cfg)
     torch.cuda.empty_cache()
-    with traced_mesh(TP_MESH, "cuda") as mesh:
+    t0 = time.perf_counter()
+    with traced_mesh(shape, "cuda") as mesh:
         rank = shard_specs(specs, mesh)
-        log(f"  {TP_ARCH} on {list(TP_MESH)} (data, model): "
-            f"{cfg.num_layers} layers, d_model {cfg.d_model}, heads "
-            f"{cfg.num_heads}/{cfg.num_kv_heads} -> "
-            f"{cfg.num_heads // TP_MESH[1]}/{cfg.num_kv_heads // TP_MESH[1]} "
-            f"a rank, d_ff {cfg.d_ff} -> {cfg.d_ff // TP_MESH[1]}, vocab "
-            f"{cfg.vocab_size} -> {cfg.vocab_size // TP_MESH[1]}; the "
-            f"rank's shards {param_count(rank) / 1e9:.3f} B of "
-            f"{param_count(specs) / 1e9:.3f} B parameters; rows {rows}x{TP_S} "
-            f"of {TP_B}x{TP_S}; AdamW, remat none; reduced: none for the "
-            f"step")
-        reckoned = tp_memory(cfg, specs, rank, rows, TP_S)
+        log(f"  {cfg.name} on {list(shape)} ({', '.join(mesh_axes(shape))})"
+            f": {header}; the rank's shards {param_count(rank) / 1e9:.3f} B "
+            f"of {param_count(specs) / 1e9:.3f} B parameters; rows {b}x{s} "
+            f"of {b * world // m}x{s}; AdamW, remat {cfg.remat}")
+        reckoned = memory(cfg, specs, rank, mesh, b, s)
         params = init_params(rank, gen, "cuda")
         opt_cfg = OptimizerConfig(warmup_steps=1)
         opt_state = adamw_init(params, opt_cfg)
         step_fn = make_train_step(cfg, opt_cfg, mesh=mesh)
         batch = next(ShardedLoader(SyntheticSource(DataConfig(
-            vocab_size=cfg.vocab_size, seq_len=TP_S, global_batch=TP_B,
+            vocab_size=cfg.vocab_size, seq_len=s, global_batch=b * world // m,
             seed=0)), mesh))
-        assert tuple(batch["tokens"].shape) == (rows, TP_S)
+        assert tuple(batch["tokens"].shape) == (b, s)
         torch.cuda.synchronize()
+        laps = [time.perf_counter() - t0]
         torch.cuda.reset_peak_memory_stats()
-        launches, times = tp_steps(step_fn, params, opt_state, batch,
-                                   TP_WARMUP, TP_STEPS)
+        launches, times = rank_steps(step_fn, params, opt_state, batch,
+                                     warmup, steps)
         peak = torch.cuda.max_memory_allocated()
-        profile_window(f"{TP_ARCH} rank step on {list(TP_MESH)}",
+        laps.append(time.perf_counter() - t0)
+        profile_window(f"{cfg.name} rank step on {list(shape)}",
                        lambda: step_fn(params, opt_state, batch), top=12,
                        groups=FAMILY_TRAIN_GROUPS)
+        laps.append(time.perf_counter() - t0)
         del params, opt_state, step_fn
     torch.cuda.empty_cache()
-    per_step = {k: n / TP_STEPS for k, n in launches.items()}
+    per_step = {k: n / steps for k, n in launches.items()}
     expected = train_launches(cfg)
     log(f"  launches a step: {per_step}")
     if per_step != expected:
-        raise AssertionError(f"tp launches a step {per_step}, expected "
+        raise AssertionError(f"rank launches a step {per_step}, expected "
                              f"{expected}")
-    step_s = statistics.median(times[TP_WARMUP:])
-    model, text = tp_flops(cfg, rows, TP_S)
+    step_s = statistics.median(times[warmup:])
+    model, text = flops(cfg, m, b, s)
     mfu = model / step_s / PEAK_FLOPS[torch.bfloat16]
-    log(f"  per-rank step (rank 0 of a fake world of {math.prod(TP_MESH)}: "
-        f"its collectives move no data, so this is the rank's compute; its "
-        f"values are not checked here): median {step_s * 1e3:.2f} ms over "
-        f"steps {TP_WARMUP}..{TP_WARMUP + TP_STEPS - 1} (all: "
+    log(f"  per-rank step (rank 0 of a fake world of {world}: its "
+        f"collectives move no data, so this is the rank's compute; its "
+        f"values are not checked here, the CPU tests hold the numerics): "
+        f"median {step_s * 1e3:.2f} ms over steps {warmup}.."
+        f"{warmup + steps - 1} (all: "
         + ", ".join(f"{t * 1e3:.2f}" for t in times)
-        + f" ms), {rows * TP_S / step_s:.0f} tokens/s a rank, model FLOPs "
+        + f" ms), {b * s / step_s:.0f} tokens/s a rank, model FLOPs "
         f"{model:.4e} a step, mfu {mfu:.4f} of the bf16 peak (989 "
-        f"TFLOP/s); the text's dot_general FLOPs at 64 layers {text:.4e}; "
-        f"peak memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) beside "
-        f"the reckoned {reckoned / 1e9:.2f} GB ({smi})")
+        f"TFLOP/s); the text's dot_general FLOPs at {cfg.num_layers} "
+        f"layers {text:.4e}; peak memory {peak / 1e9:.2f} GB "
+        f"({peak / 2**30:.2f} GiB) beside the reckoned {reckoned / 1e9:.2f} "
+        f"GB ({smi}); the mesh, shards and batch made by {laps[0]:.1f} s, "
+        f"the steps by {laps[1]:.1f} s, the profile by {laps[2]:.1f} s")
 
-    # the per-rank text at TP_EXPORT_LAYERS layers, its prediction on h100,
-    # and the rank's step measured at that depth
-    ecfg = cfg.scaled(num_layers=TP_EXPORT_LAYERS)
-    w = tp_export(ecfg)
-    with traced_mesh(TP_MESH, "cuda") as mesh:
+    t0 = time.perf_counter()
+    ecfg = cfg.scaled(num_layers=RANK_EXPORT_LAYERS)
+    w = rank_export(ecfg, shape, b, s, flops, collectives)
+    with traced_mesh(shape, "cuda") as mesh:
         params = init_params(shard_specs(model_specs(ecfg), mesh), gen,
                              "cuda")
         opt_cfg = OptimizerConfig(warmup_steps=1)
         opt_state = adamw_init(params, opt_cfg)
-        _, short = tp_steps(make_train_step(ecfg, opt_cfg, mesh=mesh),
-                            params, opt_state, batch, 1, 3)
+        _, short = rank_steps(make_train_step(ecfg, opt_cfg, mesh=mesh),
+                              params, opt_state, batch, 1, 3)
         del params, opt_state
     torch.cuda.empty_cache()
     short_s = statistics.median(short[1:])
     system = default_registry().get("h100")
     topology = build_topology(TopologySpec.from_dict(
-        {"kind": "auto", "params": {"num_devices": math.prod(TP_MESH)}}),
-        system)
+        {"kind": "auto", "params": {"num_devices": world}}), system)
     program = w.program("optimized")
     for label, est in PREDICT_ESTIMATORS.items():
         p = PredictionJob(program=program, slicer="linear", name=w.name,
@@ -4206,16 +4429,55 @@ def tp_phase(gen, smi: str) -> dict:
                           estimator=build_estimator(
                               EstimatorSpec.from_dict(est), system)).run()
         if not (math.isfinite(p.step_time_s) and p.compute_s > 0):
-            raise AssertionError(f"tp predict {label}: {p}")
-        log(f"  per-rank text ({TP_EXPORT_LAYERS} layers) on h100 (auto, "
-            f"{math.prod(TP_MESH)} devices), {label}: step "
-            f"{p.step_time_s * 1e3:.2f} ms, compute {p.compute_s * 1e3:.2f} "
-            f"ms, communication {p.comm_s * 1e3:.2f} ms; measured "
-            f"{short_s * 1e3:.2f} ms at that depth (all: "
-            + ", ".join(f"{t * 1e3:.2f}" for t in short)
+            raise AssertionError(f"rank predict {label}: {p}")
+        log(f"  per-rank text ({RANK_EXPORT_LAYERS} layers) on h100 (auto, "
+            f"{world} devices), {label}: step {p.step_time_s * 1e3:.2f} ms, "
+            f"compute {p.compute_s * 1e3:.2f} ms, communication "
+            f"{p.comm_s * 1e3:.2f} ms; measured {short_s * 1e3:.2f} ms at "
+            f"that depth (all: " + ", ".join(f"{t * 1e3:.2f}" for t in short)
             + f" ms); predicted compute / measured "
             f"{p.compute_s / short_s:.4f} (a finding, not held)")
+    log(f"  the export, the short steps and the predictions: "
+        f"{time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def tp_phase(gen, smi: str) -> dict:
+    """Phase 16.  Returns the launch counts of the full-depth step."""
+    cfg = get_config(TP_ARCH).scaled(remat="none")
+    assert cfg.attn_impl == "kernel" and cfg.dtype == "bfloat16"
+    m = TP_MESH[-1]
+    header = (f"{cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} -> {cfg.num_heads // m}/"
+              f"{cfg.num_kv_heads // m} a rank, d_ff {cfg.d_ff} -> "
+              f"{cfg.d_ff // m}, vocab {cfg.vocab_size} -> "
+              f"{cfg.vocab_size // m}; reduced: none for the step")
+    return rank_train(cfg, TP_MESH, 1, TP_S, gen, smi, header, tp_memory,
+                      tp_flops, tp_collectives, TP_WARMUP, TP_STEPS)
+
+
+def ep_phase(smi: str) -> list:
+    """Phase 17: the EP_RANKS, each from a generator seeded from its name.
+    Returns their launch counts."""
+    runs = []
+    for arch, shape, layers in EP_RANKS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).scaled(num_layers=layers)
+        assert cfg.attn_impl == "kernel" and cfg.dtype == "bfloat16"
+        assert cfg.remat == "full"
+        m, mo = shape[-1], cfg.moe
+        header = (f"{layers} of {get_config(arch).num_layers} layers, "
+                  f"d_model {cfg.d_model}, heads {cfg.num_heads} -> "
+                  f"{cfg.num_heads // m} a rank"
+                  f"{' (MLA)' if cfg.mla is not None else ''}, experts "
+                  f"{mo.num_experts} -> {mo.num_experts // m} a rank (scheme "
+                  f"'expert'), capacity {moe_capacity(EP_S, mo)} rows an "
+                  f"expert, vocab {cfg.vocab_size} -> {cfg.vocab_size // m}")
+        runs.append(rank_train(cfg, shape, 1, EP_S, seeded(f"ep {arch}"),
+                               smi, header, ep_memory, ep_flops,
+                               ep_collectives, EP_WARMUP, EP_STEPS))
+        log(f"  {arch} rank: {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 def main() -> int:
@@ -4343,6 +4605,11 @@ def main() -> int:
         "tensor parallelism at full width and depth")
     runs.append(tp_phase(seeded(f"tp {TP_ARCH}"), smi))
     phase_done("phase 16")
+    log("[17] one rank each of mixtral-8x22b on a [16, 8] mesh and "
+        "deepseek-v3-671b on [2, 16, 16] (pod, data, model): expert "
+        "parallelism and MLA on the model axis at full width")
+    runs += ep_phase(smi)
+    phase_done("phase 17")
     # launches on the main paths: K1 and K2 run on several
     for entry in (k1, k2, k3, k1b, k2b, k3b):
         key = entry["name"]

@@ -14,13 +14,15 @@ A train step then (``train/loop.py::make_train_step``):
    leaf one layer at a time (as XLA re-gathers each layer's weights in the
    layer loop), so the model gets a list of layers for it; a dim sharded
    over ``model`` stays sharded;
-2. takes the loss and its gradient on the rank's rows of the batch (the
-   batch's rows are split over ``(pod, data)``);
+2. takes the loss and its gradient with respect to the shards on the
+   rank's rows of the batch (the batch's rows are split over ``(pod,
+   data)``): the backward of each gather reduce-scatters the whole
+   gradient it receives back to the shard as a sum over ``data``, so that
+   a layer's whole gradient lives only while its backward runs;
 3. all-reduces the loss as a mean over the pod and data ranks;
-4. reduce-scatters each data-sharded leaf's gradient back to its shard as
-   a mean over ``data`` (a layer at a time for a stacked leaf), and
-   all-reduces each other leaf's gradient as a mean over ``data``; then
-   all-reduces every gradient as a mean over ``pod``;
+4. all-reduces each leaf's gradient that is whole on ``data`` as a sum
+   over ``data``, then every gradient over ``pod``, and scales them to a
+   mean over the pod and data ranks;
 5. runs the optimizer on the shards, with the clip's global norm summed
    over the ranks that hold distinct pieces of each leaf
    (:meth:`DataParallel.global_norm`).
@@ -80,6 +82,21 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return _C10D.wait_tensor(_C10D.all_reduce(x, "sum", group.group_name))
 
 
+class _Gather(torch.autograd.Function):
+    """:func:`all_gather` of a shard along ``dim``; backward the sum over
+    the ranks of the whole gradient, the rank's block of it
+    (:func:`reduce_scatter`)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
 class _Layout(NamedTuple):
     """Where a leaf is sharded: its dim over ``data`` (None: whole on that
     axis), whether its dim 0 stacks layers, and whether a dim of it is
@@ -130,15 +147,20 @@ class DataParallel:
     def gather(self, shards: dict) -> dict:
         """The parameters whole along their data dims from the rank's
         shards; a data-sharded stacked leaf becomes the list of its
-        layers."""
+        layers.  Differentiable: the gradient that reaches a shard is the
+        sum over the data ranks of its whole leaf's (or layer's)
+        gradient, the rank's block of it."""
         def one(x, layout):
             dim, stacked = layout.dim, layout.stacked
             if dim is None:
                 return x
             if stacked:
-                return [all_gather(x[i], dim - 1, self.group)
-                        for i in range(x.shape[0])]
-            return all_gather(x, dim, self.group)
+                # unbind: its backward stacks the layers' gradients in one
+                # pass (a select a layer would build a zero-filled stacked
+                # gradient for each)
+                return [_Gather.apply(layer, dim - 1, self.group)
+                        for layer in torch.unbind(x)]
+            return _Gather.apply(x, dim, self.group)
         return self._map(one, shards)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
@@ -150,20 +172,13 @@ class DataParallel:
         return x * (1.0 / self.ranks)
 
     def reduce_grads(self, grads: dict) -> dict:
-        """Gradients whole along their data dims (a list of layers for a
-        data-sharded stacked leaf, as :meth:`gather` gives it) -> the mean
-        over the pod and data ranks, as the rank's shard of each
-        data-sharded leaf and whole along ``data`` for the others."""
+        """The gradients with respect to the rank's shards, taken through
+        :meth:`gather` (summed over ``data`` where a leaf is data-sharded)
+        -> the mean over the pod and data ranks: a leaf whole on ``data``
+        is all-reduced over it, then every leaf over ``pod``."""
         def one(g, layout):
-            dim, stacked = layout.dim, layout.stacked
-            if dim is None:
-                if self.size > 1:
-                    g = all_reduce(g, self.group)
-            elif stacked:
-                g = torch.stack([reduce_scatter(x, dim - 1, self.group)
-                                 for x in g])
-            else:
-                g = reduce_scatter(g, dim, self.group)
+            if layout.dim is None and self.size > 1:
+                g = all_reduce(g, self.group)
             if self.pod is not None:
                 g = all_reduce(g, self.pod)
             return g * inv

@@ -1,18 +1,28 @@
 """The ``model`` axis of a mesh: Megatron-style tensor parallelism for the
-dense family (GQA attention and a dense MLP).
+dense and MLA attention and the dense MLP, and expert parallelism for the
+sparse MoE.
 
 The port's counterpart of what XLA's SPMD partitioner makes of the
 reference's ``PARAM_RULES``/``ACT_RULES`` on a ``model`` axis: ``heads``,
-``kv_heads``, ``mlp`` and ``vocab`` are sharded over it, the residual
-stream and the norms are whole on every model rank.  A rank at model
-coordinate m runs:
+``kv_heads``, ``mlp``, ``experts`` and ``vocab`` are sharded over it, the
+residual stream, the norms and MLA's latent projections (``lora``) are
+whole on every model rank.  A rank at model coordinate m runs:
 
-* attention column-parallel over its query heads (and over its kv heads
-  where ``kv_heads`` divides; otherwise it computes every kv head and
-  takes the ones its query heads read, :meth:`TensorParallel.kv_heads`),
+* GQA attention column-parallel over its query heads (and over its kv
+  heads where ``kv_heads`` divides; otherwise it computes every kv head
+  and takes the ones its query heads read, :meth:`TensorParallel.kv_heads`),
   the output projection row-parallel;
+* MLA's down projections and their norms whole, the latents entering the
+  region of its heads' up projections, K1 over its heads, the output
+  projection row-parallel;
 * the MLP's gate and up column-parallel, its down projection
-  row-parallel;
+  row-parallel (the MoE's shared expert too);
+* the MoE as the reference's ``moe_forward_ep`` does on a rank
+  (:meth:`TensorParallel.moe_scheme`): routing on the rank's tokens with
+  every expert's score, then either its E/M experts' capacity buffers from
+  its tokens (``"expert"``) or every expert on its block of
+  ``d_ff_expert`` (``"ffn"``), the partial token outputs summed over the
+  model ranks;
 * the embedding over its vocab rows (:meth:`TensorParallel.embed`), the
   head's logits over its vocab columns and a vocab-parallel
   cross-entropy (:meth:`TensorParallel.cross_entropy`).
@@ -20,7 +30,10 @@ coordinate m runs:
 Two operators join the regions (Megatron's *f* and *g*):
 :meth:`TensorParallel.copy` is the identity forward and an all-reduce of
 the gradient backward; :meth:`TensorParallel.reduce` an all-reduce forward
-and the identity backward.  A dim its axis does not divide stays whole
+and the identity backward.  The router's columns are gathered with a
+summed backward (:meth:`TensorParallel.gather_columns`), and a leaf whole
+on the axis is cut to the rank's block with a gathered backward
+(:meth:`TensorParallel.block`).  A dim its axis does not divide stays whole
 (the reference's ``_resolve``), and the model code then runs that part
 unsharded: each model function compares a weight's local shape with the
 config's to see what is sharded.
@@ -28,9 +41,10 @@ config's to see what is sharded.
 The collectives are ``torch.ops._c10d_functional`` operators (which have
 no autograd of their own), so a trace keeps them as nodes.  What differs
 from rank to rank (the vocab offset, the kv heads a rank reads, the global
-index of a padded head) is computed from :meth:`TensorParallel.index`,
-the rank's model coordinate as a tensor: eagerly the process's own, in an
-export ``stablehlo.partition_id``, so one per-rank text serves every rank.
+index of a padded head, the rank's experts) is computed from
+:meth:`TensorParallel.index`, the rank's model coordinate as a tensor:
+eagerly the process's own, in an export ``stablehlo.partition_id``, so one
+per-rank text serves every rank.
 
 The model functions find the active instance with :func:`current`; the
 per-rank step and forward (``train/loop.py``) set it with :func:`active`.
@@ -63,30 +77,24 @@ AXIS_INDEX = define_rank_op(
     lambda like, size, stride: torch.empty((), dtype=torch.int64,
                                            device=like.device))
 
-#: the families with a per-rank layout on a ``model`` axis, and the part of
-#: ROADMAP Queue 1 item 10 that each other family waits for
-_WAITS_FOR = {
-    "moe": "expert parallelism on the model axis",
-    "ssm": "the SSM and hybrid families on the model axis",
-    "mla": "MLA on the model axis",
-}
+#: the families with no per-rank layout on a ``model`` axis yet, and the
+#: part of ROADMAP Queue 1 item 10 that they wait for
+_WAITS_FOR = {"ssm": "the SSM and hybrid families on the model axis"}
 
 
 def for_mesh(cfg, mesh) -> "TensorParallel | None":
     """The model axis of ``mesh`` for ``cfg``'s per-rank program, or None
     when the mesh has no ``model`` axis above 1.  Raises
-    ``NotImplementedError`` when ``cfg`` is not of the dense family (GQA
-    attention and a dense MLP in every block)."""
+    ``NotImplementedError`` for the SSM and hybrid families (the dense, MLA
+    and MoE families have a per-rank layout)."""
     size = axis_sizes(mesh).get("model", 1)
     if size <= 1:
         return None
-    why = ("mla" if cfg.mla is not None else "moe" if cfg.moe is not None
-           else "ssm" if cfg.family in ("ssm", "hybrid") else None)
-    if why is not None:
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: a model axis of size {size} has no per-rank "
             f"layout for this family yet (ROADMAP, Queue 1 item 10: "
-            f"{_WAITS_FOR[why]})")
+            f"{_WAITS_FOR['ssm']})")
     return TensorParallel(mesh)
 
 
@@ -119,10 +127,46 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _GatherColumns(torch.autograd.Function):
+    """The ranks' blocks of the last dim joined, in rank order; backward
+    the sum over the ranks of the whole's gradient, the rank's block of it
+    (a reduce-scatter): each rank's gradient of the whole is a partial."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        y = _C10D.wait_tensor(_C10D.all_gather_into_tensor(
+            x.contiguous(), size, group))
+        return torch.cat(torch.chunk(y, size, 0), -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = torch.cat(torch.chunk(g, ctx.size, -1), 0)
+        return _C10D.wait_tensor(_C10D.reduce_scatter_tensor(
+            g.contiguous(), "sum", ctx.size, ctx.group)), None, None
+
+
+class _Block(torch.autograd.Function):
+    """The rank's block (``index``) along ``dim`` of a leaf whole on the
+    model axis; backward the ranks' blocks of the gradient joined along
+    ``dim`` (an all-gather): only rank m reads block m, so the whole leaf
+    gets its whole gradient, equal on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, index, dim, group, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        return torch.index_select(x, dim, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        y = _C10D.wait_tensor(_C10D.all_gather_into_tensor(
+            g.movedim(ctx.dim, 0).contiguous(), ctx.size, ctx.group))
+        return y.movedim(0, ctx.dim), None, None, None, None
+
+
 class TensorParallel:
     """The ``model`` axis of ``mesh``: its process group, its size and the
-    rank's coordinate on it, and the per-rank pieces of the dense family's
-    layers."""
+    rank's coordinate on it, and the per-rank pieces of the layers."""
 
     def __init__(self, mesh):
         names = tuple(mesh.mesh_dim_names)
@@ -160,6 +204,37 @@ class TensorParallel:
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The largest over the model ranks, elementwise (no gradient)."""
         return _all_reduce(x.detach(), "max", self.group)
+
+    # -- the MoE --------------------------------------------------------------
+
+    def moe_scheme(self, moe) -> str | None:
+        """How a rank runs the MoE of ``moe`` (a ``MoEConfig``), as the
+        reference's ``moe_forward_ep`` chooses: ``"expert"`` where the axis
+        divides the experts (the rank holds E/M of them, as the rules lay
+        them out), ``"ffn"`` where it divides ``d_ff_expert`` instead
+        (every expert whole on the rank, which runs its block of
+        ``d_ff_expert``), None where it divides neither (the MoE whole on
+        every model rank, no collective)."""
+        if moe.num_experts % self.size == 0:
+            return "expert"
+        if moe.d_ff_expert % self.size == 0:
+            return "ffn"
+        return None
+
+    def gather_columns(self, w: torch.Tensor) -> torch.Tensor:
+        """The whole of ``w`` from the rank's block of its last dim (the
+        router's experts).  Backward the ranks' gradients are summed: a
+        rank's dispatch takes only its own experts, so its gradient with
+        respect to the whole router is a partial (Megatron's gather, which
+        keeps the rank's own slice, would drop the others' terms)."""
+        return _GatherColumns.apply(w, self.group, self.size)
+
+    def block(self, w: torch.Tensor, dim: int, width: int) -> torch.Tensor:
+        """The rank's block of ``width`` along ``dim`` of ``w``, a leaf
+        whole on the model axis (scheme ``"ffn"``'s experts), whose
+        gradient is then whole and equal on every rank."""
+        index = self.index(w) * width + torch.arange(width, device=w.device)
+        return _Block.apply(w, index, dim, self.group, self.size)
 
     # -- attention ------------------------------------------------------------
 

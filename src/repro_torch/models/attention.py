@@ -9,7 +9,8 @@ Three implementations behind one interface, with the JAX package's layouts
 
 Decode (Sq == 1 over the KV cache) stays plain torch, as the reference
 computes it outside any kernel: GQA over the K/V cache, MLA in the absorbed
-form over the compressed cache.
+form over the compressed cache.  On a ``model`` mesh axis the train/prefill
+paths run the rank's heads (``distributed/tensor_parallel.py``).
 """
 from __future__ import annotations
 
@@ -345,11 +346,24 @@ def _up(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.reshape(w.shape[0], -1)).view(b, s, *w.shape[1:])
 
 
+def _mla_split(cfg: ModelConfig, p: dict):
+    """The running :class:`TensorParallel` when the up projections hold the
+    rank's heads (a model axis that divides them), else None."""
+    return current() if p["wuk"].shape[-2] < cfg.num_heads else None
+
+
 def _mla_query(cfg: ModelConfig, p: dict, x: torch.Tensor,
                positions: torch.Tensor):
-    """(q_nope [B, S, H, nope], q_rope [B, S, H, rope] rotated)."""
+    """(q_nope [B, S, H, nope], q_rope [B, S, H, rope] rotated).  On a
+    model axis H is the rank's heads: the down projection and its norm run
+    whole, and the latent enters the region of the heads' up projection
+    through *f* (so ``wdq`` and ``q_norm`` get their whole gradient on every
+    rank)."""
     m = cfg.mla
     cq = rms_norm(dense(x, p["wdq"]), p["q_norm"], cfg.rms_eps)
+    tp = _mla_split(cfg, p)
+    if tp is not None:
+        cq = tp.copy(cq)
     q_nope, q_rope = _up(cq, p["wuq"]).split(
         [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -357,23 +371,30 @@ def _mla_query(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 def _mla_latent(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 positions: torch.Tensor):
-    """(ckv [B, S, rank] normed, k_rope [B, S, 1, rope] rotated)."""
+    """(ckv [B, S, rank] normed, k_rope [B, S, 1, rope] rotated), whole on
+    every model rank; on a model axis each enters the heads' region through
+    *f*."""
     m = cfg.mla
     ckv, k_rope = dense(x, p["wdkv"]).split(
         [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     # K2 takes contiguous rows: the first kv_lora_rank columns of each
     # [rank + rope] row are copied out before the norm
     ckv = rms_norm(ckv.contiguous(), p["kv_norm"], cfg.rms_eps)
-    return ckv, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    tp = _mla_split(cfg, p)
+    if tp is not None:
+        ckv, k_rope = tp.copy(ckv), tp.copy(k_rope)
+    return ckv, k_rope
 
 
 def mla_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     """Materialised MLA for train/prefill: K1 at a query/key width of
-    nope + rope (192) and a value width of v_head_dim (128)."""
+    nope + rope (192) and a value width of v_head_dim (128).  On a model
+    axis K1 runs over the rank's heads and ``wo`` is row-parallel."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.num_heads
+    h = p["wuk"].shape[-2]
     q_nope, q_rope = _mla_query(cfg, p, x, positions)
     ckv, k_rope = _mla_latent(cfg, p, x, positions)
     k_nope = _up(ckv, p["wuk"])
@@ -385,7 +406,7 @@ def mla_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
     out = multihead_attention(qf.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), args, impl=cfg.attn_impl,
                               chunk=cfg.attn_chunk)
-    return _out_proj(p, out.transpose(1, 2))
+    return _out_proj(p, out.transpose(1, 2), cfg.num_heads)
 
 
 def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,

@@ -241,9 +241,12 @@ def resnet_forward(cfg: ResNetConfig, params: dict, images: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _value_and_grad(cfg: ResNetConfig, params: dict, images, labels,
-                    group=None):
+                    group=None, gather=None):
+    """The loss and its gradient tree; with ``gather`` (a data mesh's
+    ``DataParallel.gather``) ``params`` are the rank's shards."""
     leaves = trainable(params)
-    loss, _ = resnet_forward(cfg, leaves, images, labels, group)
+    loss, _ = resnet_forward(cfg, gather(leaves) if gather else leaves,
+                             images, labels, group)
     grads = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
@@ -285,8 +288,8 @@ def make_resnet_train_step(cfg: ResNetConfig, opt_cfg=None, *, mesh=None):
     dp = DataParallel(resnet_specs(cfg), mesh)
 
     def rank_step(shards, opt, images, labels):
-        loss, grads = _value_and_grad(cfg, dp.gather(shards), images,
-                                      labels, dp.group)
+        loss, grads = _value_and_grad(cfg, shards, images, labels, dp.group,
+                                      dp.gather)
         loss, grads = dp.mean(loss), dp.reduce_grads(grads)
         shards, opt, _ = update_fn(shards, grads, opt, opt_cfg,
                                    global_norm=dp.global_norm)

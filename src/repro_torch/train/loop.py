@@ -7,8 +7,8 @@ K2b), then the optimizer on dicts of tensors.  With a mesh (``[data,
 model]`` or ``[pod, data, model]``) the step is one rank's program: the
 rank's shards in, its data-axis collectives around the loss, the gradients
 and the clip (``distributed/data_parallel.py``), and, on a ``model`` axis
-above 1, the dense family's layers split over the model ranks
-(``distributed/tensor_parallel.py``).  :func:`train_step_exports` and
+above 1, the layers of the dense, MLA and MoE families split over the model
+ranks (``distributed/tensor_parallel.py``).  :func:`train_step_exports` and
 :func:`forward_exports` (each with or without a mesh) give the step and the
 forward with abstract arguments for
 :func:`repro_torch.core.pipeline.export_workload`.
@@ -49,11 +49,14 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
     return (q.to(torch.float32) * scale).to(dtype)
 
 
-def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict):
+def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict,
+                    gather=None):
     """The loss (detached) and its gradient tree, each gradient in its
-    parameter's dtype."""
+    parameter's dtype.  With ``gather`` (a mesh's
+    :meth:`DataParallel.gather`) ``params`` are the rank's shards, made
+    whole inside the differentiated function."""
     leaves = trainable(params)
-    loss, _ = forward(cfg, leaves, batch)
+    loss, _ = forward(cfg, gather(leaves) if gather else leaves, batch)
     grads = iter(torch.autograd.grad(loss, tree_leaves(leaves),
                                      allow_unused=True,
                                      materialize_grads=True))
@@ -79,8 +82,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     the gradients as means over the pod and data ranks, and updates its
     shards with the clip's norm taken over all of them
     (``distributed/data_parallel.py``).  A ``model`` axis above 1 takes
-    the dense family only (``tensor_parallel.for_mesh`` raises for the
-    others)."""
+    the dense, MLA and MoE families (``tensor_parallel.for_mesh`` raises
+    for the SSM and hybrid ones); an MoE then runs the reference's
+    expert-parallel dispatch on the rank's tokens."""
     _, update_fn = make_optimizer(opt_cfg)
     if donate:
         if mesh is not None:
@@ -101,7 +105,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                 "compression on shards)")
         dp = DataParallel(model_specs(cfg), mesh, rules)
 
-    def compute_grads(params, batch):
+    def compute_grads(params, batch, gather=None):
         if microbatch and microbatch > 1:
             # gradient accumulation over microbatches, in f32 as the
             # reference's scan carries it
@@ -113,16 +117,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                 p.shape, dtype=torch.float32, device=p.device), params)
             for i in range(microbatch):
                 loss, g = _value_and_grad(
-                    cfg, params, {k: x[i] for k, x in micro.items()})
+                    cfg, params, {k: x[i] for k, x in micro.items()}, gather)
                 g_sum = tree_map(lambda a, b: a + b.to(a.dtype), g_sum, g)
                 loss_sum = loss_sum + loss
             inv = 1.0 / microbatch
             return loss_sum * inv, tree_map(lambda g: g * inv, g_sum)
-        return _value_and_grad(cfg, params, batch)
+        return _value_and_grad(cfg, params, batch, gather)
 
     def rank_step(shards, opt_state, batch):
         with tensor_parallel.active(tp):
-            loss, grads = compute_grads(dp.gather(shards), batch)
+            loss, grads = compute_grads(shards, batch, dp.gather)
         loss, grads = dp.mean(loss), dp.reduce_grads(grads)
         new_params, new_opt, metrics = update_fn(
             shards, grads, opt_state, opt_cfg, global_norm=dp.global_norm)

@@ -123,24 +123,36 @@ def _paths(tree, prefix=""):
 
 # the families without a per-rank layout on a model axis yet, each naming
 # its part of ROADMAP Queue 1 item 10
-WAITING = ["mamba2-370m", "mixtral-8x22b", "zamba2-2.7b", "deepseek-v3-671b"]
+WAITING = ["mamba2-370m", "zamba2-2.7b"]
+# the MoE families, which take a model axis since expert parallelism
+# (tests/test_torch_expert_parallel.py)
+EXPERT_PARALLEL = ["mixtral-8x22b", "deepseek-v3-671b"]
 
 
-@pytest.mark.parametrize("case", WAITING + ["a second world"])
+@pytest.mark.parametrize("case", ["mamba2-370m", "mixtral-8x22b",
+                                  "zamba2-2.7b", "deepseek-v3-671b",
+                                  "a second world"])
 def test_a_model_axis_and_a_second_world_raise(case):
-    """The SSM, MoE, hybrid and MLA smoke configs on ``[2, 2]`` raise,
-    naming item 10 (the dense family runs there:
-    ``test_torch_tensor_parallel.py``); a fake world refuses to replace a
-    process group that is up."""
+    """The SSM and hybrid smoke configs on ``[2, 2]`` raise, naming item
+    10; the MoE ones (mixtral's GQA, deepseek-v3's MLA) export a per-rank
+    text there (the dense family's: ``test_torch_tensor_parallel.py``); a
+    fake world refuses to replace a process group that is up."""
     with traced_mesh((2, 2), "cpu") as mesh:
         if case == "a second world":
             with pytest.raises(RuntimeError, match="already initialised"):
                 with fake_world(4):
                     pass
             return
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            loop.train_step_exports(get_smoke_config(case), SEQ, BATCH,
-                                    mesh)
+        cfg = get_smoke_config(case)
+        if case in WAITING:
+            with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+                loop.train_step_exports(cfg, SEQ, BATCH, mesh)
+            return
+        step, args = loop.train_step_exports(cfg, SEQ, BATCH, mesh)
+        text = export_workload(step, *args, device="cpu",
+                               per_rank=(step, args, mesh)).hlo_text
+    assert "mhlo.num_partitions = 4 " in text
+    assert "stablehlo.partition_id" in text
 
 
 # --------------------------------------------------------------------------
@@ -403,16 +415,29 @@ def test_per_rank_flops_are_the_raw_texts_over_n(exported):
     assert f"mhlo.num_partitions = {n} " in w.hlo_text
 
 
-@pytest.mark.parametrize("arch", WAITING)
-def test_a_forward_workload_with_a_mesh_raises(arch):
+@pytest.mark.parametrize("arch", ["mamba2-370m", "mixtral-8x22b",
+                                  "zamba2-2.7b", "deepseek-v3-671b"])
+def test_a_forward_workload_with_a_mesh_raises(arch, monkeypatch):
     """A forward workload on a ``[2, 2]`` mesh of a family with no
-    per-rank layout on the model axis raises, naming its part of ROADMAP
-    item 10, before any trace (the dense family's exports:
-    ``test_torch_tensor_parallel.py``)."""
+    per-rank layout on the model axis (SSM, hybrid) raises, naming its part
+    of ROADMAP item 10, before any trace; an MoE id's exports its per-rank
+    forward as the optimized text (the dense family's:
+    ``test_torch_tensor_parallel.py``), here at its published width cut to
+    one layer (a trace of every layer takes a minute and more)."""
     spec = campaign.WorkloadSpec(name="fwd", arch=arch, mode="forward",
                                  seq=SEQ, batch=BATCH, mesh=(2, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        build_workload(spec, device="cpu")
+    if arch in WAITING:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            build_workload(spec, device="cpu")
+        return
+    from repro_torch.models import registry
+
+    whole = registry.get_config
+    monkeypatch.setattr(registry, "get_config",
+                        lambda a: whole(a).scaled(num_layers=1))
+    w = build_workload(spec, device="cpu")
+    assert w.meta["mesh"] == [2, 2]
+    assert "mhlo.num_partitions = 4 " in w.hlo_text
 
 
 def test_every_collective_is_typed_by_its_payload(exported):

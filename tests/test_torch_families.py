@@ -352,10 +352,14 @@ def test_moe_aux_loss():
 
 
 def test_moe_ep_shardmap_raises_naming_the_mesh_item():
+    """``moe_ep_shardmap`` on one device is ``moe_forward``, bit for bit,
+    as the reference's fallback (its ``test_single_device_fallback``); the
+    expert-parallel dispatch on a mesh: test_torch_expert_parallel.py."""
     _, tcfg, _, tp, x = _moe_pair()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        mlp.moe_forward(tcfg.scaled(moe_ep_shardmap=True), tp,
-                        torch.from_numpy(x))
+    want = mlp.moe_forward(tcfg, tp, torch.from_numpy(x))
+    got = mlp.moe_forward(tcfg.scaled(moe_ep_shardmap=True), tp,
+                          torch.from_numpy(x))
+    assert torch.equal(got, want)
 
 
 # --------------------------------------------------------------------------

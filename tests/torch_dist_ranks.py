@@ -19,7 +19,12 @@ model]`` or ``[pod, data, model]``) and runs one job:
   batches) the per-rank ``make_train_step`` for every batch and the
   per-rank forward on the first; it saves the rank's coordinates, its
   shards and rows before the first step, each step's new shards, moments
-  and metrics, and the forward's loss and logits, as trees.
+  and metrics, and the forward's loss and logits, as trees;
+* ``"ep"`` (``tests/test_torch_expert_parallel.py``): ``"tp"``'s cases,
+  then each MoE case in ``modules.pt`` (a config, the whole MoE weights
+  and tokens x [B, S, d]): the rank's MoE (``models/mlp.py::moe_forward``
+  under the mesh's model axis) on its rows of x, from its shards gathered
+  along ``data``; it saves the coordinates and the output.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ def run(rank: int, world: int, store: str, work: str, job: str,
         shape = tuple(shape or (world, 1))
         mesh = make_mesh(shape, mesh_axes(shape), "cpu")
         out = {"step": _step, "train": _train, "resnet": _resnet,
-               "tp": _tp}[job](mesh, work)
+               "tp": _tp, "ep": _ep}[job](mesh, work)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -106,6 +111,32 @@ def _tp(mesh, work: str) -> list:
     return outs
 
 
+def _ep(mesh, work: str) -> dict:
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.distributed.data_parallel import DataParallel
+    from repro_torch.models import mlp
+    from repro_torch.models.params import shard_params
+
+    out = {"cases": _tp(mesh, work), "modules": []}
+    path = os.path.join(work, "modules.pt")
+    cases = torch.load(path, weights_only=False) if os.path.exists(path) \
+        else []
+    at = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    for case in cases:
+        cfg, x = case["cfg"], case["x"]
+        specs = mlp.moe_specs(cfg)
+        dp = DataParallel(specs, mesh)
+        block = at.get("pod", 0) * dp.size + at["data"]
+        rows = x.shape[0] // dp.ranks
+        with tensor_parallel.active(tensor_parallel.for_mesh(cfg, mesh)):
+            y = mlp.moe_forward(cfg, dp.gather(shard_params(
+                specs, case["params"], mesh)), x[block * rows:
+                                                 (block + 1) * rows])
+        out["modules"].append({"coordinate": mesh.get_coordinate(),
+                               "y": y})
+    return out
+
+
 def _train(mesh, work: str) -> dict:
     from repro_torch.train.loop import train
 
@@ -130,10 +161,11 @@ def _resnet(mesh, work: str) -> dict:
     r = mesh.get_local_rank("data")
     images = inputs["images"][r * rows:(r + 1) * rows]
     labels = inputs["labels"][r * rows:(r + 1) * rows]
-    whole = dp.gather(params)
-    _, grads = resnet._value_and_grad(cfg, whole, images, labels, dp.group)
+    _, grads = resnet._value_and_grad(cfg, params, images, labels, dp.group,
+                                      dp.gather)
     norm = dp.global_norm(dp.reduce_grads(grads))
-    local_loss, _ = resnet.resnet_forward(cfg, whole, images, labels)
+    local_loss, _ = resnet.resnet_forward(cfg, dp.gather(params), images,
+                                          labels)
     step = resnet.make_resnet_train_step(cfg, opt_cfg, mesh=mesh)
     new, opt, loss = step(params, adamw_init(params, opt_cfg), images,
                           labels)
