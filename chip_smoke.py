@@ -31,7 +31,14 @@ prints no result line):
    1536, kv_norm 512) and at deepseek-v3's d_model 7168; K1 and K1b at
    qwen2-vl-7b's GQA group of 7 (D 128) and at hubert-xlarge's D 80
    without a causal mask (phases 14 and 15's shapes, beside SDPA causal or
-   not), K2 and K2b at 3584 and 1280 (K2b's block kernel at 1280);
+   not), K2 and K2b at 3584 and 1280 (K2b's block kernel at 1280); the
+   split-row K2 and K2b (each pass a kernel of its own) on a model rank's
+   block of 128 or 320 columns of 4096 rows of 2048 or 5120 (phase 18's
+   gated norms), each row's totals from the plain version over the whole
+   row, against the whole rows' plain norm and backward at the block's
+   columns, timed; K3 and K3b at phase 18's ranks (1 x 4096, 2 heads at
+   N 128 and 5 at N 64), K1 and K1b at zamba2's rank (1 x 2/2 x 4096, D
+   80);
 4. two serving paths at full width in bf16 with seeded random weights,
    llama3-1b (K1, K2) and mamba2-370m (K3, K2): ``prefill`` on 4 prompts of
    2048 tokens and ``greedy_decode`` on 8 prompts of 64 tokens (32 new
@@ -234,7 +241,22 @@ prints no result line):
    ``dot_general`` FLOPs against reckonings at the rank's capacity)
    predicted on ``h100`` beside the step measured at that depth.  Phase 3
    holds and times K1 and K1b at both ranks' attention (1 x 6/1 x 4096, D
-   128, window 4096; 1 x 8/8 x 4096 at (192, 128)).
+   128, window 4096; 1 x 8/8 x 4096 at (192, 128));
+18. the SSM and hybrid families on the model axis: one rank of
+   mamba2-370m on ``[16, 16]`` (a fake world of 256: SSM heads 32 -> 2,
+   in_proj's packed columns 4384 -> 274, the gated norm's row 2048 -> 128
+   through the split-row K2 and K2b, the vocab of 50280 whole) and one of
+   zamba2-2.7b on ``[2, 16, 16]`` (512: heads 80 -> 5, 10448 -> 653, 5120
+   -> 320; the shared block's 32 heads -> 2 at D 80, d_ff -> 640, vocab ->
+   2000), the reference's dry-run meshes, at full width and depth (48 and
+   54 layers), each 1 x 4096 a rank under AdamW and remat "full": as phase
+   17, the memory reckoned, the median step, tokens/s, mfu, peak memory,
+   the launches a step held (K3 2L, K3b L, the split-row K2 2L a pass and
+   K2b L a pass; the hybrid's K1 and K1b at its super-blocks), one step
+   profiled; the per-rank text at 2 layers (zamba2: one super-block of 6)
+   with its collectives and ``dot_general`` FLOPs against ``ssm_flops``'s
+   reckoning, predicted on ``h100`` beside the step measured at that
+   depth.
 
 Each check, phase and id draws its inputs and weights from a generator
 seeded from its own name (``seeded``).  Each phase's seconds are printed
@@ -298,7 +320,8 @@ from repro_torch.kernels.rmsnorm import ops as k2_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
     bwd_kernel_error as k2b_error, kernel_error as rmsnorm_error,
-    rmsnorm_bwd_ref, rmsnorm_ref)
+    rmsnorm_bwd_dot_ref, rmsnorm_bwd_ref, rmsnorm_bwd_split_ref, rmsnorm_ref,
+    rmsnorm_split_ref, rmsnorm_sumsq_ref)
 from repro_torch.kernels.ssd_scan import ops as k3_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
     ssd_scan, ssd_scan_bwd)
@@ -499,6 +522,9 @@ K1_CASES = [  # name, B, Hq, Hkv, Sq, Skv, D, Dv, causal, window, cap,
     # 128), causal; strided
     ("mixtral_ep_bshd", 1, 6, 1, 4096, 4096, 128, 128, True, 4096, 0.0, 0),
     ("mla_ep_bshd", 1, 8, 8, 4096, 4096, 192, 128, True, 0, 0.0, 0),
+    # phase 18's rank of zamba2-2.7b on [2, 16, 16]: the shared block's 2
+    # query and 2 kv heads over 1 x 4096 tokens, causal, D 80, strided
+    ("zamba2_tp_bshd", 1, 2, 2, 4096, 4096, 80, 80, True, 0, 0.0, 0),
 ]
 # the cases at head_dim 80 and 160, and at MLA's pair (tools/mutate_k1.py
 # runs these alone)
@@ -512,7 +538,7 @@ K1_LAST = ("qwen2_vl_bshd", "hubert_bshd")
 K1_TIMED = ("prefill", "mixtral_bshd", "gemma2_local_bshd",
             "gemma2_global_bshd", "stablelm_bshd", "zamba2_bshd", "mla_bshd",
             "qwen2_vl_bshd", "hubert_bshd", "qwen_tp_bshd",
-            "mixtral_ep_bshd", "mla_ep_bshd")
+            "mixtral_ep_bshd", "mla_ep_bshd", "zamba2_tp_bshd")
 # phase 17's ranks (run alone with check_k1(gen, K1_EP))
 K1_EP = ("mixtral_ep_bshd", "mla_ep_bshd")
 
@@ -886,6 +912,9 @@ K1B_FAMILY_CASES = [  # name, B, Hq, Hkv, S, causal, window, cap, D, Dv
     # (192, 128))
     ("mixtral_ep", 1, 6, 1, 4096, True, 4096, 0.0, 128, 128),
     ("mla_ep", 1, 8, 8, 4096, True, 0, 0.0, 192, 128),
+    # phase 18's rank of zamba2-2.7b on [2, 16, 16]: 2 query and 2 kv
+    # heads at D 80
+    ("zamba2_tp", 1, 2, 2, 4096, True, 0, 0.0, 80, 80),
 ]
 # the family cases held in f32 too (untimed): the new head widths, the
 # group of 7 and the non-causal mask
@@ -1129,6 +1158,170 @@ def check_k2b(gen) -> dict:
     return entry
 
 
+# the split-row K2 and K2b (phase 18's gated norm on a model rank): rows,
+# the whole row, the rank's block of it, the block's index: mamba2-370m's
+# 2048 and zamba2-2.7b's 5120 over the 16 ranks of a model axis
+K2_SPLIT_CASES = [("mamba2_tp", 4096, 2048, 128, 5),
+                  ("zamba2_tp", 4096, 5120, 320, 15)]
+K2_SPLIT_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
+K2B_SPLIT_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu"
+
+
+def split_inputs(gen, rows: int, whole: int, d: int, index: int, dtype):
+    """Whole rows x, w and dy, the rank's block of each (contiguous) and
+    the block's columns."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x, dy = randn(rows, whole).to(dtype), randn(rows, whole).to(dtype)
+    w = (1.0 + 0.1 * randn(whole)).to(dtype)
+    cols = slice(index * d, (index + 1) * d)
+    return x, w, dy, cols, *(t[..., cols].contiguous() for t in (x, w, dy))
+
+
+def sums_error(got, want, terms, d: int) -> tuple[float, float]:
+    """A pass's f32 row sums against the plain version's over the block:
+    the max abs error and the largest in units of d 2^-24 of the sum of
+    the terms' magnitudes (an f32 sum of d terms in another order)."""
+    err = (got - want).abs()
+    return err.max().item(), (err / (d * 2.0 ** -24 * terms).clamp_min(
+        1e-30)).max().item()
+
+
+def split_entry(name, source, replaces, err, ms, plain_ms, bound_ms,
+                bound_by) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def check_k2_split(gen) -> list:
+    """K2's split-row form, its two passes, on the rank's block of rows
+    whose totals the plain version gives over the whole row (no collective
+    needed): rmsnorm_sumsq against the plain sums over the block, and
+    rmsnorm_split against the whole rows' plain norm at the block's
+    columns (K2's tolerance, twice the bf16 rounding); each timed beside
+    its bound and its plain version (no PyTorch call takes a row's total
+    from outside: library none).  Returns the two kernels' entries (bf16,
+    mamba2's block)."""
+    entries = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, rows, whole, d, index in K2_SPLIT_CASES:
+            x, w, _, cols, xb, wb, _ = split_inputs(gen, rows, whole, d,
+                                                    index, dtype)
+            total = rmsnorm_sumsq_ref(x)
+            sums = k2_ops.rmsnorm_sumsq(xb)
+            y = k2_ops.rmsnorm_split(xb, wb, total, 1e-5, 0.0, whole)
+            torch.cuda.synchronize()
+            xf = xb.float()
+            es, rs = sums_error(sums, rmsnorm_sumsq_ref(xb),
+                                (xf * xf).sum(-1), d)
+            ey, ry = rmsnorm_error(y, x, w, 1e-5, 0.0, cols)
+            ok = all(math.isfinite(v) for v in (rs, ry)) and max(rs, ry) <= 1
+            log(f"  K2 split-row {name:<9} {str(dtype)[6:]:<8} {rows}x{d} "
+                f"of {whole}: sums max_abs_err={es:.3e} ({rs:.3f} of d "
+                f"2^-24 of the terms), norm {ey:.3e} ({ry:.3f} of the "
+                f"tolerance) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K2 split-row {name} {dtype}: sums "
+                                     f"{rs}, norm {ry} of tol")
+            size = x.element_size()
+            times = {
+                "rmsnorm_sumsq": (
+                    lambda: k2_ops.rmsnorm_sumsq(xb),
+                    lambda: rmsnorm_sumsq_ref(xb), 2 * rows * d,
+                    rows * d * size + 4 * rows, es),
+                "rmsnorm_split": (
+                    lambda: k2_ops.rmsnorm_split(xb, wb, total, 1e-5, 0.0,
+                                                 whole),
+                    lambda: rmsnorm_split_ref(xb, wb, total, 1e-5, 0.0,
+                                              whole), 2 * rows * d,
+                    2 * rows * d * size + d * size + 4 * rows, ey)}
+            for kernel, (fn, plain, flops, nbytes, err) in times.items():
+                ms, plain_ms = device_ms(fn), device_ms(plain)
+                bound_ms, bound_by = bound(flops, nbytes, dtype)
+                log(f"  K2 split-row {name} {str(dtype)[6:]} {kernel}: "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no "
+                    f"library call, bound {bound_ms:.4f} ms ({bound_by}; "
+                    f"{nbytes / 1e6:.3f} MB)")
+                if dtype == torch.bfloat16 and name == "mamba2_tp":
+                    entries.append(split_entry(
+                        kernel, K2_SPLIT_SOURCE,
+                        "src/repro/kernels/rmsnorm/kernel.py:23", err, ms,
+                        plain_ms, bound_ms, bound_by))
+    return entries
+
+
+def check_k2b_split(gen) -> list:
+    """K2b's split-row form, its two passes, from the whole rows' plain
+    totals: rmsnorm_bwd_dot against the plain sums of x w dy over the
+    block, and rmsnorm_bwd_split's dx and dw against the whole rows' plain
+    backward in double at the block's columns (K2b's tolerances), a second
+    launch to equal bits; each timed beside its bound and its plain
+    version (library none).  Returns the two kernels' entries (bf16,
+    mamba2's block)."""
+    entries = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, rows, whole, d, index in K2_SPLIT_CASES:
+            x, w, dy, cols, xb, wb, gb = split_inputs(gen, rows, whole, d,
+                                                      index, dtype)
+            total = rmsnorm_sumsq_ref(x)
+            dot_whole = rmsnorm_bwd_dot_ref(x, w, dy, 0.0)
+            dot = k2_ops.rmsnorm_bwd_dot(xb, wb, gb, 0.0)
+            dx, dw = k2_ops.rmsnorm_bwd_split(xb, wb, gb, total, dot_whole,
+                                              1e-5, 0.0, whole)
+            again = k2_ops.rmsnorm_bwd_split(xb, wb, gb, total, dot_whole,
+                                             1e-5, 0.0, whole)
+            torch.cuda.synchronize()
+            same = torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+            ed, rd = sums_error(dot, rmsnorm_bwd_dot_ref(xb, wb, gb, 0.0),
+                                (xb.float() * wb.float() * gb.float()
+                                 ).abs().sum(-1), d)
+            ex, rx, rrow, ew, rw = k2b_error(dx, dw, x, w, dy, 1e-5, 0.0,
+                                             cols)
+            worst = max(rd, rx, rrow, rw)
+            ok = same and math.isfinite(worst) and worst <= 1
+            log(f"  K2b split-row {name:<9} {str(dtype)[6:]:<8} {rows}x{d} "
+                f"of {whole}: sums max_abs_err={ed:.3e} ({rd:.3f} of d "
+                f"2^-24 of the terms), dx {ex:.3e} (element {rx:.3f}, row "
+                f"{rrow:.3f} of the tolerances), dw {ew:.3e} ({rw:.3f}); a "
+                f"second launch {'bit-identical' if same else 'DIFFERENT'} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K2b split-row {name} {dtype}: sums "
+                                     f"{rd}, dx {rx} {rrow}, dw {rw} of tol, "
+                                     f"bit-identical {same}")
+            size = x.element_size()
+            times = {
+                "rmsnorm_bwd_dot": (
+                    lambda: k2_ops.rmsnorm_bwd_dot(xb, wb, gb, 0.0),
+                    lambda: rmsnorm_bwd_dot_ref(xb, wb, gb, 0.0),
+                    3 * rows * d, 2 * rows * d * size + d * size + 4 * rows,
+                    ed),
+                "rmsnorm_bwd_split": (
+                    lambda: k2_ops.rmsnorm_bwd_split(
+                        xb, wb, gb, total, dot_whole, 1e-5, 0.0, whole),
+                    lambda: rmsnorm_bwd_split_ref(
+                        xb, wb, gb, total, dot_whole, 1e-5, 0.0, whole),
+                    6 * rows * d,
+                    3 * rows * d * size + 2 * d * size + 8 * rows,
+                    max(ex, ew))}
+            for kernel, (fn, plain, flops, nbytes, err) in times.items():
+                ms, plain_ms = device_ms(fn), device_ms(plain)
+                bound_ms, bound_by = bound(flops, nbytes, dtype)
+                log(f"  K2b split-row {name} {str(dtype)[6:]} {kernel}: "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no "
+                    f"library call, bound {bound_ms:.4f} ms ({bound_by}; "
+                    f"{nbytes / 1e6:.3f} MB)")
+                if dtype == torch.bfloat16 and name == "mamba2_tp":
+                    entries.append(split_entry(
+                        kernel, K2B_SPLIT_SOURCE,
+                        "none on the TPU (jax.grad of "
+                        "src/repro/models/common.py:11)", err, ms, plain_ms,
+                        bound_ms, bound_by))
+    return entries
+
+
 K3_CASES = [  # name, B, S, H, P, G, N, chunk, strided, initial state, decay
     ("prefill", 4, 2048, 32, 64, 1, 128, 256, False, False, "mamba"),
     # the layout mamba2_forward passes: x, B and C as column slices of the
@@ -1140,9 +1333,15 @@ K3_CASES = [  # name, B, S, H, P, G, N, chunk, strided, initial state, decay
     ("strong_decay", 2, 1024, 32, 64, 1, 128, 256, True, False, "strong"),
     # 64 chunks of recurrence on 32 blocks: the card under-filled
     ("long_init", 1, 16384, 32, 64, 1, 128, 256, True, True, "mamba"),
+    # phase 18's ranks on a model axis of 16, 1 x 4096 tokens in the layout
+    # the rank's Mamba2 layer passes (x its heads' columns of the conv
+    # output, B and C whole): mamba2-370m's 2 heads at N 128, zamba2-2.7b's
+    # 5 at N 64
+    ("mamba2_tp", 1, 4096, 2, 64, 1, 128, 256, True, False, "mamba"),
+    ("zamba2_tp", 1, 4096, 5, 64, 1, 64, 256, True, False, "mamba"),
 ]
 # the cases K3 is timed on (bf16; f32 at prefill only)
-K3_TIMED = ("prefill", "long_init")
+K3_TIMED = ("prefill", "long_init", "mamba2_tp", "zamba2_tp")
 
 
 def k3_inputs(gen, b, s, h, p, g, n, chunk, strided, init, decay, dtype):
@@ -1256,9 +1455,12 @@ K3B_CASES = [  # name, B, S, H, P, G, N, chunk, strided, init, dfinal, decay
      "strong"),
     # zamba2-2.7b's train step at 2 x 4096: 80 heads, state 64
     ("zamba2", 2, 4096, 80, 64, 1, 64, 256, True, False, False, "mamba"),
+    # phase 18's ranks (K3's mamba2_tp and zamba2_tp)
+    ("mamba2_tp", 1, 4096, 2, 64, 1, 128, 256, True, False, False, "mamba"),
+    ("zamba2_tp", 1, 4096, 5, 64, 1, 64, 256, True, False, False, "mamba"),
 ]
 # the cases timed and launched twice (bf16; "train" in f32 too)
-K3B_TIMED = ("train", "zamba2")
+K3B_TIMED = ("train", "zamba2", "mamba2_tp", "zamba2_tp")
 
 
 def k3b_work(b, s, h, p, n, chunk) -> int:
@@ -1377,7 +1579,12 @@ def max_rel_diff(a: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 
 COUNTERS = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
             "ssd_scan": ssd_scan, "flash_attention_bwd": flash_attention_bwd,
-            "rmsnorm_bwd": rmsnorm_bwd, "ssd_scan_bwd": ssd_scan_bwd}
+            "rmsnorm_bwd": rmsnorm_bwd, "ssd_scan_bwd": ssd_scan_bwd,
+            # the split-row K2 and K2b (a Mamba2 layer on a model axis)
+            "rmsnorm_sumsq": k2_ops.rmsnorm_sumsq,
+            "rmsnorm_split": k2_ops.rmsnorm_split,
+            "rmsnorm_bwd_dot": k2_ops.rmsnorm_bwd_dot,
+            "rmsnorm_bwd_split": k2_ops.rmsnorm_bwd_split}
 
 
 def serve(arch: str, gen) -> dict:
@@ -3491,6 +3698,8 @@ GATE_EXPERTS = 32
 EXPORT_COUNTERS = dict(EXPORT_OPS, ssd_scan_states="ssd_scan",
                        ssd_scan_bwd="ssd_scan_bwd")
 FAMILY_TRAIN_GROUPS = {
+    "K2b split-row": ["rmsnorm_bwd_dot", "rmsnorm_bwd_split"],
+    "K2 split-row": ["rmsnorm_sumsq", "rmsnorm_split"],
     "K3b": K3B_KERNELS,
     "K3": ["ssd_scan_bf16", "ssd_scan_f32"], **TRAIN_GROUPS}
 
@@ -3625,12 +3834,14 @@ def family_gate(cfg, params, batch, flips_from: str = "plain") -> None:
         f"{max(k for k, _ in rows.values()):.3e} (tol {LOGIT_FACTOR:g})")
 
 
-def train_launches(cfg) -> dict:
+def train_launches(cfg, model: int = 1) -> dict:
     """The launches of one train step of ``cfg``: each layer's mixer (K1
     or K3) and norms (two a layer, four with MLA, and the hybrid's shared
     block two more a super-block), forward and backward; under
     remat="full" every block's forward runs again in the backward; the
-    final norm once each way."""
+    final norm once each way.  On a model axis of ``model`` that divides
+    the SSM heads, each Mamba2 layer's gated norm takes the split-row K2
+    and K2b (each pass once) in place of the whole-row ones."""
     n = cfg.num_layers
     if cfg.family == "hybrid":
         n_attn = n // cfg.hybrid_attn_every
@@ -3642,11 +3853,16 @@ def train_launches(cfg) -> dict:
         # MLA's layers norm four times: ln1, q_norm, kv_norm, ln2
         mixers, norms = {"flash_attention": n}, (
             4 if cfg.mla is not None else 2) * n
+    split = n if cfg.family in ("ssm", "hybrid") and model > 1 and \
+        cfg.ssm.n_heads(cfg.d_model) % model == 0 else 0
+    norms -= split
     again = 2 if cfg.remat == "full" else 1
     expected = {k: 0 for k in COUNTERS}
     for k, m in mixers.items():
         expected[k], expected[f"{k}_bwd"] = again * m, m
-    expected.update(rmsnorm=again * norms + 1, rmsnorm_bwd=norms + 1)
+    expected.update(rmsnorm=again * norms + 1, rmsnorm_bwd=norms + 1,
+                    rmsnorm_sumsq=again * split, rmsnorm_split=again * split,
+                    rmsnorm_bwd_dot=split, rmsnorm_bwd_split=split)
     return expected
 
 
@@ -3901,6 +4117,10 @@ PORT_KERNELS = {
                      "rmsnorm_bwd_dw"), 2),
     "ssd_scan": (("ssd_scan_bf16", "ssd_scan_f32"), 1),
     "ssd_scan_bwd": (tuple(K3B_KERNELS), 3),
+    "rmsnorm_sumsq": (("rmsnorm_sumsq",), 1),
+    "rmsnorm_split": (("rmsnorm_split",), 1),
+    "rmsnorm_bwd_dot": (("rmsnorm_bwd_dot",), 1),
+    "rmsnorm_bwd_split": (("rmsnorm_bwd_split", "rmsnorm_bwd_split_dw"), 2),
 }
 # Late in this script a profiled window loses the device records of its
 # first launches, while the runtime saw them: the first 3 or 4 kernels of
@@ -4341,16 +4561,16 @@ def rank_export(cfg, shape: tuple, b: int, s: int, flops, collectives):
 
 def rank_train(cfg, shape: tuple, b: int, s: int, gen, smi: str,
                header: str, memory, flops, collectives, warmup: int,
-               steps: int) -> dict:
+               steps: int, export_layers: int = 0) -> dict:
     """One rank of ``cfg`` on a mesh of ``shape`` (rank 0 of a fake world:
     its collectives move no data, so its step is the rank's compute; the
     CPU tests hold the numerics), ``b`` x ``s`` rows a rank, AdamW: the
     memory reckoned before the step (``memory``), ``warmup`` + ``steps``
     steps, the median step, tokens/s and MFU against ``flops``' model
     FLOPs, peak memory, the launches a step held, one step profiled; then
-    the per-rank text at RANK_EXPORT_LAYERS (:func:`rank_export`) predicted
-    on ``h100`` beside the step measured at that depth.  Returns the launch
-    counts of the counted steps."""
+    the per-rank text at ``export_layers`` (RANK_EXPORT_LAYERS when 0;
+    :func:`rank_export`) predicted on ``h100`` beside the step measured at
+    that depth.  Returns the launch counts of the counted steps."""
     m, world = shape[-1], math.prod(shape)
     specs = model_specs(cfg)
     torch.cuda.empty_cache()
@@ -4384,7 +4604,7 @@ def rank_train(cfg, shape: tuple, b: int, s: int, gen, smi: str,
         del params, opt_state, step_fn
     torch.cuda.empty_cache()
     per_step = {k: n / steps for k, n in launches.items()}
-    expected = train_launches(cfg)
+    expected = train_launches(cfg, m)
     log(f"  launches a step: {per_step}")
     if per_step != expected:
         raise AssertionError(f"rank launches a step {per_step}, expected "
@@ -4407,7 +4627,8 @@ def rank_train(cfg, shape: tuple, b: int, s: int, gen, smi: str,
         f"the steps by {laps[1]:.1f} s, the profile by {laps[2]:.1f} s")
 
     t0 = time.perf_counter()
-    ecfg = cfg.scaled(num_layers=RANK_EXPORT_LAYERS)
+    export_layers = export_layers or RANK_EXPORT_LAYERS
+    ecfg = cfg.scaled(num_layers=export_layers)
     w = rank_export(ecfg, shape, b, s, flops, collectives)
     with traced_mesh(shape, "cuda") as mesh:
         params = init_params(shard_specs(model_specs(ecfg), mesh), gen,
@@ -4430,7 +4651,7 @@ def rank_train(cfg, shape: tuple, b: int, s: int, gen, smi: str,
                               EstimatorSpec.from_dict(est), system)).run()
         if not (math.isfinite(p.step_time_s) and p.compute_s > 0):
             raise AssertionError(f"rank predict {label}: {p}")
-        log(f"  per-rank text ({RANK_EXPORT_LAYERS} layers) on h100 (auto, "
+        log(f"  per-rank text ({export_layers} layers) on h100 (auto, "
             f"{world} devices), {label}: step {p.step_time_s * 1e3:.2f} ms, "
             f"compute {p.compute_s * 1e3:.2f} ms, communication "
             f"{p.comm_s * 1e3:.2f} ms; measured {short_s * 1e3:.2f} ms at "
@@ -4476,6 +4697,186 @@ def ep_phase(smi: str) -> list:
         runs.append(rank_train(cfg, shape, 1, EP_S, seeded(f"ep {arch}"),
                                smi, header, ep_memory, ep_flops,
                                ep_collectives, EP_WARMUP, EP_STEPS))
+        log(f"  {arch} rank: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# phase 18: (id, mesh), each at its published width and full depth under
+# its config's remat ("full") and AdamW, 1 x 4096 rows a rank: the SSM
+# family on the reference's [16, 16] dry-run mesh and the hybrid on its
+# [2, 16, 16] one (src/repro/launch/dryrun.py).  Both ids fit one card
+# whole; they run on a mesh here for the per-rank path, not for memory
+SSM_RANKS = [("mamba2-370m", (16, 16)), ("zamba2-2.7b", (2, 16, 16))]
+SSM_S = 4096
+SSM_WARMUP, SSM_STEPS = 1, 3
+
+
+def ssm_flops(cfg, m: int, b: int, s: int) -> tuple[float, int]:
+    """(model FLOPs, the per-rank text's ``dot_general`` FLOPs) of one
+    rank's train step of the SSM or hybrid ``cfg`` under remat="full" on a
+    model axis of ``m`` that divides the SSM heads, at ``b`` x ``s`` rows a
+    rank (t tokens).  A Mamba2 layer's products: in_proj over the rank's
+    block of the packed columns, 2 t d (W/m), and out_proj over its rows,
+    2 t (di/m) d, each forward and backward for both operands; the SSD
+    scan's, as the text writes K3 and K3b (calls of their plain versions
+    on the rank's H heads, chunk L, C chunks): forward the local states,
+    the inbound-state term and the unused outbound states (3 of 2 t H P
+    N), the chunks' recurrence as one product (2 b H (C+1)^2 P N), C B^T
+    over the group (2 t L G N: B and C are whole on every model rank) and
+    the scores times x (2 t L H P); backward the states again (2 t H P N
+    and the recurrence), 4 more of 2 t H P N, C B^T and dC, dB over the
+    group (3 of 2 t L G N) and dy x^T, dx (2 of 2 t L H P).  Under remat
+    torch's checkpoint recomputes a block's forward until the tensors its
+    backward needs are back: mamba2-370m's each layer but out_proj, the
+    last product, whose output is only added; zamba2-2.7b's each
+    super-block whole but the shared MLP's down projection.  The shared
+    attention block is the dense family's (``tp_flops``; K1 written as
+    the plain version over every pair: Q K^T and P V forward, twice, S,
+    dP, dV, dK and dQ backward), and the head over the rank's vocab block
+    (the whole vocab where m does not divide it).  The model FLOPs leave
+    the scan and the recompute out, as phase 15 does: 6 a token and
+    parameter of the rank's matrix products, and attention's causal
+    pairs."""
+    sc, d, t = cfg.ssm, cfg.d_model, b * s
+    di, nh = sc.d_inner(d), sc.n_heads(d)
+    g, n, p = sc.n_groups, sc.d_state, sc.head_dim
+    h, width = nh // m, (2 * di + 2 * g * n + nh) // m
+    chunk = min(sc.chunk_size, s)
+    p_in, p_out = 2 * t * d * width, 2 * t * (di // m) * d
+    hpn, lgn, lhp = 2 * t * h * p * n, 2 * t * chunk * g * n, \
+        2 * t * chunk * h * p
+    carry = 2 * b * h * (s // chunk + 1) ** 2 * p * n
+    scan_fwd = 3 * hpn + carry + lgn + lhp
+    scan_bwd = 5 * hpn + carry + 3 * lgn + 2 * lhp
+    v = cfg.vocab_size // m if cfg.vocab_size % m == 0 else cfg.vocab_size
+    layers = cfg.num_layers
+    model = 3 * (layers * (p_in + p_out) + 2 * t * d * v)
+    text = 3 * 2 * t * d * v + layers * (2 * scan_fwd + scan_bwd)
+    if cfg.family == "ssm":
+        return model, text + layers * (4 * p_in + 3 * p_out)
+    heads, kv = cfg.num_heads // m, cfg.num_kv_heads // m
+    f, hd = cfg.d_ff // m, cfg.resolved_head_dim
+    proj = 2 * t * d * hd * (2 * heads + 2 * kv)
+    up, down = 2 * t * d * 2 * f, 2 * t * f * d
+    supers = layers // cfg.hybrid_attn_every
+    model += supers * (3 * (proj + up + down)
+                       + 3 * 4 * hd * s * (s + 1) // 2 * heads * b)
+    text += layers * 4 * (p_in + p_out) + supers * (
+        4 * (proj + up) + 3 * down + 9 * 2 * b * heads * s * s * hd)
+    return model, text
+
+
+def ssm_collectives(cfg, m: int) -> dict:
+    """The model axis's collectives in the SSM or hybrid per-rank text
+    (remat full).  A Mamba2 layer gathers its blocks of the packed
+    projection, conv_w and conv_b (3, again in the recompute) and
+    reduce-scatters their gradients (3), gathers out_norm's block's
+    gradient (1), all-reduces the split norm's row sums each way and
+    out_proj's partial output (*g*) and its input's gradient (*f*) (4);
+    the recompute all-reduces the norm's sums again, and, where the
+    checkpoint takes a whole super-block, out_proj's output too.  The
+    hybrid's shared block all-reduces as the dense family's (4), and its
+    attention output again in the recompute.  Once a step: the clip's sum
+    of squares, and where the axis divides the vocab the embedding, the
+    head's input gradient and the cross-entropy's three reductions."""
+    n = cfg.num_layers
+    once = 6 if cfg.vocab_size % m == 0 else 1
+    if cfg.family == "ssm":
+        reduces = 5 * n
+    else:
+        reduces = 6 * n + 5 * (n // cfg.hybrid_attn_every)
+    return {"all_reduce": reduces + once, "all_gather": 7 * n,
+            "reduce_scatter": 3 * n}
+
+
+def ssm_memory(cfg, specs: dict, rank: dict, mesh, b: int, s: int) -> float:
+    """The reckoning of an SSM or hybrid rank's peak memory (remat full),
+    printed before the step, as :func:`ep_memory` reckons it: during the
+    backward its shards and their gradients, AdamW's moments, every layer
+    gathered along its data dims, the inputs remat keeps (a layer's, or a
+    super-block's), one checkpointed block's recomputed activations (a
+    Mamba2 layer's gathered packed projection, its columns, conv output,
+    gated product and norm, and K3's f32 inbound states; the shared
+    block's Q, K, V, output and MLP), the head's f32 logits and the head in
+    f32; during the update the shards, gradients, moments and their new
+    values.  Returns the larger sum in bytes."""
+    from repro_torch.distributed.sharding import (axis_sizes, param_sharding,
+                                                  spec_axes)
+
+    sizes = axis_sizes(mesh)
+    n = param_count(rank)
+    shards = tree_paths(rank)
+    gathered = 0
+    for name, spec in tree_paths(specs).items():
+        if name.startswith("layers/"):
+            layout = param_sharding(spec.axes, mesh, None, spec.shape)
+            data = math.prod(sizes[a] for i in range(len(spec.shape))
+                             for a in spec_axes(layout, i) if a != "model")
+            gathered += math.prod(shards[name].shape) * data
+    m, sc, t, d = mesh.shape[-1], cfg.ssm, b * s, cfg.d_model
+    di, nh = sc.d_inner(d), sc.n_heads(d)
+    gn, width = 2 * sc.n_groups * sc.d_state, 2 * di + 2 * sc.n_groups \
+        * sc.d_state + nh
+    chunks = s // min(sc.chunk_size, s)
+    layer = 2 * t * (width + width // m + 4 * (di // m + gn)) \
+        + 4 * b * chunks * (nh // m) * sc.head_dim * sc.d_state
+    if cfg.family == "hybrid":
+        every = cfg.hybrid_attn_every
+        kept = cfg.num_layers // every
+        hd = cfg.resolved_head_dim
+        block = every * layer + 2 * t * (4 * d + hd * 2 * (
+            cfg.num_heads + cfg.num_kv_heads) // m + 4 * cfg.d_ff // m)
+    else:
+        kept = cfg.num_layers
+        block = layer
+    v = cfg.vocab_size // m if cfg.vocab_size % m == 0 else cfg.vocab_size
+    backward = {"the shards and their gradients (bf16)": 4 * n,
+                "AdamW's moments (f32)": 8 * n,
+                "the gathered layers (bf16)": 2 * gathered,
+                f"the {kept} blocks' inputs kept by remat": kept * 2 * t * d,
+                "one block's recomputed activations": block,
+                "3 x the head's f32 logits": 3 * 4 * t * v,
+                "the head in f32": 4 * d * v}
+    update = 4 * n + 8 * n + 10 * n
+    total = max(sum(backward.values()), update)
+    log("  memory reckoned before the run, during the backward: " + "; ".join(
+        f"{k} {x / 1e9:.2f} GB" for k, x in backward.items())
+        + f"; {sum(backward.values()) / 1e9:.2f} GB; during the update "
+        f"{update / 1e9:.2f} GB; peak {total / 1e9:.2f} GB "
+        f"({total / 2**30:.2f} GiB)")
+    return total
+
+
+def ssm_phase(smi: str) -> list:
+    """Phase 18: the SSM_RANKS, each from a generator seeded from its
+    name, the hybrid's text exported at one super-block.  Returns their
+    launch counts."""
+    runs = []
+    for arch, shape in SSM_RANKS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        assert cfg.attn_impl == "kernel" and cfg.dtype == "bfloat16"
+        assert cfg.remat == "full"
+        m, sc = shape[-1], cfg.ssm
+        di, nh = sc.d_inner(cfg.d_model), sc.n_heads(cfg.d_model)
+        width = 2 * di + 2 * sc.n_groups * sc.d_state + nh
+        v = cfg.vocab_size
+        header = (f"{cfg.num_layers} layers, d_model {cfg.d_model}, SSM heads "
+                  f"{nh} -> {nh // m} a rank, in_proj's packed columns "
+                  f"{width} -> {width // m}, the gated norm's row {di} -> "
+                  f"{di // m} (split-row K2 and K2b), vocab {v} -> "
+                  + (f"{v // m}" if v % m == 0 else f"{v} (whole: {m} does "
+                     "not divide it)"))
+        if cfg.family == "hybrid":
+            header += (f"; the shared block every {cfg.hybrid_attn_every} "
+                       f"layers: heads {cfg.num_heads} -> "
+                       f"{cfg.num_heads // m} at D {cfg.resolved_head_dim}, "
+                       f"kv {cfg.num_kv_heads} -> {cfg.num_kv_heads // m}, "
+                       f"d_ff {cfg.d_ff} -> {cfg.d_ff // m}")
+        runs.append(rank_train(
+            cfg, shape, 1, SSM_S, seeded(f"ssm {arch}"), smi, header,
+            ssm_memory, ssm_flops, lambda c: ssm_collectives(c, m), SSM_WARMUP, SSM_STEPS,
+            export_layers=cfg.hybrid_attn_every or RANK_EXPORT_LAYERS))
         log(f"  {arch} rank: {time.perf_counter() - t0:.1f} s")
     return runs
 
@@ -4545,6 +4946,8 @@ def main() -> int:
         k1b = check_k1b(seeded("K1b"))
         check_k1b_families(seeded("K1b families"))
         k2b = check_k2b(seeded("K2b"))
+        k2_split = check_k2_split(seeded("K2 split-row"))
+        k2b_split = check_k2b_split(seeded("K2b split-row"))
         k3 = check_k3(seeded("K3"))
         k3b = check_k3b(seeded("K3b"))
         phase_done("phase 3")
@@ -4610,13 +5013,22 @@ def main() -> int:
         "parallelism and MLA on the model axis at full width")
     runs += ep_phase(smi)
     phase_done("phase 17")
+    log("[18] one rank each of mamba2-370m on a [16, 16] mesh and "
+        "zamba2-2.7b on [2, 16, 16]: the SSM and hybrid families on the "
+        "model axis at full width and depth (the split-row K2 and K2b)")
+    runs += ssm_phase(smi)
+    phase_done("phase 18")
     # launches on the main paths: K1 and K2 run on several
-    for entry in (k1, k2, k3, k1b, k2b, k3b):
+    kernels = [k1, k2, k3, k1b, k2b, k3b, *k2_split, *k2b_split]
+    for entry in kernels:
         key = entry["name"]
         entry["launches"] = sum(run[key] for run in runs)
+    idle = [e["name"] for e in kernels if not e["launches"]]
+    if idle:
+        raise AssertionError(f"no main path launched {idle}")
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k1b, k2b, k3b]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -349,11 +349,10 @@ def _export_from_arch(spec: WorkloadSpec, device=None) -> Workload:
     text: the per-rank train step or forward, traced in a fake world of the
     mesh's size (``launch/mesh.py::traced_mesh``), the counterpart of the
     reference's ``_mesh_for`` under forced host devices.  A ``model`` axis
-    above 1 takes the dense, MLA and MoE ids (the SSM and hybrid ids raise
-    ``NotImplementedError`` naming their part of ROADMAP Queue 1 item 10),
-    and ResNet neither a ``model`` nor a ``pod`` axis.  The traces run on
-    fake tensors on ``device`` (None: the card): no device memory, no
-    launch."""
+    above 1 takes every id of the registry (the dense, MLA, MoE, SSM and
+    hybrid families), and ResNet neither a ``model`` nor a ``pod`` axis.
+    The traces run on fake tensors on ``device`` (None: the card): no
+    device memory, no launch."""
     from ..launch.mesh import traced_mesh
     from ..train.optimizer import OptimizerConfig
 

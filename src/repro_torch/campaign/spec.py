@@ -68,8 +68,7 @@ class WorkloadSpec:
     ("data", "model") axes, 3 to ("pod", "data", "model").  The port
     exports the global step as the raw text and one rank's program (the
     train step or the forward) as the optimized text; a ``model`` axis
-    above 1 takes the dense, MLA and MoE ids (the SSM and hybrid ids raise
-    ``NotImplementedError``).
+    above 1 takes every id of the registry.
 
     ``fidelity`` is the *default* program fidelity for this workload; an
     :class:`EstimatorSpec` may override it (the paper's estimator classes

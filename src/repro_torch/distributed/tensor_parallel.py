@@ -1,6 +1,6 @@
 """The ``model`` axis of a mesh: Megatron-style tensor parallelism for the
-dense and MLA attention and the dense MLP, and expert parallelism for the
-sparse MoE.
+dense and MLA attention, the dense MLP and the Mamba2 layer, and expert
+parallelism for the sparse MoE.
 
 The port's counterpart of what XLA's SPMD partitioner makes of the
 reference's ``PARAM_RULES``/``ACT_RULES`` on a ``model`` axis: ``heads``,
@@ -23,6 +23,15 @@ whole on every model rank.  A rank at model coordinate m runs:
   its tokens (``"expert"``) or every expert on its block of
   ``d_ff_expert`` (``"ffn"``), the partial token outputs summed over the
   model ranks;
+* a Mamba2 layer over its SSM heads (``models/ssm.py``): the input
+  projection over its block of the packed [z, x, B, C, dt] columns, the
+  blocks gathered (:meth:`TensorParallel.gather_columns`) and the rank's
+  z, x and dt with B and C whole taken from them, the conv over its x
+  channels and B and C, K3 over its heads, the gated norm over its block of
+  the row with each row's sums added over the model ranks
+  (:meth:`TensorParallel.sum_rows`, the split-row K2 and K2b), the output
+  projection row-parallel; where the axis does not divide the heads the
+  layer runs whole on every model rank (:meth:`TensorParallel.whole`);
 * the embedding over its vocab rows (:meth:`TensorParallel.embed`), the
   head's logits over its vocab columns and a vocab-parallel
   cross-entropy (:meth:`TensorParallel.cross_entropy`).
@@ -77,24 +86,12 @@ AXIS_INDEX = define_rank_op(
     lambda like, size, stride: torch.empty((), dtype=torch.int64,
                                            device=like.device))
 
-#: the families with no per-rank layout on a ``model`` axis yet, and the
-#: part of ROADMAP Queue 1 item 10 that they wait for
-_WAITS_FOR = {"ssm": "the SSM and hybrid families on the model axis"}
-
-
 def for_mesh(cfg, mesh) -> "TensorParallel | None":
-    """The model axis of ``mesh`` for ``cfg``'s per-rank program, or None
-    when the mesh has no ``model`` axis above 1.  Raises
-    ``NotImplementedError`` for the SSM and hybrid families (the dense, MLA
-    and MoE families have a per-rank layout)."""
-    size = axis_sizes(mesh).get("model", 1)
-    if size <= 1:
+    """The model axis of ``mesh`` for ``cfg``'s per-rank program (every
+    family has one), or None when the mesh has no ``model`` axis above
+    1."""
+    if axis_sizes(mesh).get("model", 1) <= 1:
         return None
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis of size {size} has no per-rank "
-            f"layout for this family yet (ROADMAP, Queue 1 item 10: "
-            f"{_WAITS_FOR['ssm']})")
     return TensorParallel(mesh)
 
 
@@ -144,6 +141,26 @@ class _GatherColumns(torch.autograd.Function):
         g = torch.cat(torch.chunk(g, ctx.size, -1), 0)
         return _C10D.wait_tensor(_C10D.reduce_scatter_tensor(
             g.contiguous(), "sum", ctx.size, ctx.group)), None, None
+
+
+class _Whole(torch.autograd.Function):
+    """The ranks' blocks along ``dim`` joined, in rank order (an
+    all-gather); backward the rank's block of the gradient: every model
+    rank computes the same from the whole, so each rank's gradient of it is
+    already whole (Megatron's gather)."""
+
+    @staticmethod
+    def forward(ctx, x, index, dim, group, size):
+        ctx.index, ctx.dim, ctx.width = index, dim, x.shape[dim]
+        y = _C10D.wait_tensor(_C10D.all_gather_into_tensor(
+            x.movedim(dim, 0).contiguous(), size, group))
+        return y.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = ctx.index * ctx.width + torch.arange(ctx.width,
+                                                    device=g.device)
+        return torch.index_select(g, ctx.dim, rows), None, None, None, None
 
 
 class _Block(torch.autograd.Function):
@@ -235,6 +252,20 @@ class TensorParallel:
         gradient is then whole and equal on every rank."""
         index = self.index(w) * width + torch.arange(width, device=w.device)
         return _Block.apply(w, index, dim, self.group, self.size)
+
+    def whole(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole of ``w`` from the rank's block along ``dim``, for a
+        part that every model rank computes alike (a Mamba2 layer whose
+        heads the axis does not divide); backward the rank's block of the
+        gradient."""
+        return _Whole.apply(w, self.index(w), dim, self.group, self.size)
+
+    # -- the split-row norm ---------------------------------------------------
+
+    def sum_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model ranks of a tensor of row sums (a norm's
+        over a row split over them; no gradient)."""
+        return _all_reduce(x.detach(), "sum", self.group)
 
     # -- attention ------------------------------------------------------------
 

@@ -213,6 +213,119 @@ cudaError_t dispatch_vec(const void* x, const void* w, void* y, long long rows,
              : launch<T, false>(x, w, y, rows, d, eps, offset, stream);
 }
 
+// ---- the split-row form --------------------------------------------------
+// A row of D columns held in blocks of d by the ranks of a model axis (the
+// Mamba2 gated norm over a rank's heads: d = 128 or 320 at the published
+// widths on a model axis of 16).  Its mean square needs the whole row, so
+// the norm runs in two passes with the ranks' all-reduce between them:
+//   rmsnorm_sumsq: each row's f32 sum of squares over the block, one warp a
+//     row (16-byte vectors where aligned), the lanes' sums added by warp
+//     shuffles, lane 0 writing the row's sum;
+//   rmsnorm_split: y = x rsqrt(total / D + eps) (w + offset), from each row's
+//     total over the whole row (the sums added over the ranks), one warp a
+//     row, each lane its vectors of the row.
+// Bound: memory (x read twice, y written once, 4 bytes a row each way).
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kRowWarps * 32)
+rmsnorm_sumsq(const T* __restrict__ x, float* __restrict__ out,
+              long long rows, int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const T* xr = x + row * d;
+  float ss = 0.f;
+  if (VEC) {
+    const uint4* xv = reinterpret_cast<const uint4*>(xr);
+    for (int i = lane; i < d / kVec; i += 32) {
+      const uint4 raw = xv[i];
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float f = to_f32(e[k]);
+        ss += f * f;
+      }
+    }
+  } else {
+    for (int i = lane; i < d; i += 32) {
+      const float f = to_f32(xr[i]);
+      ss += f * f;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (lane == 0) out[row] = ss;
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kRowWarps * 32)
+rmsnorm_split(const T* __restrict__ x, const T* __restrict__ w,
+              const float* __restrict__ total, T* __restrict__ y,
+              long long rows, int d, float inv_whole, float eps,
+              float offset) {
+  constexpr int kVec = 16 / sizeof(T);
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const float inv = rsqrtf(total[row] * inv_whole + eps);
+  const T* xr = x + row * d;
+  T* yr = y + row * d;
+  if (VEC) {
+    const uint4* xv = reinterpret_cast<const uint4*>(xr);
+    const uint4* wv = reinterpret_cast<const uint4*>(w);
+    uint4* yv = reinterpret_cast<uint4*>(yr);
+    for (int i = lane; i < d / kVec; i += 32) {
+      const uint4 xraw = xv[i], wraw = __ldg(wv + i);
+      const T* xe = reinterpret_cast<const T*>(&xraw);
+      const T* we = reinterpret_cast<const T*>(&wraw);
+      uint4 raw;
+      T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        e[k] = from_f32<T>(to_f32(xe[k]) * inv * (to_f32(we[k]) + offset));
+      yv[i] = raw;
+    }
+  } else {
+    for (int i = lane; i < d; i += 32)
+      yr[i] = from_f32<T>(to_f32(xr[i]) * inv * (to_f32(w[i]) + offset));
+  }
+}
+
+template <typename T>
+cudaError_t split_sumsq(const void* x, float* out, long long rows, int d,
+                        int vec, cudaStream_t stream) {
+  const unsigned int blocks =
+      static_cast<unsigned int>((rows + kRowWarps - 1) / kRowWarps);
+  if (vec && d % (16 / sizeof(T)) == 0)
+    rmsnorm_sumsq<T, true><<<blocks, kRowWarps * 32, 0, stream>>>(
+        static_cast<const T*>(x), out, rows, d);
+  else
+    rmsnorm_sumsq<T, false><<<blocks, kRowWarps * 32, 0, stream>>>(
+        static_cast<const T*>(x), out, rows, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t split_apply(const void* x, const void* w, const float* total,
+                        void* y, long long rows, int d, int d_whole, float eps,
+                        float offset, int vec, cudaStream_t stream) {
+  const unsigned int blocks =
+      static_cast<unsigned int>((rows + kRowWarps - 1) / kRowWarps);
+  const float inv_whole = 1.f / static_cast<float>(d_whole);
+  if (vec && d % (16 / sizeof(T)) == 0)
+    rmsnorm_split<T, true><<<blocks, kRowWarps * 32, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w), total,
+        static_cast<T*>(y), rows, d, inv_whole, eps, offset);
+  else
+    rmsnorm_split<T, false><<<blocks, kRowWarps * 32, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w), total,
+        static_cast<T*>(y), rows, d, inv_whole, eps, offset);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, for x, w and y alike.  x and y are
@@ -228,5 +341,35 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* y,
     return dispatch_vec<float>(x, w, y, rows, d, eps, offset, vec, s);
   if (dtype == 1)
     return dispatch_vec<__nv_bfloat16>(x, w, y, rows, d, eps, offset, vec, s);
+  return cudaErrorInvalidValue;
+}
+
+// The split-row form.  x [rows, d] contiguous; total: f32 [rows].  vec as
+// above (x, w and y 16-byte aligned, d * sizeof(T) % 16 == 0).
+extern "C" int repro_rmsnorm_sumsq(const void* x, float* out, long long rows,
+                                   int d, int dtype, int vec, void* stream) {
+  if (rows <= 0 || rows > 0x7fffffffLL * kRowWarps || d <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return split_sumsq<float>(x, out, rows, d, vec, s);
+  if (dtype == 1) return split_sumsq<__nv_bfloat16>(x, out, rows, d, vec, s);
+  return cudaErrorInvalidValue;
+}
+
+// y = x rsqrt(total / d_whole + eps) (w + offset), w [d].
+extern "C" int repro_rmsnorm_split(const void* x, const void* w,
+                                   const float* total, void* y,
+                                   long long rows, int d, int d_whole,
+                                   float eps, float offset, int dtype,
+                                   int vec, void* stream) {
+  if (rows <= 0 || rows > 0x7fffffffLL * kRowWarps || d <= 0 || d_whole < d)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return split_apply<float>(x, w, total, y, rows, d, d_whole, eps, offset,
+                              vec, s);
+  if (dtype == 1)
+    return split_apply<__nv_bfloat16>(x, w, total, y, rows, d, d_whole, eps,
+                                      offset, vec, s);
   return cudaErrorInvalidValue;
 }

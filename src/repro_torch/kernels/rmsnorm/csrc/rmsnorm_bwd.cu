@@ -253,9 +253,9 @@ rmsnorm_bwd_block(const T* __restrict__ x, const T* __restrict__ w,
 // 32 blockIdx.x + l; warp w sums partial rows w, w + 8, ... in order, then
 // warp 0 adds the 8 warps' sums in order
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_bwd_dw(const float* __restrict__ partial, T* __restrict__ dw,
-               int blocks, int d) {
+__device__ __forceinline__ void sum_partials(const float* __restrict__ partial,
+                                             T* __restrict__ dw, int blocks,
+                                             int d) {
   __shared__ float sums[kWarps][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int col = blockIdx.x * 32 + lane;
@@ -272,6 +272,13 @@ rmsnorm_bwd_dw(const float* __restrict__ partial, T* __restrict__ dw,
     for (int i = 0; i < kWarps; ++i) s += sums[i][lane];
     dw[col] = from_f32<T>(s);
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_dw(const float* __restrict__ partial, T* __restrict__ dw,
+               int blocks, int d) {
+  sum_partials(partial, dw, blocks, d);
 }
 
 // dynamic shared memory beyond the default 48 KB a block, less the static
@@ -319,6 +326,124 @@ cudaError_t run(const void* x, const void* w, const void* dy, void* dx,
   return cudaGetLastError();
 }
 
+// ---- the split-row form --------------------------------------------------
+// The backward of rmsnorm.cu's split-row form: the row's D columns are held
+// in blocks of d by the ranks of a model axis.  With rstd = rsqrt(total / D
+// + eps) from each row's sum of squares over the whole row (the forward's,
+// saved) and dot = the sum over the whole row of x (offset + w) dy:
+//   dx = rstd dy (offset + w) - x rstd^3 dot / D     dw = sum of dy x rstd
+//   * rmsnorm_bwd_dot: each row's f32 sum over the block of x (offset + w)
+//     dy, one warp a row; the caller sums it over the ranks;
+//   * rmsnorm_bwd_split: every element of dx is then independent of the
+//     others, so a block takes a tile of 32 columns (lane l column
+//     32 blockIdx.x + l) and a chunk of rows (blockIdx.y): warp w walks the
+//     chunk's rows w, w + 8, ..., writes dx and adds dy x rstd to its
+//     column's partial dw in a register; the 8 warps' sums are added in
+//     warp order and the block writes its chunk's row of partial sums;
+//   * rmsnorm_bwd_split_dw adds the chunks' partial rows in order, as
+//     rmsnorm_bwd_dw does (an entry of its own, so that a profile tells the
+//     two forms apart).
+// Deterministic and without atomics, like the whole-row form; any d (the
+// whole-row groups kernel needs 64 .. 512 threads a row, which rows of 128
+// and 320 columns do not make).
+
+constexpr int kDotWarps = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kDotWarps * 32)
+rmsnorm_bwd_dot(const T* __restrict__ x, const T* __restrict__ w,
+                const T* __restrict__ dy, float* __restrict__ out,
+                long long rows, int d, float offset) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kDotWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const T* xr = x + row * d;
+  const T* gr = dy + row * d;
+  float dot = 0.f;
+  for (int i = lane; i < d; i += 32)
+    dot += to_f32(xr[i]) * (to_f32(w[i]) + offset) * to_f32(gr[i]);
+  dot = warp_sum(dot);
+  if (lane == 0) out[row] = dot;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_split(const T* __restrict__ x, const T* __restrict__ w,
+                  const T* __restrict__ dy, const float* __restrict__ total,
+                  const float* __restrict__ dot, T* __restrict__ dx,
+                  float* __restrict__ partial, long long rows, int d,
+                  long long per_chunk, float inv_whole, float eps,
+                  float offset) {
+  __shared__ float sums[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
+  const long long start = static_cast<long long>(blockIdx.y) * per_chunk;
+  long long stop = start + per_chunk;
+  if (stop > rows) stop = rows;
+  float pw = 0.f;
+  if (col < d) {
+    const float wf = to_f32(w[col]) + offset;
+    for (long long row = start + warp; row < stop; row += kWarps) {
+      const float rstd = rsqrtf(total[row] * inv_whole + eps);
+      const float c = rstd * rstd * rstd * dot[row] * inv_whole;
+      const float xf = to_f32(x[row * d + col]);
+      const float gf = to_f32(dy[row * d + col]);
+      dx[row * d + col] = from_f32<T>(rstd * gf * wf - xf * c);
+      pw += gf * xf * rstd;
+    }
+  }
+  sums[warp][lane] = pw;
+  __syncthreads();
+  if (warp == 0 && col < d) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) s += sums[i][lane];
+    partial[static_cast<long long>(blockIdx.y) * d + col] = s;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_split_dw(const float* __restrict__ partial, T* __restrict__ dw,
+                     int chunks, int d) {
+  sum_partials(partial, dw, chunks, d);
+}
+
+template <typename T>
+cudaError_t run_dot(const void* x, const void* w, const void* dy, float* out,
+                    long long rows, int d, float offset, cudaStream_t stream) {
+  const unsigned int blocks =
+      static_cast<unsigned int>((rows + kDotWarps - 1) / kDotWarps);
+  rmsnorm_bwd_dot<T><<<blocks, kDotWarps * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(dy), out, rows, d, offset);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_split(const void* x, const void* w, const void* dy,
+                      const float* total, const float* dot, void* dx, void* dw,
+                      float* partial, long long rows, int d, int d_whole,
+                      float eps, float offset, int max_chunks,
+                      cudaStream_t stream) {
+  // chunks of at least one row a warp, at most max_chunks of them
+  long long chunks = (rows + kWarps - 1) / kWarps;
+  if (chunks > max_chunks) chunks = max_chunks;
+  const long long per_chunk = (rows + chunks - 1) / chunks;
+  chunks = (rows + per_chunk - 1) / per_chunk;
+  const dim3 grid((d + 31) / 32, static_cast<unsigned int>(chunks));
+  rmsnorm_bwd_split<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(dy), total, dot, static_cast<T*>(dx), partial,
+      rows, d, per_chunk, 1.f / static_cast<float>(d_whole), eps, offset);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  rmsnorm_bwd_split_dw<T><<<(d + 31) / 32, kThreads, 0, stream>>>(
+      partial, static_cast<T*>(dw), static_cast<int>(chunks), d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, for x, w, dy, dx and dw alike.  x,
@@ -340,5 +465,45 @@ extern "C" int repro_rmsnorm_bwd(const void* x, const void* w, const void* dy,
   if (dtype == 1)
     return run<__nv_bfloat16>(x, w, dy, dx, dw, partial, rows, d, eps, offset,
                               max_blocks, vec, s);
+  return cudaErrorInvalidValue;
+}
+
+// The split-row form.  x, dy and dx [rows, d] contiguous, w and dw [d];
+// total and dot: f32 [rows], each row's sums over the whole row of d_whole
+// columns.  repro_rmsnorm_bwd_dot writes each row's sum over the block of
+// x (w + offset) dy into out [rows].  repro_rmsnorm_bwd_split writes dx and
+// dw; partial: f32 scratch of at least max_chunks * d values (max_chunks at
+// most 65535).
+extern "C" int repro_rmsnorm_bwd_dot(const void* x, const void* w,
+                                     const void* dy, float* out,
+                                     long long rows, int d, float offset,
+                                     int dtype, void* stream) {
+  if (rows <= 0 || rows > 0x7fffffffLL * kDotWarps || d <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return run_dot<float>(x, w, dy, out, rows, d, offset, s);
+  if (dtype == 1)
+    return run_dot<__nv_bfloat16>(x, w, dy, out, rows, d, offset, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int repro_rmsnorm_bwd_split(const void* x, const void* w,
+                                       const void* dy, const float* total,
+                                       const float* dot, void* dx, void* dw,
+                                       float* partial, long long rows, int d,
+                                       int d_whole, float eps, float offset,
+                                       int max_chunks, int dtype,
+                                       void* stream) {
+  if (rows <= 0 || d <= 0 || d_whole < d || max_chunks <= 0 ||
+      max_chunks > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_split<float>(x, w, dy, total, dot, dx, dw, partial, rows, d,
+                            d_whole, eps, offset, max_chunks, s);
+  if (dtype == 1)
+    return run_split<__nv_bfloat16>(x, w, dy, total, dot, dx, dw, partial,
+                                    rows, d, d_whole, eps, offset, max_chunks,
+                                    s);
   return cudaErrorInvalidValue;
 }

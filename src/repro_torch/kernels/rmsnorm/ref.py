@@ -18,12 +18,16 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
 
 
 def kernel_error(out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                 eps: float = 1e-5, offset: float = 0.0) -> tuple[float, float]:
+                 eps: float = 1e-5, offset: float = 0.0,
+                 cols: slice | None = None) -> tuple[float, float]:
     """Hold a kernel's output against the plain version in f32 on the same
-    inputs.  Returns the max abs error and the largest element error in
-    units of its tolerance (RTOL): the kernel agrees when that is at most
-    1."""
+    inputs (with ``cols``, ``out`` is those columns of the whole rows x:
+    the split-row form's block).  Returns the max abs error and the largest
+    element error in units of its tolerance (RTOL): the kernel agrees when
+    that is at most 1."""
     ref = rmsnorm_ref(x.float(), w.float(), eps, offset)
+    if cols is not None:
+        ref = ref[..., cols]
     err = (out.float() - ref).abs()
     ratio = err / (RTOL[x.dtype] * ref.abs()).clamp_min(1e-30)
     return err.max().item(), ratio.max().item()
@@ -78,13 +82,18 @@ DW_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -12}
 
 def bwd_kernel_error(dx: torch.Tensor, dw: torch.Tensor, x: torch.Tensor,
                      w: torch.Tensor, dy: torch.Tensor, eps: float = 1e-5,
-                     offset: float = 0.0):
+                     offset: float = 0.0, cols: slice | None = None):
     """Hold K2b's (dx, dw) against the plain backward in double on the same
-    inputs.  Returns (max abs error of dx, its largest element error in
-    units of BWD_RTOL, its largest row error in units of BWD_ROW_RTOL, max
-    abs error of dw, its largest element error in units of DW_RTOL): the
-    kernel agrees when every ratio is at most 1."""
+    inputs (with ``cols``, dx and dw are those columns of the whole rows'
+    gradients: the split-row form's block).  Returns (max abs error of dx,
+    its largest element error in units of BWD_RTOL, its largest row error
+    in units of BWD_ROW_RTOL, max abs error of dw, its largest element
+    error in units of DW_RTOL): the kernel agrees when every ratio is at
+    most 1."""
     rdx, rdw, (sdx, sdw) = _bwd(x, w, dy, eps, offset, torch.float64)
+    if cols is not None:
+        rdx, sdx, rdw, sdw = rdx[..., cols], sdx[..., cols], rdw[cols], \
+            sdw[cols]
     ex = (dx.double() - rdx).abs()
     ew = (dw.double() - rdw).abs()
     scale = rdx.abs() + sdx
@@ -94,3 +103,47 @@ def bwd_kernel_error(dx: torch.Tensor, dw: torch.Tensor, x: torch.Tensor,
              ).max().item(),
             ew.max().item(),
             (ew / (DW_RTOL[w.dtype] * (rdw.abs() + sdw))).max().item())
+
+
+# --------------------------------------------------------------------------
+# the split-row form: a row of D_whole columns held in blocks of d by the
+# ranks of a model axis (the Mamba2 gated norm's y silu(z) over the rank's
+# heads).  Each block's sums are written by one pass, the caller sums them
+# over the ranks, and the second pass applies them to its block.
+# --------------------------------------------------------------------------
+
+def rmsnorm_sumsq_ref(x: torch.Tensor) -> torch.Tensor:
+    """Each row's f32 sum of squares over the block x [..., d] -> [...]."""
+    xf = x.float()
+    return (xf * xf).sum(dim=-1)
+
+
+def rmsnorm_split_ref(x: torch.Tensor, w: torch.Tensor, total: torch.Tensor,
+                      eps: float, offset: float, d_whole: int) -> torch.Tensor:
+    """The block's share of ``rmsnorm_ref`` of the whole row: x [..., d]
+    with w [d], its block of the weight, and ``total`` [...] (f32), each
+    row's sum of squares over the whole row of ``d_whole`` columns."""
+    rstd = torch.rsqrt(total.float() / d_whole + eps)[..., None]
+    return (x.float() * rstd * (offset + w.float())).to(x.dtype)
+
+
+def rmsnorm_bwd_dot_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                        offset: float) -> torch.Tensor:
+    """Each row's f32 sum over the block of x (offset + w) dy -> [...]."""
+    return (x.float() * (offset + w.float()) * dy.float()).sum(dim=-1)
+
+
+def rmsnorm_bwd_split_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                          total: torch.Tensor, dot: torch.Tensor, eps: float,
+                          offset: float, d_whole: int):
+    """The block's (dx, dw) of ``rmsnorm_bwd_ref`` of the whole row, from
+    each row's sums over the whole row: ``total`` of x^2 and ``dot`` of
+    x (offset + w) dy (both f32 [...]).  With rstd = rsqrt(total / D + eps),
+    dx = rstd dy (offset + w) - x rstd^3 dot / D, and dw the sum over all
+    leading dims of dy x rstd; each in its input's dtype."""
+    rstd = torch.rsqrt(total.float() / d_whole + eps)[..., None]
+    xf, gf = x.float(), dy.float()
+    dx = rstd * gf * (offset + w.float()) \
+        - xf * (rstd * rstd * rstd) * (dot.float()[..., None] / d_whole)
+    dw = (gf * xf * rstd).sum(dim=tuple(range(x.dim() - 1)))
+    return dx.to(x.dtype), dw.to(w.dtype)

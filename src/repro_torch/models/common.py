@@ -6,7 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.tensor_parallel import current
-from ..kernels.rmsnorm.ops import rmsnorm
+from ..kernels.rmsnorm.ops import rmsnorm, rmsnorm_split_row
 from ..library import call, define
 from .params import ParamSpec
 
@@ -16,6 +16,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
     """``x * rsqrt(mean(x^2) + eps) * (offset + weight)``, f32 inside, out in
     ``x.dtype``: the hand-written kernel K2 on the card."""
     return rmsnorm(x, weight, eps=eps, offset=offset)
+
+
+def rms_norm_split(x: torch.Tensor, weight: torch.Tensor, d_whole: int,
+                   eps: float = 1e-5, offset: float = 0.0) -> torch.Tensor:
+    """:func:`rms_norm` of rows of ``d_whole`` columns of which x [..., d]
+    and ``weight`` [d] are the rank's block, the others held by the other
+    ranks of the model axis: each row's mean square is taken over the whole
+    row, its block sums added over the model ranks (the split-row K2 and
+    K2b on the card)."""
+    return rmsnorm_split_row(x, weight, eps, offset, d_whole,
+                             current().sum_rows)
 
 
 def activation(name: str):

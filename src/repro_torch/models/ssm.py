@@ -9,6 +9,11 @@ einsum does (so an export's ``dot_general`` FLOPs are the reference's).  A
 failure to build or launch K3 or K3b raises; there is no fallback to the
 plain form.  Decode runs the O(1) recurrent update in plain torch, as the
 reference does.
+
+On a ``model`` mesh axis (``distributed/tensor_parallel.py::current``) a
+rank runs its block of the SSM heads, as the reference's rules lay the
+leaves out (``ssm_inner`` and ``ssm_heads`` over the model axis,
+``out_norm`` whole): :func:`_mamba2_rank`.
 """
 from __future__ import annotations
 
@@ -16,8 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, SSMConfig
+from ..distributed.tensor_parallel import current
 from ..kernels.ssd_scan.ops import ssd_scan
-from .common import dense, rms_norm
+from .common import dense, rms_norm, rms_norm_split
 from .params import ParamSpec
 
 
@@ -162,6 +168,109 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                        device=x.device).copy_(out.transpose(1, 2))
 
 
+# the leaves laid out along the model axis, and the dim of each
+_SHARDED_DIMS = {"in_proj": -1, "conv_w": -1, "conv_b": -1, "a_log": -1,
+                 "dt_bias": -1, "d_skip": -1, "out_proj": -2}
+
+
+def _whole_widths(cfg: ModelConfig) -> dict:
+    s = cfg.ssm
+    di, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+    gn2 = 2 * s.n_groups * s.d_state
+    return {"in_proj": 2 * di + gn2 + nh, "conv_w": di + gn2,
+            "conv_b": di + gn2, "a_log": nh, "dt_bias": nh, "d_skip": nh,
+            "out_proj": di}
+
+
+def _take(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """x's last dim taken at ``index``, contiguous (K3 reads dt as a
+    contiguous tensor); the dim moved first so that the gradient is an
+    ``index_put`` along dim 0 (what the export lowers)."""
+    return torch.index_select(x.movedim(-1, 0), 0, index).movedim(
+        0, -1).contiguous()
+
+
+def _rank_columns(cfg: ModelConfig, tp, like: torch.Tensor):
+    """The rank's columns of the packed [z, x, B, C, dt] projection (its
+    heads' z, x and dt, every group's B and C) and of the conv's [x, B, C]
+    channels, as index tensors computed from its model coordinate."""
+    s = cfg.ssm
+    di, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+    gn2 = 2 * s.n_groups * s.d_state
+    dl, hl = di // tp.size, nh // tp.size
+    m = tp.index(like)
+    x_cols = m * dl + torch.arange(dl, device=like.device)
+    conv = torch.cat([x_cols, di + torch.arange(gn2, device=like.device)])
+    heads = m * hl + torch.arange(hl, device=like.device)
+    return torch.cat([x_cols, di + conv, 2 * di + gn2 + heads]), conv
+
+
+def _mamba2_rank(cfg: ModelConfig, p: dict, hidden: torch.Tensor, tp,
+                 ssm_state: torch.Tensor | None):
+    """One rank's share of the Mamba2 block on a model axis that divides
+    the SSM heads: its heads' z, x and dt with every group's B and C.
+
+    ``hidden`` enters through *f*.  The rank's block of ``in_proj``'s
+    columns gives its block of the packed projection, which does not line
+    up with the [z, x, B, C, dt] segments, so the blocks are gathered
+    (their gradient reduce-scattered: each rank's gradient of the whole is
+    a partial, B's and C's from its heads) and the rank's columns taken;
+    ``conv_w`` and ``conv_b`` likewise (a leaf the axis does not divide is
+    whole, and enters through *f*).  K3 runs over the rank's heads; the
+    gated norm over its block of the row (:func:`rms_norm_split`, with
+    ``out_norm``'s block); ``out_proj`` row-parallel, leaving through
+    *g*."""
+    s_cfg: SSMConfig = cfg.ssm
+    di = s_cfg.d_inner(cfg.d_model)
+    g, n = s_cfg.n_groups, s_cfg.d_state
+    whole = _whole_widths(cfg)
+    dl, hl = di // tp.size, s_cfg.n_heads(cfg.d_model) // tp.size
+    bsz, s, _ = hidden.shape
+
+    def gathered(name):
+        w = p[name]
+        return (tp.gather_columns(w) if w.shape[-1] < whole[name]
+                else tp.copy(w))
+
+    cols, conv = _rank_columns(cfg, tp, hidden)
+    if p["in_proj"].shape[-1] < whole["in_proj"]:
+        packed = tp.gather_columns(dense(tp.copy(hidden), p["in_proj"]))
+    else:
+        packed = dense(tp.copy(hidden), tp.copy(p["in_proj"]))
+    z, xbc, dt_raw = torch.split(_take(packed, cols),
+                                 [dl, dl + 2 * g * n, hl], dim=-1)
+    xbc_conv = F.silu(_causal_conv(
+        xbc, _take(gathered("conv_w"), conv),
+        _take(gathered("conv_b"), conv)))
+    x_in, b_in, c_in = torch.split(xbc_conv, [dl, g * n, g * n], dim=-1)
+    x_in = x_in.reshape(bsz, s, hl, s_cfg.head_dim)
+    b_in = b_in.reshape(bsz, s, g, n)
+    c_in = c_in.reshape(bsz, s, g, n)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    a = -torch.exp(p["a_log"].float())
+    chunk = min(s_cfg.chunk_size, s)
+    scan = ssd_scan if cfg.attn_impl == "kernel" else ssd_chunked
+    y, new_state = scan(x_in, dt, a, b_in, c_in, chunk=chunk,
+                        initial_state=ssm_state)
+    y = y + x_in * p["d_skip"].to(hidden.dtype)[None, None, :, None]
+    y = rms_norm_split(y.reshape(bsz, s, dl) * F.silu(z),
+                       tp.block(p["out_norm"], 0, dl), di, cfg.rms_eps)
+    out = tp.reduce(dense(y, p["out_proj"]))
+    return out, new_state, xbc[:, -(p["conv_w"].shape[0] - 1):]
+
+
+def _whole_on_the_rank(cfg: ModelConfig, p: dict, tp) -> dict:
+    """The layer's leaves whole, for a model axis that does not divide the
+    SSM heads: each leaf the axis divides is gathered (its gradient the
+    rank's block of the whole's, which every rank computes alike)."""
+    whole = _whole_widths(cfg)
+    out = dict(p)
+    for name, dim in _SHARDED_DIMS.items():
+        if p[name].shape[dim] < whole[name]:
+            out[name] = tp.whole(p[name], p[name].dim() + dim)
+    return out
+
+
 def mamba2_forward(cfg: ModelConfig, p: dict, hidden: torch.Tensor,
                    ssm_state: torch.Tensor | None = None,
                    conv_state: torch.Tensor | None = None,
@@ -170,6 +279,8 @@ def mamba2_forward(cfg: ModelConfig, p: dict, hidden: torch.Tensor,
 
     Prefill: decode=False, states None -> (y, final_state, conv_state).
     Decode: decode=True with states -> the one-token update.
+    On a model axis (prefill and training): :func:`_mamba2_rank` where the
+    axis divides the heads, else the layer whole on every model rank.
     """
     s_cfg: SSMConfig = cfg.ssm
     d = cfg.d_model
@@ -177,6 +288,11 @@ def mamba2_forward(cfg: ModelConfig, p: dict, hidden: torch.Tensor,
     nh = s_cfg.n_heads(d)
     g, n = s_cfg.n_groups, s_cfg.d_state
     bsz, s, _ = hidden.shape
+    tp = current()
+    if tp is not None and not decode:
+        if p["a_log"].shape[-1] < nh:
+            return _mamba2_rank(cfg, p, hidden, tp, ssm_state)
+        p = _whole_on_the_rank(cfg, p, tp)
 
     zxbcdt = dense(hidden, p["in_proj"])
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * g * n, nh], dim=-1)

@@ -7,8 +7,8 @@ K2b), then the optimizer on dicts of tensors.  With a mesh (``[data,
 model]`` or ``[pod, data, model]``) the step is one rank's program: the
 rank's shards in, its data-axis collectives around the loss, the gradients
 and the clip (``distributed/data_parallel.py``), and, on a ``model`` axis
-above 1, the layers of the dense, MLA and MoE families split over the model
-ranks (``distributed/tensor_parallel.py``).  :func:`train_step_exports` and
+above 1, the layers of every family split over the model ranks
+(``distributed/tensor_parallel.py``).  :func:`train_step_exports` and
 :func:`forward_exports` (each with or without a mesh) give the step and the
 forward with abstract arguments for
 :func:`repro_torch.core.pipeline.export_workload`.
@@ -82,9 +82,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     the gradients as means over the pod and data ranks, and updates its
     shards with the clip's norm taken over all of them
     (``distributed/data_parallel.py``).  A ``model`` axis above 1 takes
-    the dense, MLA and MoE families (``tensor_parallel.for_mesh`` raises
-    for the SSM and hybrid ones); an MoE then runs the reference's
-    expert-parallel dispatch on the rank's tokens."""
+    every family (``distributed/tensor_parallel.py``); an MoE then runs the
+    reference's expert-parallel dispatch on the rank's tokens, a Mamba2
+    layer its block of the SSM heads."""
     _, update_fn = make_optimizer(opt_cfg)
     if donate:
         if mesh is not None:

@@ -29,6 +29,8 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_bwd)
 from repro_torch.kernels.flash_attention.ref import (
     bwd_kernel_error as k1b_error, kernel_error as flash_error, lse_error)
+from repro_torch.kernels.rmsnorm import ops as k2_ops
+from repro_torch.kernels.rmsnorm import ref as k2_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
 from repro_torch.kernels.rmsnorm.ref import (
     bwd_kernel_error as k2b_error, kernel_error as rmsnorm_error,
@@ -523,6 +525,99 @@ def test_rmsnorm_bwd_group_widths_on_card(cuda, dtype, d, offset):
     _, rx, rrow, _, rw = k2b_error(dx, dw, x, w, dy, offset=offset)
     assert max(rx, rrow, rw) <= 1.0, (rx, rrow, rw)
     assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+
+
+# the split-row K2 and K2b: (rows, whole row, block, the block's index) at
+# a model rank's gated norm (mamba2-370m's 2048 and zamba2-2.7b's 5120 over
+# 16 ranks), and a ragged block of an odd row
+SPLIT_ROWS = [(4096, 2048, 128, 5), (4096, 5120, 320, 15), (37, 1001, 143, 3)]
+
+
+def _split_inputs(seed, rows, whole, dtype, cuda):
+    x, w, dy = _normal(seed, (rows, whole), (whole,), (rows, whole))
+    return [t.to(cuda) for t in _torch([x, 1.0 + 0.1 * w, dy], dtype)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,whole,d,index", SPLIT_ROWS)
+@pytest.mark.parametrize("offset", [0.0, 1.0])
+def test_rmsnorm_split_row_kernels_on_card(cuda, dtype, rows, whole, d,
+                                           index, offset):
+    # each of the four kernels on a block of the whole rows: the row sums
+    # against the plain version's over the block (an f32 sum of d terms in
+    # another order: within d 2^-24 of the sum of their magnitudes), and
+    # the norm and its gradients, from each row's sums over the whole row,
+    # against the whole rows' plain forward and backward at the block's
+    # columns with K2's and K2b's tolerances; one launch each, and the
+    # backward twice to equal bits
+    x, w, dy = _split_inputs(20, rows, whole, dtype, cuda)
+    cols = slice(index * d, (index + 1) * d)
+    xb, wb, gb = (t[..., cols].contiguous() for t in (x, w, dy))
+    fns = (k2_ops.rmsnorm_sumsq, k2_ops.rmsnorm_split, k2_ops.rmsnorm_bwd_dot,
+           k2_ops.rmsnorm_bwd_split)
+    before = [f.launches for f in fns]
+    sumsq = k2_ops.rmsnorm_sumsq(xb)
+    dot = k2_ops.rmsnorm_bwd_dot(xb, wb, gb, offset)
+    total = k2_ref.rmsnorm_sumsq_ref(x)
+    dot_whole = k2_ref.rmsnorm_bwd_dot_ref(x, w, dy, offset)
+    y = k2_ops.rmsnorm_split(xb, wb, total, 1e-5, offset, whole)
+    dx, dw = k2_ops.rmsnorm_bwd_split(xb, wb, gb, total, dot_whole, 1e-5,
+                                      offset, whole)
+    again = k2_ops.rmsnorm_bwd_split(xb, wb, gb, total, dot_whole, 1e-5,
+                                     offset, whole)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1, 2]
+    xf, wf, gf = xb.float(), offset + wb.float(), gb.float()
+    for got, want, mag in (
+            (sumsq, k2_ref.rmsnorm_sumsq_ref(xb), (xf * xf).sum(-1)),
+            (dot, k2_ref.rmsnorm_bwd_dot_ref(xb, wb, gb, offset),
+             (xf * wf * gf).abs().sum(-1))):
+        assert got.dtype == torch.float32 and got.shape == (rows,)
+        assert ((got - want).abs() <= d * 2.0 ** -24 * mag).all()
+    _, elem = rmsnorm_error(y, x, w, offset=offset, cols=cols)
+    assert elem <= 1.0, elem
+    _, rx, rrow, _, rw = k2b_error(dx, dw, x, w, dy, offset=offset,
+                                   cols=cols)
+    assert max(rx, rrow, rw) <= 1.0, (rx, rrow, rw)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_row_norm_autograd_on_card(cuda, dtype):
+    # rmsnorm_split_row on a block of 320 of rows of 5120, the other
+    # blocks' row sums added by the reduce (the model ranks' all-reduce):
+    # its output and the gradients of the block of x and of w against
+    # rmsnorm's (K2 and K2b) over the whole rows, at the block's columns
+    rows, whole, d, index = 4096, 5120, 320, 7
+    x, w, dy = _split_inputs(21, rows, whole, dtype, cuda)
+    cols = slice(index * d, (index + 1) * d)
+    others = torch.ones(whole, dtype=torch.bool, device=cuda)
+    others[cols] = False
+    xr, wr = (t.detach().requires_grad_(True) for t in (x, w))
+    ref = rmsnorm(xr, wr)
+    ref_dx, ref_dw = torch.autograd.grad(ref, (xr, wr), dy)
+    xb, wb = (t[..., cols].contiguous().requires_grad_(True) for t in (x, w))
+    passes = []
+
+    def reduce(sums):
+        # forward the other blocks' sums of squares, backward their sums of
+        # x w dy
+        rest = (k2_ref.rmsnorm_sumsq_ref(x[:, others]) if not passes else
+                k2_ref.rmsnorm_bwd_dot_ref(x[:, others], w[others],
+                                           dy[:, others], 0.0))
+        passes.append(1)
+        return sums + rest
+    y = k2_ops.rmsnorm_split_row(xb, wb, 1e-5, 0.0, whole, reduce)
+    dx, dw = torch.autograd.grad(y, (xb, wb), dy[:, cols].contiguous())
+    torch.cuda.synchronize()
+    assert len(passes) == 2
+    tol = k2_ref.RTOL[dtype]
+    for got, want in ((y, ref[:, cols]), (dx, ref_dx[:, cols]),
+                      (dw, ref_dw[cols])):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 4 * tol * want.float().abs().max().item(), err
 
 
 def _tiny_llama():

@@ -121,9 +121,6 @@ def _paths(tree, prefix=""):
     return {prefix.rstrip("/"): tree}
 
 
-# the families without a per-rank layout on a model axis yet, each naming
-# its part of ROADMAP Queue 1 item 10
-WAITING = ["mamba2-370m", "zamba2-2.7b"]
 # the MoE families, which take a model axis since expert parallelism
 # (tests/test_torch_expert_parallel.py)
 EXPERT_PARALLEL = ["mixtral-8x22b", "deepseek-v3-671b"]
@@ -133,10 +130,11 @@ EXPERT_PARALLEL = ["mixtral-8x22b", "deepseek-v3-671b"]
                                   "zamba2-2.7b", "deepseek-v3-671b",
                                   "a second world"])
 def test_a_model_axis_and_a_second_world_raise(case):
-    """The SSM and hybrid smoke configs on ``[2, 2]`` raise, naming item
-    10; the MoE ones (mixtral's GQA, deepseek-v3's MLA) export a per-rank
-    text there (the dense family's: ``test_torch_tensor_parallel.py``); a
-    fake world refuses to replace a process group that is up."""
+    """The SSM and hybrid smoke configs (a Mamba2 layer over the rank's SSM
+    heads) and the MoE ones (mixtral's GQA, deepseek-v3's MLA) export a
+    per-rank text on ``[2, 2]`` (the dense family's:
+    ``test_torch_tensor_parallel.py``); a fake world refuses to replace a
+    process group that is up."""
     with traced_mesh((2, 2), "cpu") as mesh:
         if case == "a second world":
             with pytest.raises(RuntimeError, match="already initialised"):
@@ -144,10 +142,6 @@ def test_a_model_axis_and_a_second_world_raise(case):
                     pass
             return
         cfg = get_smoke_config(case)
-        if case in WAITING:
-            with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-                loop.train_step_exports(cfg, SEQ, BATCH, mesh)
-            return
         step, args = loop.train_step_exports(cfg, SEQ, BATCH, mesh)
         text = export_workload(step, *args, device="cpu",
                                per_rank=(step, args, mesh)).hlo_text
@@ -418,23 +412,19 @@ def test_per_rank_flops_are_the_raw_texts_over_n(exported):
 @pytest.mark.parametrize("arch", ["mamba2-370m", "mixtral-8x22b",
                                   "zamba2-2.7b", "deepseek-v3-671b"])
 def test_a_forward_workload_with_a_mesh_raises(arch, monkeypatch):
-    """A forward workload on a ``[2, 2]`` mesh of a family with no
-    per-rank layout on the model axis (SSM, hybrid) raises, naming its part
-    of ROADMAP item 10, before any trace; an MoE id's exports its per-rank
-    forward as the optimized text (the dense family's:
-    ``test_torch_tensor_parallel.py``), here at its published width cut to
-    one layer (a trace of every layer takes a minute and more)."""
+    """A forward workload on a ``[2, 2]`` mesh of the SSM, hybrid and MoE
+    ids exports its per-rank forward as the optimized text (the dense
+    family's: ``test_torch_tensor_parallel.py``), here at its published
+    width cut to one layer, the hybrid's to one super-block of
+    ``hybrid_attn_every`` Mamba2 layers and the shared block (a trace of
+    every layer takes a minute and more)."""
     spec = campaign.WorkloadSpec(name="fwd", arch=arch, mode="forward",
                                  seq=SEQ, batch=BATCH, mesh=(2, 2))
-    if arch in WAITING:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            build_workload(spec, device="cpu")
-        return
     from repro_torch.models import registry
 
     whole = registry.get_config
-    monkeypatch.setattr(registry, "get_config",
-                        lambda a: whole(a).scaled(num_layers=1))
+    monkeypatch.setattr(registry, "get_config", lambda a: whole(a).scaled(
+        num_layers=whole(a).hybrid_attn_every or 1))
     w = build_workload(spec, device="cpu")
     assert w.meta["mesh"] == [2, 2]
     assert "mhlo.num_partitions = 4 " in w.hlo_text
